@@ -1,0 +1,29 @@
+"""gogp_torch: the PyTorch and CUDA port of gogp_tpu, for NVIDIA Hopper.
+
+Module layout mirrors ``gogp_tpu/`` one for one; each module names its JAX
+twin, against which the tests hold it.
+
+- ``gogp_torch.kernels`` - pair-function kernels and combinators.
+- ``gogp_torch.gp``      - covariance assembly, LML, prediction.
+- ``gogp_torch.models``  - the flat parameter-vector protocol.
+- ``gogp_torch.ops``     - the linear-algebra front door (``linalg``) and the
+  blocked driver with its hand-written CUDA kernels (``cholesky_blocked``,
+  sources in ``gogp_torch/csrc/``).
+- ``gogp_torch.convert`` - state carried across from the JAX package.
+
+The package never imports JAX.
+"""
+
+__version__ = "0.1.0"
+
+from gogp_torch.gp.core import GP  # noqa: F401
+from gogp_torch.kernels import (  # noqa: F401
+    constant_noise,
+    matern32,
+    matern52,
+    matern52_ref,
+    normal,
+    periodic,
+    rbf,
+    uniform_noise,
+)

@@ -1,0 +1,17 @@
+from gogp_torch.kernels.base import Kernel, NoiseKernel  # noqa: F401
+from gogp_torch.kernels.noise import (  # noqa: F401
+    constant_noise,
+    jitter_only_noise,
+    uniform_noise,
+)
+from gogp_torch.kernels.stationary import (  # noqa: F401
+    SQRT3,
+    SQRT5,
+    matern32,
+    matern52,
+    matern52_ref,
+    normal,
+    periodic,
+    rational_quadratic,
+    rbf,
+)

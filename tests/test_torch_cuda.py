@@ -1,0 +1,182 @@
+"""The port's CUDA kernels on the card, against their plain PyTorch versions.
+
+Every test here is marked ``cuda`` and skips without a CUDA device.  The file
+imports no JAX, so it runs where only PyTorch is installed; tests/conftest.py
+imports JAX, so on such a machine run it as
+
+    python -m pytest --noconftest tests/test_torch_cuda.py -q
+
+Tolerances are for f32 on both sides: rtol and atol 1e-4 on SPD inputs of
+norm O(n), where the kernels and cuBLAS/cuSOLVER sum in different orders.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from gogp_torch import GP, rbf, uniform_noise
+from gogp_torch.gp import core
+from gogp_torch.models import params
+from gogp_torch.ops import cholesky_blocked as cb
+from gogp_torch.ops import linalg
+
+TOL = dict(rtol=1e-4, atol=1e-4)
+B = cb.DEFAULT_BLOCK  # the one tile size K2 and K5 are built for
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _spd(n, device, seed=0):
+    rng = np.random.default_rng(seed)
+    a = rng.normal(size=(n, n))
+    return torch.as_tensor(a @ a.T + n * np.eye(n), dtype=torch.float32, device=device)
+
+
+@pytest.mark.cuda
+def test_cholesky_inv_tile(cuda):
+    A = _spd(B, cuda)
+    before = cb.LAUNCHES["chol_inv_tile"]
+    L, V = cb.cholesky_inv_tile(A)
+    Lp, Vp = cb.cholesky_inv_tile_plain(A)
+    torch.testing.assert_close(L, Lp, **TOL)
+    torch.testing.assert_close(V, Vp, **TOL)
+    assert cb.LAUNCHES["chol_inv_tile"] == before + 1
+
+
+@pytest.mark.cuda
+def test_cholesky_inv_tile_non_positive_pivot_is_nan(cuda):
+    A = _spd(B, cuda)
+    A[10, 10] = -1.0
+    L, _ = cb.cholesky_inv_tile(A)
+    assert torch.isnan(L).any()
+
+
+@pytest.mark.cuda
+def test_tril_inv_tile_stack(cuda):
+    b = B
+    L = torch.linalg.cholesky(_spd(4 * b, cuda))
+    tiles = torch.stack([L[k * b:(k + 1) * b, k * b:(k + 1) * b] for k in range(4)])
+    torch.testing.assert_close(cb._tile_invs(L, b), cb.tril_inv_tile_plain(tiles), **TOL)
+    torch.testing.assert_close(cb.tril_inv_tile(tiles[1].contiguous()), cb.tril_inv_tile_plain(tiles[1]), **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,b", [(1024, B), (512, B), (512, 64)])
+def test_trsv_both_directions(cuda, n, b):
+    """K3 at the driver's tile and, from the driver's factor, at b = 64: the
+    solve takes any multiple of 32 that divides its 1024 threads."""
+    L, _ = cb.blocked_cholesky_invs(_spd(n, cuda), B)
+    tiles = L.view(n // b, b, n // b, b).diagonal(dim1=0, dim2=2).permute(2, 0, 1)
+    invs = cb.tril_inv_tile_plain(tiles).contiguous()
+    y = torch.as_tensor(np.random.default_rng(1).normal(size=n), dtype=torch.float32, device=cuda)
+    torch.testing.assert_close(cb.trsv_lower(L, y, invs, b), cb.trsv_lower_plain(L, y), **TOL)
+    torch.testing.assert_close(cb.trsv_lower_t(L, y, invs, b), cb.trsv_lower_t_plain(L, y), **TOL)
+
+
+@pytest.mark.cuda
+def test_blocked_driver_matches_cusolver(cuda):
+    K = _spd(1024, cuda)
+    L, _ = cb.blocked_cholesky_invs(K, 128)
+    torch.testing.assert_close(L, torch.linalg.cholesky(K), **TOL)
+
+
+@pytest.mark.cuda
+def test_kernel_wrappers_raise_on_bad_input(cuda):
+    with pytest.raises(TypeError):
+        cb.cholesky_inv_tile(torch.eye(B, dtype=torch.float64, device=cuda))
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        cb.cholesky_inv_tile(torch.eye(64, device=cuda))  # K2 is built for B only
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        cb.tril_inv_tile(torch.eye(256, device=cuda))  # so is K5
+    with pytest.raises(ValueError):
+        cb.tril_inv_tile(torch.eye(B, device=cuda).T)  # not contiguous
+    with pytest.raises(ValueError):
+        cb.trsv_lower(torch.eye(256, device=cuda), torch.ones(256, device=cuda),
+                      torch.ones(2, 64, 64, device=cuda), B)  # invs of the wrong shape
+
+
+@pytest.mark.cuda
+def test_slice_kernel_path_matches_f64_plain_path(cuda):
+    """absorb / lml / predict at n = 1024 through the front door: kernels in
+    f32 against the plain path in f64, and every kernel launched."""
+    rng = np.random.default_rng(0)
+    x = np.sort(rng.uniform(0, 25, (1024, 1)), axis=0)
+    y = np.sin(x[:, 0] / 3.0) + 0.1 * rng.normal(size=1024)
+    z = np.linspace(0, 25, 64)
+    gp = GP(ndim=1, simil=rbf.scaled(), noise=uniform_noise)
+
+    def run(dtype):
+        t = lambda a: torch.as_tensor(a, dtype=dtype, device=cuda)  # noqa: E731
+        ts, tn = t([1.0, 1.0]), t([1.0])
+        post = core.absorb(gp, ts, tn, t(x), t(y))
+        return (core.lml_from_posterior(post), core.lml(gp, ts, tn, t(x), t(y)),
+                *core.predict_from_posterior(gp, post, t(z)))
+
+    cb.reset_launch_counts()
+    got = run(torch.float32)
+    assert all(n >= 1 for n in cb.LAUNCHES.values()), cb.LAUNCHES
+    with linalg.force_plain():
+        want = run(torch.float64)
+    for g, w in zip(got[:2], want[:2]):
+        assert abs(float(g) - float(w)) <= 1e-4 * abs(float(w))
+    for g, w in zip(got[2:], want[2:]):
+        torch.testing.assert_close(g.double(), w, rtol=0, atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_lml_core_backward_raises(cuda):
+    K = _spd(1024, cuda).requires_grad_(True)
+    value = linalg.lml_core(K, torch.ones(1024, device=cuda))
+    with pytest.raises(NotImplementedError):
+        value.backward()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("output", ["lml_from_posterior", "predict_mean", "predict_std", "gp_observe"])
+def test_blocked_path_backward_raises(cuda, output):
+    """A gradient with respect to log-theta through any output of the kernel
+    path raises: the kernels write through raw pointers, which autograd does
+    not see, so it would otherwise come out wrong with nothing raised."""
+    x = torch.linspace(0, 25, 1024, device=cuda)[:, None]
+    y = torch.sin(x[:, 0] / 3.0)
+    z = torch.linspace(0, 25, 64, device=cuda)
+    gp = GP(ndim=1, simil=rbf.scaled(), noise=uniform_noise)
+    v = torch.zeros(gp.n_theta, device=cuda, requires_grad=True)
+    post = params.gp_posterior(gp, v, x=x, y=y)
+    value = {
+        "lml_from_posterior": lambda: core.lml_from_posterior(post),
+        "predict_mean": lambda: core.predict_from_posterior(gp, post, z)[0].sum(),
+        "predict_std": lambda: core.predict_from_posterior(gp, post, z)[1].sum(),
+        "gp_observe": lambda: params.gp_observe(gp, v, x=x, y=y),
+    }[output]()
+    assert torch.isfinite(value)
+    with pytest.raises(NotImplementedError):
+        value.backward()
+
+
+@pytest.mark.cuda
+def test_lml_core_beyond_k3_limit_takes_torch_linalg(cuda):
+    """At n = 54016, the first multiple of the tile that K3's shared memory
+    cannot take, the C side refuses to launch, and the front door's lml_core
+    runs torch.linalg instead (about 12 GB per n x n f32 matrix)."""
+    n = 54016
+    assert not cb.trsv_fits(n, B)
+    x = torch.linspace(0, 100, n, device=cuda)
+    K = x[:, None] - x[None, :]
+    K.square_().mul_(-0.5).exp_()
+    K.diagonal().add_(1.0)
+    y = torch.sin(x / 3.0)
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        cb.trsv_lower(K, y, torch.zeros(n // B, B, B, device=cuda), B)
+    cb.reset_launch_counts()
+    got = linalg.lml_core(K, y)
+    assert all(v == 0 for v in cb.LAUNCHES.values()), cb.LAUNCHES
+    with linalg.force_plain():
+        want = linalg.lml_core(K, y)
+    assert torch.isfinite(got) and float(got) == float(want)
