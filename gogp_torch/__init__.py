@@ -5,7 +5,10 @@ twin, against which the tests hold it.
 
 - ``gogp_torch.kernels`` - pair-function kernels and combinators.
 - ``gogp_torch.gp``      - covariance assembly, LML, prediction.
-- ``gogp_torch.models``  - the flat parameter-vector protocol.
+- ``gogp_torch.models``  - the flat parameter-vector protocol, log-density
+  composition and gradient masks.
+- ``gogp_torch.infer``   - maximum-likelihood fits (``mle.adam``,
+  ``mle.lbfgs``).
 - ``gogp_torch.ops``     - the linear-algebra front door (``linalg``) and the
   blocked driver with its hand-written CUDA kernels (``cholesky_blocked``,
   sources in ``gogp_torch/csrc/``).
@@ -17,6 +20,7 @@ The package never imports JAX.
 __version__ = "0.1.0"
 
 from gogp_torch.gp.core import GP  # noqa: F401
+from gogp_torch.infer import mle  # noqa: F401
 from gogp_torch.kernels import (  # noqa: F401
     constant_noise,
     matern32,
@@ -27,3 +31,4 @@ from gogp_torch.kernels import (  # noqa: F401
     rbf,
     uniform_noise,
 )
+from gogp_torch.models import make_gp_logp, masked_value_and_grad  # noqa: F401

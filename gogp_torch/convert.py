@@ -1,7 +1,8 @@
 """Carry state across from the JAX package, as numpy arrays.
 
 The JAX package's state is a handful of arrays: theta vectors, flat parameter
-vectors and the fields of a ``gogp_tpu.gp.core.Posterior``.  The caller turns
+vectors, the fields of a ``gogp_tpu.gp.core.Posterior`` and those of a
+``gogp_tpu.infer.mle.OptResult``.  The caller turns
 them into numpy arrays (``np.asarray``) and these functions put them on the
 device the caller names.  This module does not import JAX.
 """
@@ -14,6 +15,7 @@ import numpy as np
 import torch
 
 from gogp_torch.gp.core import Posterior
+from gogp_torch.infer.mle import OptResult
 
 
 def array_from_numpy(a, device, dtype: torch.dtype | None = None) -> torch.Tensor:
@@ -34,3 +36,17 @@ def posterior_to_numpy(post: Posterior) -> dict[str, np.ndarray]:
     """The fields of a :class:`Posterior` as numpy arrays, copied to the
     host."""
     return {name: t.detach().cpu().numpy() for name, t in post._asdict().items()}
+
+
+def opt_result(res: Mapping[str, Any] | Any, device, dtype: torch.dtype | None = None) -> OptResult:
+    """An :class:`OptResult` from the five fields of the JAX one (a mapping or
+    the JAX NamedTuple): ``x`` and ``value`` as tensors on ``device``,
+    ``iters`` as an int, ``converged`` and ``stalled`` as bools."""
+    fields = res._asdict() if hasattr(res, "_asdict") else res
+    return OptResult(
+        array_from_numpy(fields["x"], device, dtype),
+        array_from_numpy(fields["value"], device, dtype),
+        int(np.asarray(fields["iters"])),
+        bool(np.asarray(fields["converged"])),
+        bool(np.asarray(fields["stalled"])),
+    )

@@ -1,5 +1,6 @@
 // Device helpers shared by the tile kernels (chol_inv_tile.cu,
-// tril_inv_tile.cu) and the streaming solves (trsv.cu).
+// tril_inv_tile.cu), the whole-matrix factorization (fused_chol.cu) and the
+// streaming solves (trsv.cu).
 //
 // Tiles are B x B in shared memory, row-major, with a padded leading
 // dimension B + 1: a warp that reads one COLUMN (32 rows at a
@@ -113,6 +114,141 @@ __device__ __forceinline__ void inv_row_finish(float* __restrict__ V,
 #pragma unroll
     for (int q = 0; q < Q; ++q)
       if (q < p) V[(cp + r) * ld + 32 * q + col] = -acc[q];
+  }
+}
+
+// Cholesky of the 32 x 32 diagonal block of M at (c, c), in place, by one
+// warp: lane l holds row c + l in registers.  dinv[c + s] gets 1 / L[c+s][c+s].
+__device__ __forceinline__ void chol32(float* M, int ld, int c, float* dinv) {
+  const int lane = threadIdx.x & 31;
+  float* row = M + (c + lane) * ld + c;
+  float a[32];
+#pragma unroll
+  for (int k = 0; k < 32; ++k) a[k] = row[k];
+#pragma unroll
+  for (int s = 0; s < 32; ++s) {
+    const float piv = __shfl_sync(kFullMask, a[s], s);
+    const float rs = rsqrtf(piv);  // NaN for a non-positive pivot
+    const float l = a[s] * rs;     // L[c + lane][c + s] on lanes below s
+    if (lane == s) {
+      a[s] = piv * rs;
+      dinv[c + s] = rs;
+    }
+    if (lane > s) a[s] = l;
+#pragma unroll
+    for (int k = s + 1; k < 32; ++k) {
+      const float lk = __shfl_sync(kFullMask, l, k);  // L[c + k][c + s]
+      if (lane >= k) a[k] = fmaf(-l, lk, a[k]);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < 32; ++k)
+    if (k <= lane) row[k] = a[k];
+}
+
+// The block size chol_inv_tile_body is written for.
+constexpr int kTileThreads = 512;
+
+// Shared memory chol_inv_tile_body needs: the working tile, its inverse and
+// the scratch, in floats.
+template <int B>
+constexpr int kTileSmemFloats = 2 * B * kLd<B> + kScratch<B>;
+
+// One B x B SPD tile's Cholesky factor L and its inverse V = inv(L), by one
+// block of kTileThreads threads with kTileSmemFloats<B> floats of shared
+// memory at smem (the body of K2, shared with K1).  Tiles are row-major with
+// leading dimensions lda, ldl, ldv; l_out may alias a.  a is read through
+// L2 (ld.global.cg), never through L1 or the read-only path, so the tile may
+// have been written by other blocks of the same launch before a grid-wide
+// barrier.  A non-positive pivot gives NaN; the body never returns early.
+//
+// Per 32-wide sub-panel p (columns c = 32 p ...):
+//   1. warp 0 factors the 32 x 32 diagonal block in registers (chol32);
+//      meanwhile the other warps start block row p of V (inv_row_partial);
+//   2. the 16 warps invert the diagonal block, a column at a time
+//      (inv32_column);
+//   3. the panel below becomes A_panel inv(L_cc)^T and block row p of V is
+//      finished (inv_row_finish);
+//   4. all threads apply the rank-32 update to the trailing lower triangle.
+template <int B>
+__device__ __forceinline__ void chol_inv_tile_body(const float* a, int lda, float* l_out,
+                                                   int ldl, float* v_out, int ldv,
+                                                   float* smem) {
+  constexpr int kWarps = kTileThreads / 32;
+  constexpr int ld = kLd<B>;
+  constexpr int RP = B > 32 ? (B - 32 + kWarps - 1) / kWarps : 1;  // panel rows per warp
+  constexpr int NK = B > 32 ? B / 32 - 1 : 1;  // trailing column blocks, at most
+  float* M = smem;                       // B x ld working tile; its lower triangle becomes L
+  float* V = M + B * ld;                 // B x ld inverse
+  float* T = V + B * ld;                 // (B/32 - 1) blocks for inv_row_partial
+  float* dinv = T + (B / 32 - 1) * 1024; // B reciprocal pivots
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+
+  for (int idx = tid; idx < B * B; idx += kTileThreads)
+    M[(idx / B) * ld + idx % B] = __ldcg(a + (idx / B) * lda + idx % B);
+  __syncthreads();  // a is read in full before l_out, which may alias it, is written
+
+  for (int p = 0; p < B / 32; ++p) {
+    const int c = 32 * p;
+    if (warp == 0) chol32(M, ld, c, dinv);
+    else if (p > 0) inv_row_partial<B>(M, V, T, p, warp - 1, kWarps - 1);
+    __syncthreads();
+    for (int j = warp; j < 32; j += kWarps) inv32_column(M, V, ld, c, j, dinv);
+    __syncthreads();
+    if (p > 0) inv_row_finish<B>(V, T, p, warp, kWarps);
+    if (c + 32 == B) break;
+    // Panel: P[r][s] = sum_t A[r][c + t] inv(L_cc)[s][t] for the rows r below
+    // the block; warp w takes rows c + 32 + w + 16 m, lane l column s = l.
+    // inv(L_cc) is zero above its diagonal, so every lane sums all 32 t.
+    float pr[RP];
+#pragma unroll
+    for (int m = 0; m < RP; ++m) pr[m] = 0.0f;
+    const float* vs = V + (c + lane) * ld + c;
+#pragma unroll 4
+    for (int t = 0; t < 32; ++t) {
+      const float v = vs[t];
+#pragma unroll
+      for (int m = 0; m < RP; ++m) {
+        const int r = c + 32 + warp + kWarps * m;
+        if (r < B) pr[m] = fmaf(M[r * ld + c + t], v, pr[m]);
+      }
+    }
+    __syncthreads();  // the panel is read in full before it is overwritten
+#pragma unroll
+    for (int m = 0; m < RP; ++m) {
+      const int r = c + 32 + warp + kWarps * m;
+      if (r < B) M[r * ld + c + lane] = pr[m];
+    }
+    __syncthreads();
+    // Trailing update of the lower triangle: M[i][k] -= P[i, :] . P[k, :],
+    // lane l taking the columns k = c + 32 + l + 32 n of row i at once.
+    const int nk = (B - c - 32) / 32;
+    for (int i = c + 32 + warp; i < B; i += kWarps) {
+      const float* pi = M + i * ld + c;
+      float acc[NK];
+#pragma unroll
+      for (int n = 0; n < NK; ++n) acc[n] = 0.0f;
+#pragma unroll 4
+      for (int s = 0; s < 32; ++s) {
+        const float ps = pi[s];
+#pragma unroll
+        for (int n = 0; n < NK; ++n)
+          if (n < nk) acc[n] = fmaf(ps, M[(c + 32 + lane + 32 * n) * ld + c + s], acc[n]);
+      }
+#pragma unroll
+      for (int n = 0; n < NK; ++n) {
+        const int k = c + 32 + lane + 32 * n;
+        if (n < nk && k <= i) M[i * ld + k] -= acc[n];
+      }
+    }
+    __syncthreads();
+  }
+  __syncthreads();
+
+  for (int idx = tid; idx < B * B; idx += kTileThreads) {
+    const int i = idx / B, k = idx % B;
+    l_out[i * ldl + k] = (k <= i) ? M[i * ld + k] : 0.0f;
+    v_out[i * ldv + k] = (k <= i) ? V[i * ld + k] : 0.0f;
   }
 }
 

@@ -74,8 +74,8 @@ def gp_posterior(gp: GP, v: Tensor, x=None, y=None, mask=None) -> Posterior:
 def gp_observe(gp: GP, v: Tensor, x=None, y=None, mask=None, precision: str | None = None) -> Tensor:
     """Log marginal likelihood at a flat parameter vector (the reference
     ``GP.Observe``); 0 with no observations.  Autograd of it gives the
-    reference ``GP.Gradient`` on the plain path; the CUDA kernel path is
-    forward only (``cholesky_blocked.lml_core``)."""
+    reference ``GP.Gradient`` on both paths: on the kernel path through
+    ``cholesky_blocked.lml_core``'s analytic GPML-5.9 backward."""
     v = torch.as_tensor(v)
     p = split_params(gp, v)
     if p.x is not None:

@@ -1,9 +1,11 @@
-"""Blocked Cholesky, streaming solves and tile inverses for Hopper.
+"""Blocked Cholesky, streaming solves, tile inverses and their pullbacks,
+for Hopper.
 
-PyTorch twin of ``gogp_tpu/ops/cholesky_pallas.py``, forward parts.  The
-hand-written CUDA kernels (sources in ``gogp_torch/csrc/``, built by
-``_build.py``) replace the TPU's Pallas kernels one for one:
+PyTorch twin of ``gogp_tpu/ops/cholesky_pallas.py``.  The hand-written CUDA
+kernels (sources in ``gogp_torch/csrc/``, built by ``_build.py``) replace the
+TPU's Pallas kernels one for one:
 
+    K1  fused_cholesky_invs <- _fused_chol_kernel / fused_cholesky_invs
     K2  cholesky_inv_tile   <- _chol_inv_kernel / pallas_cholesky_inv_tile
     K3  trsv_lower          <- _trsv_kernel / pallas_trsv_lower
         trsv_lower_t        <- _trsv_t_kernel / pallas_trsv_lower_t
@@ -14,15 +16,28 @@ the CPU takes the plain version; a CUDA tensor launches the kernel or raises.
 There is no fallback between the two.  Each launch adds one to its entry in
 :data:`LAUNCHES`.
 
-Gradients: on the CPU the plain versions run under ordinary autograd.  On
-CUDA the kernels write their outputs through raw pointers, which autograd
-neither records nor sees, so every CUDA entry point here (the four kernel
-wrappers, both drivers and ``lml_core``) runs inside :class:`_ForwardOnly`,
-whose backward raises ``NotImplementedError``: a gradient through the kernel
-path fails loudly instead of coming out wrong.  The analytic backward is the
-next item of ROADMAP.md queue 1.
+``blocked_cholesky_invs`` dispatches as the JAX twin does: K1 for a 2-D
+matrix with n <= ``_FUSED_MAX_N`` unless :func:`no_fused_whole` is set, the
+stepwise driver (K2 per diagonal tile, cuBLAS panels and trailing updates)
+otherwise.
 
-Around the kernels, the panel products and trailing updates of the blocked
+Gradients: the kernels write through raw pointers, which autograd neither
+records nor sees, so the raw kernel wrappers run inside :class:`_ForwardOnly`,
+whose backward raises (a JAX ``pallas_call`` has no VJP of its own either).
+What differentiates are the analytic pullbacks of the JAX package, as
+``torch.autograd.Function``s on both devices, their backwards plain
+``torch.matmul`` plus K5:
+
+    lml_core        GPML 5.9: Kbar = g/2 (alpha alpha^T - K^-1), ybar = -g alpha,
+                    K^-1 = W^T W with W = blocked_tril_inv(L), syrk_lower_t
+    cholesky        Murray's pullback (_chol_bwd), two blocked_trsm_lower_t
+    trsm_lower_ad   Bbar = L^-T Xbar, Lbar = -tril(Bbar X^T)
+    trsm_lower_t_ad Bbar = L^-1 Xbar, Lbar = -tril(X Bbar^T)
+
+On the CPU (under ``force_blocked``) the same Functions run with the plain
+tile versions, which is how the tests hold them against ``jax.grad``.
+
+Around the kernels, the panel products and trailing updates of the stepwise
 driver are ``torch.matmul``, as the JAX package leaves them to XLA.  On CUDA
 every f32 matmul runs at full f32 precision: the ``precision`` arguments of
 the front door are accepted for parity with the JAX twin and not mapped to
@@ -43,10 +58,19 @@ from gogp_torch.ops import _build
 
 Tensor = torch.Tensor
 
-DEFAULT_BLOCK = 128  # the only tile size K2 and K5 are built for
+DEFAULT_BLOCK = 128  # the only tile size K1, K2 and K5 are built for
 _MIN_N = 1024  # below this the front door runs torch.linalg, as JAX runs XLA
+# K1 takes n <= _FUSED_MAX_N, the JAX twin's gate, carried over from the TPU
+# and not yet measured on the H100 (ROADMAP.md).
+_FUSED_MAX_N = 2047
 
-LAUNCHES = {"chol_inv_tile": 0, "trsv_lower": 0, "trsv_lower_t": 0, "tril_inv_tile": 0}
+LAUNCHES = {
+    "fused_cholesky_invs": 0,
+    "chol_inv_tile": 0,
+    "trsv_lower": 0,
+    "trsv_lower_t": 0,
+    "tril_inv_tile": 0,
+}
 
 
 def reset_launch_counts() -> None:
@@ -69,6 +93,22 @@ def force_blocked(block: int):
         yield
     finally:
         _FORCED_BLOCK = prev
+
+
+_FUSED_WHOLE = True
+
+
+@contextlib.contextmanager
+def no_fused_whole():
+    """Send ``blocked_cholesky_invs`` through the stepwise driver at every n
+    (the twin of ``cp.no_fused_whole()``): for timing K1 against it, and for
+    tests of the stepwise driver."""
+    global _FUSED_WHOLE
+    prev, _FUSED_WHOLE = _FUSED_WHOLE, False
+    try:
+        yield
+    finally:
+        _FUSED_WHOLE = prev
 
 
 def _eligible_block(K: Tensor) -> int | None:
@@ -110,7 +150,8 @@ def _check_kernel_inputs(what: str, *ts: Tensor) -> None:
 
 
 class _ForwardOnly(torch.autograd.Function):
-    """``fn(*args)`` with a backward that raises (see the module docstring)."""
+    """``fn(*args)`` with a backward that raises: the raw kernel wrappers'
+    guard (see the module docstring)."""
 
     @staticmethod
     def forward(ctx, what, fn, *args):
@@ -120,9 +161,9 @@ class _ForwardOnly(torch.autograd.Function):
     @staticmethod
     def backward(ctx, *grads):
         raise NotImplementedError(
-            f"{ctx.what}: no gradient through the CUDA kernels yet (the GPML 5.9 "
-            "pullback through blocked_tril_inv and syrk_lower_t, and the Cholesky "
-            "and TRSM pullbacks, are not ported); see ROADMAP.md queue 1"
+            f"{ctx.what}: a raw CUDA kernel wrapper has no gradient of its own; "
+            "differentiate through the front door (gogp_torch.ops.linalg) or the "
+            "pullbacks lml_core, cholesky, trsm_lower_ad and trsm_lower_t_ad"
         )
 
 
@@ -152,6 +193,20 @@ def _eye_like(A: Tensor) -> Tensor:
     return torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
 
 
+def _diag_tiles(L: Tensor, block: int) -> Tensor:
+    """The (nb, block, block) diagonal tiles of L, as a view."""
+    nb = L.shape[-1] // block
+    return L.view(nb, block, nb, block).diagonal(dim1=0, dim2=2).permute(2, 0, 1)
+
+
+def fused_cholesky_invs_plain(K: Tensor, block: int = DEFAULT_BLOCK) -> tuple[Tensor, Tensor]:
+    """(L, invs) of K1: the whole factor, then each diagonal tile's inverse
+    by a triangular solve against I."""
+    _check_block(K.shape[-1], block)
+    L = plain_cholesky(K)
+    return L, tril_inv_tile_plain(_diag_tiles(L, block))
+
+
 def cholesky_inv_tile_plain(A: Tensor) -> tuple[Tensor, Tensor]:
     """(L, inv(L)) of one tile: Cholesky, then a triangular solve against I."""
     L = plain_cholesky(A)
@@ -178,6 +233,33 @@ def trsv_lower_t_plain(L: Tensor, y: Tensor) -> Tensor:
 # ---------------------------------------------------------------------------
 
 
+def fused_cholesky_invs(K: Tensor, block: int = DEFAULT_BLOCK) -> tuple[Tensor, Tensor]:
+    """(L, invs) of an n x n SPD matrix in one cooperative launch (K1): the
+    whole lower factor and the (nb, block, block) diagonal-tile inverses.
+    The kernel takes f32, contiguous, block 128 and 1024 <= n <= 2047 with n
+    a multiple of 128.  A non-positive pivot gives NaN, as on the TPU."""
+    if not _is_cuda(K):
+        return fused_cholesky_invs_plain(K, block)
+    return _ForwardOnly.apply("fused_cholesky_invs", _fused_cholesky_invs_cuda, K, block)
+
+
+def _fused_cholesky_invs_cuda(K: Tensor, block: int) -> tuple[Tensor, Tensor]:
+    n = K.shape[-1]
+    if K.dim() != 2 or K.shape[0] != n:
+        raise ValueError(f"fused_cholesky_invs: expected a square matrix, got {tuple(K.shape)}")
+    _check_kernel_inputs("fused_cholesky_invs", K)
+    if block != DEFAULT_BLOCK or n % block != 0 or not _MIN_N <= n <= _FUSED_MAX_N:
+        raise ValueError(
+            f"fused_cholesky_invs: the CUDA kernel takes block {DEFAULT_BLOCK} and n a multiple "
+            f"of it in [{_MIN_N}, {_FUSED_MAX_N}], got n={n}, block={block}"
+        )
+    L = torch.empty_like(K)
+    invs = torch.empty((n // block, block, block), dtype=K.dtype, device=K.device)
+    _launch(K, "gogp_fused_cholesky_invs", K.data_ptr(), L.data_ptr(), invs.data_ptr(), n, block)
+    LAUNCHES["fused_cholesky_invs"] += 1
+    return L, invs
+
+
 def cholesky_inv_tile(A: Tensor) -> tuple[Tensor, Tensor]:
     """(L, inv(L)) of one (b, b) SPD tile (K2).  A non-positive pivot gives
     NaN, as on the TPU."""
@@ -201,6 +283,11 @@ def _cholesky_inv_tile_into(A: Tensor, L: Tensor, V: Tensor) -> None:
         L.copy_(L_)
         V.copy_(V_)
         return
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (A, L, V)):
+        raise RuntimeError(
+            "cholesky_inv_tile: the in-place kernel cannot be recorded by autograd; "
+            "differentiate through cholesky_blocked.cholesky or lml_core"
+        )
     b = A.shape[-1]
     for t in (A, L, V):
         if t.shape != (b, b):
@@ -295,29 +382,35 @@ def _check_block(n: int, block: int) -> None:
 
 def _tile_invs(L: Tensor, block: int) -> Tensor:
     """(nb, block, block) stack of inv(L_kk), one K5 launch over all tiles."""
-    nb = L.shape[-1] // block
-    tiles = L.view(nb, block, nb, block).diagonal(dim1=0, dim2=2).permute(2, 0, 1)
-    return tril_inv_tile(tiles.contiguous())
+    return tril_inv_tile(_diag_tiles(L, block).contiguous())
+
+
+def _takes_fused(K: Tensor, block: int) -> bool:
+    """The JAX twin's rule (cholesky_pallas.py:624-645): K1 for a 2-D matrix
+    with n <= _FUSED_MAX_N unless no_fused_whole() is set.  On CUDA, K1 is
+    built for block 128 and n >= _MIN_N, the front door's own gate; smaller
+    matrices that reach the driver directly take the stepwise one."""
+    n = K.shape[-1]
+    if not _FUSED_WHOLE or K.dim() != 2 or n > _FUSED_MAX_N:
+        return False
+    return not _is_cuda(K) or (block == DEFAULT_BLOCK and n >= _MIN_N)
 
 
 def blocked_cholesky_invs(K: Tensor, block: int = DEFAULT_BLOCK) -> tuple[Tensor, Tensor]:
-    """Right-looking blocked Cholesky; returns ``(L, invs)`` with ``invs`` the
-    (nb, block, block) diagonal-tile inverses that K2 yields as a by-product.
-
-    Twin of ``_stepwise_cholesky_invs``: per block column, K2 factors the
-    diagonal tile, the panel is ``A[c1:, c0:c1] @ inv^T`` and the trailing
-    update is one matmul.  Everything runs in place on one copy of K, whose
-    lower triangle becomes L; K2 reads and writes its diagonal tile there.
-    The JAX package takes its fused whole-matrix kernel (K1) for n <= 2047;
-    K1 is not ported, so every n takes this driver, which computes the same
-    factor.
-    """
-    if _is_cuda(K):
-        return _ForwardOnly.apply("blocked_cholesky_invs", _blocked_cholesky_invs, K, block)
-    return _blocked_cholesky_invs(K, block)
+    """Blocked Cholesky; returns ``(L, invs)`` with ``invs`` the
+    (nb, block, block) diagonal-tile inverses, a by-product of K1 and K2.
+    K1 where :func:`_takes_fused` says so, else the stepwise driver."""
+    if _takes_fused(K, block):
+        return fused_cholesky_invs(K, block)
+    return _stepwise_cholesky_invs(K, block)
 
 
-def _blocked_cholesky_invs(K: Tensor, block: int) -> tuple[Tensor, Tensor]:
+def _stepwise_cholesky_invs(K: Tensor, block: int) -> tuple[Tensor, Tensor]:
+    """Right-looking blocked Cholesky, twin of ``_stepwise_cholesky_invs``:
+    per block column, K2 factors the diagonal tile, the panel is
+    ``A[c1:, c0:c1] @ inv^T`` and the trailing update is one matmul.
+    Everything runs in place on one copy of K, whose lower triangle becomes
+    L; K2 reads and writes its diagonal tile there."""
     n = K.shape[-1]
     _check_block(n, block)
     nb = n // block
@@ -340,12 +433,6 @@ def blocked_trsm_lower(L: Tensor, B: Tensor, block: int = DEFAULT_BLOCK) -> Tens
     with every tile inverse from one batched K5 launch."""
     if B.dim() == 1:
         return blocked_trsm_lower(L, B[:, None], block)[:, 0]
-    if _is_cuda(L, B):
-        return _ForwardOnly.apply("blocked_trsm_lower", _blocked_trsm_lower, L, B, block)
-    return _blocked_trsm_lower(L, B, block)
-
-
-def _blocked_trsm_lower(L: Tensor, B: Tensor, block: int) -> Tensor:
     n = L.shape[-1]
     _check_block(n, block)
     invs = _tile_invs(L, block)
@@ -357,24 +444,181 @@ def _blocked_trsm_lower(L: Tensor, B: Tensor, block: int) -> Tensor:
     return X
 
 
-def _lml_core_forward(K: Tensor, y: Tensor, block: int) -> Tensor:
-    """-(log|K| + y^T K^-1 y)/2.  Twin of ``_lml_core_impl``.  Like the JAX
-    twin it also solves alpha = L^-T z, the residual that the GPML-5.9
-    backward (Kbar = g/2 (alpha alpha^T - K^-1), ybar = -g alpha) will read;
-    the value does not use it."""
-    L, invs = blocked_cholesky_invs(K, block)
-    z = trsv_lower(L, y, invs, block)
-    trsv_lower_t(L, z, invs, block)  # alpha, for the backward to come
-    logdet = 2.0 * torch.log(torch.diagonal(L)).sum()
-    return -0.5 * (logdet + z @ z)
+def blocked_trsm_lower_t(L: Tensor, B: Tensor, block: int = DEFAULT_BLOCK) -> Tensor:
+    """X = L^{-T} B, bottom-up: X[k] = inv(L_kk)^T @ (B[k] - L[k+1:, k]^T @
+    X[k+1:]), with every tile inverse from one batched K5 launch.  Twin of
+    ``blocked_trsm_lower_t`` (cholesky_pallas.py:1190-1211)."""
+    if B.dim() == 1:
+        return blocked_trsm_lower_t(L, B[:, None], block)[:, 0]
+    n = L.shape[-1]
+    _check_block(n, block)
+    invs = _tile_invs(L, block)
+    X = torch.empty(B.shape, dtype=B.dtype, device=B.device)
+    for k in reversed(range(n // block)):
+        c0, c1 = k * block, (k + 1) * block
+        rhs = torch.addmm(B[c0:c1], L[c1:, c0:c1].T, X[c1:], alpha=-1.0) if c1 < n else B[c0:c1]
+        torch.mm(invs[k].T, rhs, out=X[c0:c1])
+    return X
+
+
+def blocked_tril_inv(L: Tensor, block: int = DEFAULT_BLOCK, invs: Tensor | None = None) -> Tensor:
+    """W = inv(L) for lower-triangular L, down block rows:
+    W[k, :k] = -inv(L_kk) (L[k, :k] W[:k, :k]), W[k, k] = inv(L_kk).  The
+    trailing product runs only over W's nonzero (c0, c0) corner, about
+    2n^3/3 FLOPs.  ``invs``: the factorization's tile inverses; one K5 launch
+    when omitted.  Twin of ``blocked_tril_inv`` (cholesky_pallas.py:1305-1338)."""
+    n = L.shape[-1]
+    _check_block(n, block)
+    if invs is None:
+        invs = _tile_invs(L, block)
+    W = torch.zeros_like(L)
+    for k in range(n // block):
+        c0, c1 = k * block, (k + 1) * block
+        if k:
+            torch.mm(invs[k], L[c0:c1, :c0] @ W[:c0, :c0], out=W[c0:c1, :c0]).neg_()
+        W[c0:c1, c0:c1] = invs[k]
+    return W
+
+
+def syrk_lower_t(W: Tensor, min_size: int = 1024) -> Tensor:
+    """W^T W for lower-triangular W by the 2 x 2 recursion
+    [W1 0; W2 W3]^T [W1 0; W2 W3] = [W1^T W1 + W2^T W2, W2^T W3; ., W3^T W3],
+    dense products only for the dense W2 quarter, down to ``min_size``:
+    about a third of the FLOPs of a dense W^T W.  Twin of ``syrk_lower_t``
+    (cholesky_pallas.py:1341-1378)."""
+    n = W.shape[-1]
+    if n <= min_size or n % 2 != 0 or (n // 2) % 8 != 0:
+        return W.T @ W
+    h = n // 2
+    W1, W2, W3 = W[:h, :h], W[h:, :h], W[h:, h:]
+    out = torch.empty_like(W)
+    torch.addmm(syrk_lower_t(W1, min_size), W2.T, W2, out=out[:h, :h])
+    torch.mm(W2.T, W3, out=out[:h, h:])
+    out[h:, :h] = out[:h, h:].T
+    out[h:, h:] = syrk_lower_t(W3, min_size)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Analytic pullbacks (autograd Functions on both devices)
+# ---------------------------------------------------------------------------
+
+
+def _phi(A: Tensor) -> Tensor:
+    """tril(A) with the diagonal halved: the Cholesky pullback's projector."""
+    P = torch.tril(A)
+    P.diagonal().mul_(0.5)
+    return P
+
+
+class _Cholesky(torch.autograd.Function):
+    """L = blocked_cholesky_invs(K)[0] with Murray's (2016) pullback
+    Kbar = sym(L^-T Phi(L^T Lbar) L^-1), twin of ``cholesky`` / ``_chol_bwd``
+    (cholesky_pallas.py:1394-1420)."""
+
+    @staticmethod
+    def forward(ctx, K, block):
+        L = blocked_cholesky_invs(K, block)[0]
+        ctx.block = block
+        ctx.save_for_backward(L)
+        return L
+
+    @staticmethod
+    def backward(ctx, Lbar):
+        (L,) = ctx.saved_tensors
+        P = _phi(L.T @ Lbar)
+        S = blocked_trsm_lower_t(L, P, ctx.block)  # L^-T P
+        Kbar = blocked_trsm_lower_t(L, S.T, ctx.block).T  # S L^-1
+        return 0.5 * (Kbar + Kbar.T), None
+
+
+def cholesky(K: Tensor, block: int = DEFAULT_BLOCK) -> Tensor:
+    """Lower Cholesky factor through the blocked drivers, differentiable."""
+    return _Cholesky.apply(K, block)
+
+
+class _TrsmLower(torch.autograd.Function):
+    """X = L^-1 B; Bbar = L^-T Xbar, Lbar = -tril(Bbar X^T)."""
+
+    @staticmethod
+    def forward(ctx, L, B, block):
+        X = blocked_trsm_lower(L, B, block)
+        ctx.block = block
+        ctx.save_for_backward(L, X)
+        return X
+
+    @staticmethod
+    def backward(ctx, Xbar):
+        L, X = ctx.saved_tensors
+        Bbar = blocked_trsm_lower_t(L, Xbar, ctx.block)
+        Lbar = torch.tril(Bbar @ X.T).neg_() if ctx.needs_input_grad[0] else None
+        return Lbar, Bbar, None
+
+
+class _TrsmLowerT(torch.autograd.Function):
+    """X = L^-T B; Bbar = L^-1 Xbar, Lbar = -tril(X Bbar^T)."""
+
+    @staticmethod
+    def forward(ctx, L, B, block):
+        X = blocked_trsm_lower_t(L, B, block)
+        ctx.block = block
+        ctx.save_for_backward(L, X)
+        return X
+
+    @staticmethod
+    def backward(ctx, Xbar):
+        L, X = ctx.saved_tensors
+        Bbar = blocked_trsm_lower(L, Xbar, ctx.block)
+        Lbar = torch.tril(X @ Bbar.T).neg_() if ctx.needs_input_grad[0] else None
+        return Lbar, Bbar, None
+
+
+def trsm_lower_ad(L: Tensor, B: Tensor, block: int = DEFAULT_BLOCK) -> Tensor:
+    """X = L^-1 B (2-D B) with the analytic pullback, twin of
+    ``trsm_lower_ad`` (cholesky_pallas.py:1221-1251)."""
+    return _TrsmLower.apply(L, B, block)
+
+
+def trsm_lower_t_ad(L: Tensor, B: Tensor, block: int = DEFAULT_BLOCK) -> Tensor:
+    """X = L^-T B (2-D B) with the analytic pullback, twin of
+    ``trsm_lower_t_ad`` (cholesky_pallas.py:1254-1277)."""
+    return _TrsmLowerT.apply(L, B, block)
+
+
+class _LmlCore(torch.autograd.Function):
+    """-(log|K| + y^T K^-1 y)/2 with the GPML-5.9 pullback, twin of
+    ``lml_core`` / ``_lml_core_bwd`` (cholesky_pallas.py:1496-1546).
+
+    The forward factors (K1 or the stepwise driver) and solves z = L^-1 y
+    (K3).  alpha = L^-T z (K3, transpose), the residual the backward reads,
+    is solved only when ``needs_grad``: a value-only call launches no
+    transpose solve."""
+
+    @staticmethod
+    def forward(ctx, K, y, block, needs_grad):
+        L, invs = blocked_cholesky_invs(K, block)
+        z = trsv_lower(L, y, invs, block)
+        alpha = trsv_lower_t(L, z, invs, block) if needs_grad else None
+        ctx.block = block
+        ctx.save_for_backward(L, alpha, invs)
+        logdet = 2.0 * torch.log(torch.diagonal(L)).sum()
+        return -0.5 * (logdet + z @ z)
+
+    @staticmethod
+    def backward(ctx, g):
+        L, alpha, invs = ctx.saved_tensors
+        Kbar = ybar = None
+        if ctx.needs_input_grad[0]:
+            # K^-1 = W^T W, W = inv(L) from the factorization's tile inverses
+            Kinv = syrk_lower_t(blocked_tril_inv(L, ctx.block, invs))
+            Kbar = (0.5 * g) * (torch.outer(alpha, alpha) - Kinv)
+        if ctx.needs_input_grad[1]:
+            ybar = -g * alpha
+        return Kbar, ybar, None, None
 
 
 def lml_core(K: Tensor, y: Tensor, block: int = DEFAULT_BLOCK) -> Tensor:
-    """-(log|K| + y^T K^-1 y)/2 through the blocked driver and K3.
-
-    On CUDA the kernels run forward only: the backward raises (see the module
-    docstring).  On the CPU (under ``force_blocked``) the plain tile functions
-    run under ordinary autograd."""
-    if _is_cuda(K, y):
-        return _ForwardOnly.apply("lml_core", _lml_core_forward, K, y, block)
-    return _lml_core_forward(K, y, block)
+    """-(log|K| + y^T K^-1 y)/2 through the blocked driver and K3, with the
+    analytic GPML-5.9 backward, on both devices."""
+    needs_grad = torch.is_grad_enabled() and (K.requires_grad or y.requires_grad)
+    return _LmlCore.apply(K, y, block, needs_grad)

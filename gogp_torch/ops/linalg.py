@@ -10,11 +10,14 @@ the kernels are held against, and the baseline they are timed against.
 ``precision`` arguments are accepted for parity with the JAX twin.  Every f32
 matmul of the port runs at full f32 precision; TF32 is not mapped.
 
-On CUDA the blocked path is forward only: a backward through it raises
-``NotImplementedError`` (``cholesky_blocked._ForwardOnly``).
+The blocked path differentiates on both devices through the JAX package's
+analytic pullbacks (``cholesky_blocked``): ``cholesky`` through Murray's
+Cholesky pullback, ``lml_core`` through GPML 5.9, ``trsm_lower`` and
+``cho_solve_mat`` through the TRSM pullbacks.  So ``absorb``, ``lml``,
+``gp_observe`` and the forecasts give gradients on the kernel path.
 
 Not on this path yet: the JAX package's NaN -> float32 precision rescue
-(``_RESCUE_MIN_N = 8192``) and ``cho_solve_mat``/``tril_inv``.
+(``_RESCUE_MIN_N = 8192``) and ``tril_inv``.
 """
 
 from __future__ import annotations
@@ -51,7 +54,7 @@ def cholesky(K: Tensor, precision: str | None = None) -> Tensor:
     positive definite, as in the JAX package."""
     block = _block(K)
     if block is not None:
-        return cb.blocked_cholesky_invs(K, block)[0]
+        return cb.cholesky(K, block)
     return cb.plain_cholesky(K)
 
 
@@ -83,10 +86,10 @@ def cholesky_with_jitter(
 
 def lml_core(K: Tensor, y: Tensor, precision: str | None = None) -> Tensor:
     """-1/2 (log|K| + y^T K^-1 y), the data part of the GP log marginal
-    likelihood (GPML eq. 5.8).  Blocked kernels where eligible and where K3
-    takes the size (``cb.trsv_fits``: n <= 53888 on CUDA, above which the JAX
-    package takes K4, not ported); otherwise torch.linalg under ordinary
-    autograd."""
+    likelihood (GPML eq. 5.8).  Blocked kernels with the analytic GPML-5.9
+    backward where eligible and where K3 takes the size (``cb.trsv_fits``:
+    n <= 53888 on CUDA, above which the JAX package takes K4, not ported);
+    otherwise torch.linalg under ordinary autograd."""
     if y.dim() == 1:
         block = _block(K)
         if block is not None and cb.trsv_fits(K.shape[-1], block):
@@ -103,11 +106,21 @@ def cho_solve_vec(L: Tensor, y: Tensor) -> Tensor:
     return torch.linalg.solve_triangular(L.mT, z, upper=True)[:, 0]
 
 
+def cho_solve_mat(L: Tensor, B: Tensor) -> Tensor:
+    """K^{-1} B given the lower factor L: two blocked TRSMs with their
+    analytic pullbacks where eligible (2-D B), torch.linalg otherwise."""
+    block = _block(L)
+    if block is not None and B.dim() == 2:
+        return cb.trsm_lower_t_ad(L, cb.trsm_lower_ad(L, B, block), block)
+    Z = torch.linalg.solve_triangular(L, B, upper=False)
+    return torch.linalg.solve_triangular(L.mT, Z, upper=True)
+
+
 def trsm_lower(L: Tensor, B: Tensor) -> Tensor:
     """L^{-1} B, the half-solve of the predictive variance."""
     block = _block(L)
     if block is not None and B.dim() == 2:
-        return cb.blocked_trsm_lower(L, B, block)
+        return cb.trsm_lower_ad(L, B, block)
     if B.dim() == 1:
         return torch.linalg.solve_triangular(L, B[:, None], upper=False)[:, 0]
     return torch.linalg.solve_triangular(L, B, upper=False)

@@ -3,8 +3,9 @@ kernels, run in interpret mode on the CPU.
 
 On the CPU each kernel wrapper takes its plain PyTorch version, so these tests
 hold the plain versions and the blocked drivers around them against the
-Pallas kernels K2 (tile Cholesky + inverse), K3 (streaming TRSV, both
-directions) and K5 (tile inverse).  Everything runs in float64.  Tolerance:
+Pallas kernels K1 (whole-matrix Cholesky + tile inverses), K2 (tile
+Cholesky + inverse), K3 (streaming TRSV, both directions) and K5 (tile
+inverse).  Everything runs in float64.  Tolerance:
 atol 1e-10 on factors, inverses and solves of SPD matrices with entries of
 order n (f64, the same factorization, a different summation order).
 
@@ -95,10 +96,11 @@ def test_trsv_lower_t_matches_pallas(factor256):
 
 
 def test_blocked_driver_matches_pallas(factor256):
-    """The stepwise driver at n = 256, b = 64 (K2 per diagonal tile); JAX's
-    own driver under no_fused_whole(), which keeps it off K1."""
+    """The stepwise driver at n = 256, b = 64 (K2 per diagonal tile); both
+    drivers under no_fused_whole(), which keeps them off K1."""
     K, _, L, invs = factor256
-    Lt, invt = cb.blocked_cholesky_invs(T(K), 64)
+    with cb.no_fused_whole():
+        Lt, invt = cb.blocked_cholesky_invs(T(K), 64)
     np.testing.assert_allclose(Lt.numpy(), L, atol=ATOL)
     np.testing.assert_allclose(invt.numpy(), invs, atol=ATOL)
 
@@ -119,14 +121,47 @@ def test_lml_core_forward_matches_pallas(factor256):
     K, y, _, _ = factor256
     with cp.force_interpret(), cp.no_fused_whole():
         want = float(cp.lml_core(jnp.asarray(K), jnp.asarray(y), 64))
-    got = float(cb.lml_core(T(K), T(y), 64))
+    with cb.no_fused_whole():
+        got = float(cb.lml_core(T(K), T(y), 64))
     assert abs(got - want) <= 1e-9 * abs(want)
-    with cb.force_blocked(64):
+    with cb.force_blocked(64), cb.no_fused_whole():
         got_front = float(linalg.lml_core(T(K), T(y)))
     assert abs(got_front - want) <= 1e-9 * abs(want)
 
 
+def test_fused_cholesky_invs_plain_matches_pallas(factor256):
+    """K1's plain version against K1 in interpret mode, n = 256, b = 64."""
+    K, _, _, _ = factor256
+    with cp.force_interpret():
+        Lj, invj = cp.fused_cholesky_invs(jnp.asarray(K), 64)
+    Lt, invt = cb.fused_cholesky_invs(T(K), 64)  # CPU tensor: the plain version
+    np.testing.assert_allclose(Lt.numpy(), np.asarray(Lj), atol=ATOL)
+    np.testing.assert_allclose(invt.numpy(), np.asarray(invj), atol=ATOL)
+
+
 # -- dispatch ----------------------------------------------------------------
+
+
+def test_driver_takes_k1_up_to_fused_max_n(monkeypatch):
+    """As cholesky_pallas.py:624-645: K1 for a 2-D matrix with n <= 2047
+    unless no_fused_whole(); the stepwise driver above it or under
+    no_fused_whole().  On CUDA, K1 also needs block 128 and n >= 1024."""
+    taken = []
+    monkeypatch.setattr(cb, "fused_cholesky_invs", lambda K, b: taken.append("K1"))
+    monkeypatch.setattr(cb, "_stepwise_cholesky_invs", lambda K, b: taken.append("stepwise"))
+    cb.blocked_cholesky_invs(torch.zeros(256, 256), 64)
+    cb.blocked_cholesky_invs(torch.zeros(1920, 1920), 128)
+    cb.blocked_cholesky_invs(torch.zeros(2048, 2048), 128)
+    with cb.no_fused_whole():
+        cb.blocked_cholesky_invs(torch.zeros(256, 256), 64)
+    assert taken == ["K1", "K1", "stepwise", "stepwise"]
+    assert cb._FUSED_MAX_N == cp._FUSED_MAX_N == 2047
+    monkeypatch.setattr(cb, "_is_cuda", lambda *ts: True)  # the CUDA rule, on the CPU
+    for n, block, route in [(1024, 128, True), (1536, 128, True), (512, 128, False),
+                            (1024, 64, False), (2048, 128, False)]:
+        assert cb._takes_fused(torch.zeros(n, n), block) is route, (n, block)
+
+
 
 
 def test_eligible_block_rules():
@@ -165,14 +200,15 @@ def test_lml_core_beyond_k3_limit_takes_torch_linalg(monkeypatch, factor256):
 
 
 def test_forward_only_backward_raises():
-    """The wrapper every CUDA entry point runs in: values pass through, and a
-    backward through any output raises instead of treating the kernels'
-    outputs as constants."""
-    x = torch.ones(3, dtype=torch.float64, requires_grad=True)
-    doubled, shifted = cb._ForwardOnly.apply("probe", lambda a: (2 * a, a + 1), x)
-    np.testing.assert_array_equal(doubled.detach().numpy(), 2.0)
-    with pytest.raises(NotImplementedError, match="probe"):
-        shifted.sum().backward()
+    """The wrapper every raw CUDA kernel wrapper runs in (here around K2's
+    plain version, as cholesky_inv_tile wraps the kernel on CUDA): values
+    pass through, and a backward through any output raises instead of
+    treating the kernel's outputs as constants, pointing at the pullbacks."""
+    A = torch.tensor(spd(8, seed=12), requires_grad=True)
+    L, V = cb._ForwardOnly.apply("cholesky_inv_tile", cb.cholesky_inv_tile_plain, A)
+    np.testing.assert_allclose(L.detach().numpy(), np.linalg.cholesky(spd(8, seed=12)), atol=ATOL)
+    with pytest.raises(NotImplementedError, match="cholesky_inv_tile.*lml_core, cholesky"):
+        V.sum().backward()
 
 
 def test_cpu_takes_plain_versions_and_counts_nothing(factor256):

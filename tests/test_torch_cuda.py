@@ -8,6 +8,9 @@ imports JAX, so on such a machine run it as
 
 Tolerances are for f32 on both sides: rtol and atol 1e-4 on SPD inputs of
 norm O(n), where the kernels and cuBLAS/cuSOLVER sum in different orders.
+Gradients of the kernel path (f32) are held against autograd of the plain
+path in f64, at 1e-3 of the largest entry: f32 through a factorization and
+its pullback.
 """
 
 import numpy as np
@@ -32,10 +35,15 @@ def cuda():
     return torch.device("cuda")
 
 
-def _spd(n, device, seed=0):
+def _spd(n, device, seed=0, dtype=torch.float32):
     rng = np.random.default_rng(seed)
     a = rng.normal(size=(n, n))
-    return torch.as_tensor(a @ a.T + n * np.eye(n), dtype=torch.float32, device=device)
+    return torch.as_tensor(a @ a.T + n * np.eye(n), dtype=dtype, device=device)
+
+
+def _rel(got, want):
+    """Largest error relative to the largest entry of want, in f64."""
+    return float((got.double() - want).abs().max() / want.abs().max())
 
 
 @pytest.mark.cuda
@@ -81,9 +89,52 @@ def test_trsv_both_directions(cuda, n, b):
 
 @pytest.mark.cuda
 def test_blocked_driver_matches_cusolver(cuda):
+    """The stepwise driver (kept off K1 by no_fused_whole)."""
     K = _spd(1024, cuda)
-    L, _ = cb.blocked_cholesky_invs(K, 128)
+    with cb.no_fused_whole():
+        L, _ = cb.blocked_cholesky_invs(K, 128)
     torch.testing.assert_close(L, torch.linalg.cholesky(K), **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1024, 1792])
+def test_fused_cholesky_invs_matches_plain(cuda, n):
+    """K1 in one cooperative launch, and the driver's dispatch to it."""
+    K = _spd(n, cuda)
+    before = cb.LAUNCHES["fused_cholesky_invs"]
+    L, invs = cb.fused_cholesky_invs(K)
+    Lp, invp = cb.fused_cholesky_invs_plain(K)
+    torch.testing.assert_close(L, Lp, **TOL)
+    torch.testing.assert_close(invs, invp, **TOL)
+    assert torch.equal(torch.triu(L, 1), torch.zeros_like(L))
+    cb.blocked_cholesky_invs(K)
+    assert cb.LAUNCHES["fused_cholesky_invs"] == before + 2
+
+
+@pytest.mark.cuda
+def test_fused_cholesky_invs_non_positive_pivot_is_nan(cuda):
+    """NaN from the bad pivot on, and the grid does not hang: every block
+    still reaches every grid-wide barrier."""
+    K = _spd(1024, cuda)
+    K[300, 300] = -1.0
+    L, _ = cb.fused_cholesky_invs(K)
+    torch.cuda.synchronize()
+    assert torch.isnan(L).any() and torch.isfinite(L[:256, :256]).all()
+
+
+@pytest.mark.cuda
+def test_fused_cholesky_invs_raises_on_bad_input(cuda):
+    with pytest.raises(TypeError):
+        cb.fused_cholesky_invs(_spd(1024, cuda).double())
+    with pytest.raises(ValueError):
+        cb.fused_cholesky_invs(_spd(1024, cuda).T.contiguous()[:, :1000])  # not square
+    with pytest.raises(ValueError):
+        cb.fused_cholesky_invs(_spd(1024, cuda).T)  # not contiguous
+    for n in (512, 2048, 1000):
+        with pytest.raises(ValueError):
+            cb.fused_cholesky_invs(_spd(n, cuda))  # outside [1024, 2047] or not a tile multiple
+    with pytest.raises(ValueError):
+        cb.fused_cholesky_invs(_spd(1024, cuda), 64)  # built for b = 128 only
 
 
 @pytest.mark.cuda
@@ -120,7 +171,10 @@ def test_slice_kernel_path_matches_f64_plain_path(cuda):
 
     cb.reset_launch_counts()
     got = run(torch.float32)
-    assert all(n >= 1 for n in cb.LAUNCHES.values()), cb.LAUNCHES
+    # n = 1024: K1 factors (not K2), and no call asks for a gradient (no K3
+    # transpose solve)
+    launched = {k for k, n in cb.LAUNCHES.items() if n >= 1}
+    assert launched == {"fused_cholesky_invs", "trsv_lower", "tril_inv_tile"}, cb.LAUNCHES
     with linalg.force_plain():
         want = run(torch.float64)
     for g, w in zip(got[:2], want[:2]):
@@ -130,34 +184,52 @@ def test_slice_kernel_path_matches_f64_plain_path(cuda):
 
 
 @pytest.mark.cuda
-def test_lml_core_backward_raises(cuda):
-    K = _spd(1024, cuda).requires_grad_(True)
-    value = linalg.lml_core(K, torch.ones(1024, device=cuda))
-    with pytest.raises(NotImplementedError):
-        value.backward()
+def test_lml_core_backward_matches_plain_autograd(cuda):
+    """The GPML-5.9 backward on the kernel path (K1, K3 both ways) against
+    autograd of torch.linalg in f64."""
+    K64 = _spd(1024, cuda, dtype=torch.float64)
+    y64 = torch.sin(torch.arange(1024, dtype=torch.float64, device=cuda) / 30.0)
+    K, y = K64.float().requires_grad_(True), y64.float().requires_grad_(True)
+    cb.reset_launch_counts()
+    linalg.lml_core(K, y).backward()
+    assert cb.LAUNCHES["fused_cholesky_invs"] == 1 and cb.LAUNCHES["trsv_lower_t"] == 1
+    Kr, yr = K64.clone().requires_grad_(True), y64.clone().requires_grad_(True)
+    with linalg.force_plain():
+        linalg.lml_core(Kr, yr).backward()
+    assert _rel(K.grad, Kr.grad) <= 1e-3
+    assert _rel(y.grad, yr.grad) <= 1e-3
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("output", ["lml_from_posterior", "predict_mean", "predict_std", "gp_observe"])
-def test_blocked_path_backward_raises(cuda, output):
-    """A gradient with respect to log-theta through any output of the kernel
-    path raises: the kernels write through raw pointers, which autograd does
-    not see, so it would otherwise come out wrong with nothing raised."""
-    x = torch.linspace(0, 25, 1024, device=cuda)[:, None]
-    y = torch.sin(x[:, 0] / 3.0)
-    z = torch.linspace(0, 25, 64, device=cuda)
+def test_blocked_path_backward_matches_plain_autograd(cuda, output):
+    """The gradient with respect to log-theta through each output of the
+    kernel path (the Cholesky, TRSM and GPML-5.9 pullbacks around K1, K3 and
+    K5) against autograd of the plain path in f64."""
     gp = GP(ndim=1, simil=rbf.scaled(), noise=uniform_noise)
-    v = torch.zeros(gp.n_theta, device=cuda, requires_grad=True)
-    post = params.gp_posterior(gp, v, x=x, y=y)
-    value = {
-        "lml_from_posterior": lambda: core.lml_from_posterior(post),
-        "predict_mean": lambda: core.predict_from_posterior(gp, post, z)[0].sum(),
-        "predict_std": lambda: core.predict_from_posterior(gp, post, z)[1].sum(),
-        "gp_observe": lambda: params.gp_observe(gp, v, x=x, y=y),
-    }[output]()
-    assert torch.isfinite(value)
-    with pytest.raises(NotImplementedError):
-        value.backward()
+
+    def grad(dtype):
+        x = torch.linspace(0, 25, 1024, dtype=dtype, device=cuda)[:, None]
+        y = torch.sin(x[:, 0] / 3.0)
+        z = torch.linspace(0, 25, 64, dtype=dtype, device=cuda)
+        v = torch.zeros(gp.n_theta, dtype=dtype, device=cuda, requires_grad=True)
+        post = params.gp_posterior(gp, v, x=x, y=y)
+        value = {
+            "lml_from_posterior": lambda: core.lml_from_posterior(post),
+            "predict_mean": lambda: core.predict_from_posterior(gp, post, z)[0].sum(),
+            "predict_std": lambda: core.predict_from_posterior(gp, post, z)[1].sum(),
+            "gp_observe": lambda: params.gp_observe(gp, v, x=x, y=y),
+        }[output]()
+        (g,) = torch.autograd.grad(value, v)
+        return g
+
+    cb.reset_launch_counts()
+    got = grad(torch.float32)
+    assert cb.LAUNCHES["fused_cholesky_invs"] >= 1
+    with linalg.force_plain():
+        want = grad(torch.float64)
+    assert torch.isfinite(got).all()
+    assert _rel(got, want) <= 1e-3, (got, want)
 
 
 @pytest.mark.cuda

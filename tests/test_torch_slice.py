@@ -2,8 +2,9 @@
 JAX package, end to end through both front doors.
 
 The port runs its blocked path under ``force_blocked(64)`` (plain tile
-functions on the CPU); JAX runs its Pallas kernels in interpret mode with the
-stepwise driver (``force_interpret()`` + ``no_fused_whole()``).  n = 256 with
+functions on the CPU); JAX runs its Pallas kernels in interpret mode; both
+take the stepwise driver (``no_fused_whole()``; the K1 route is held against
+JAX in test_torch_backward.py and test_torch_mle.py).  n = 256 with
 20 padded rows, float64.  Tolerance: rtol 1e-9 on log densities, atol 1e-9
 on means and standard deviations (f64, the same math, a different blocking
 and summation order).  Also: the reference goldens of test_gp_golden.py on
@@ -70,7 +71,7 @@ def slice_results():
 
     tgp = tcore.GP(ndim=1, simil=tk.rbf.scaled(), noise=tk.uniform_noise)
     cb.reset_launch_counts()
-    with cb.force_blocked(64):
+    with cb.force_blocked(64), cb.no_fused_whole():
         tpost = tcore.absorb(tgp, T(ts), T(tn), T(x), T(y), T(mask))
         got = {
             "lml_from_posterior": tcore.lml_from_posterior(tpost),
