@@ -11,11 +11,18 @@ process per source) and then runs these phases, each printing JSON lines:
 1. device   - torch's device name, nvidia-smi's name and power limit, TF32.
 2. build    - the kernels' build time and ptxas resource lines.
 3. kernels  - each kernel against its plain PyTorch version on the card, in
-              f32, at the shapes each of the two paths below gives it:
-              errors and times (CUDA events after a warmup).  Serving: K2 on
-              one tile, K3 both ways and K5 on the n = 4096 factor.  Train:
-              K1 at n = 1536 (and at 1024 and 1792, also timed against the
-              stepwise driver), K3 both ways and K5 on K1's n = 1536 factor.
+              f32, at the shapes each of the three paths below gives it:
+              errors and times (CUDA events after a warmup), beside the
+              least time the card could take (bytes over 3.35 TB/s or FLOPs
+              over 67 TFLOP/s, the larger) and one PyTorch library call
+              where one computes the same function.  Serving: K2 on one
+              tile, K3 both ways and K5 on the n = 4096 factor.  Train: K1
+              at n = 1536 (and at 1024 and 1792, also timed against the
+              stepwise driver), K3 both ways and K5 on K1's n = 1536
+              factor.  Large: K2 on one tile, K4 both ways and K5 on the
+              n = 16384 factor; K4 also at n = 4096 and 8192, each timed
+              beside K3 on the same factor (where the carried-over gate
+              between them lies).  K6, which no path calls, on one tile.
 4. slice    - serving: the GP problem of ``bench.py``, n = 4096 sorted
               uniform inputs on [0, 100], y = sin(x/3) + 0.1 N(0, 1) from
               numpy seed 0, rbf.scaled() + uniform_noise at log-theta 0,
@@ -39,14 +46,28 @@ process per source) and then runs these phases, each printing JSON lines:
               time per value-and-gradient step and per fit on the kernel path
               and on the plain f32 path.
 
+7. large    - the exact GP at large n: the JAX package's large-n problem
+              (benchmarks/tpu_round2.py:76-81), rbf.scaled() + uniform_noise,
+              n = 16384 sorted uniform inputs on [0, 400], y = sin(x/3) +
+              0.1 N(0, 1) from numpy seed 0, v0 = 0.  The value and gradient
+              of gp_observe at v0, Adam for 3 steps, then gp_posterior and
+              the forecast at m = 1024 points at Adam's v, held against the
+              plain path in f64 on the card; the launch counts of each stage
+              (K2 per factorization, K4 both ways per gradient, no K3 or K1,
+              K5 in the forecast); wall time of a value-and-gradient step on
+              the kernel path and on the plain f32 path; the factorization
+              against cuSOLVER; peak device memory; the precision rescue's
+              host read, and one step at "tensorfloat32", where it engages.
+
 With ``--profile``, one more phase follows:
 
-7. profile  - one serving slice run and one train value-and-gradient step on
-              each path under torch.profiler: the device's busy time and idle
-              share over the run, and the kernels with the most device time.
+8. profile  - one serving slice run, one train and one large value-and-gradient
+              step on each path under torch.profiler: the device's busy time
+              and idle share over the run, and the kernels with the most
+              device time.
 
-Then one JSON line with the per-kernel summary, the nvidia-smi line, and last
-``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero;
+Then the peak device memory of each phase, one JSON line with the per-kernel
+summary, the nvidia-smi line, and last ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero;
 without a CUDA card it exits non-zero before printing any result.
 """
 
@@ -106,6 +127,28 @@ TRAIN_BOUNDS = {
     "pred_atol": 5e-3,  # forecast mean and std at the f32 optimum's v (3.2e-4)
 }
 
+# The large path: the JAX package's large-n problem (benchmarks/
+# tpu_round2.py:76-81) at n = 16384, forecast at m = 1024 points.
+N_LARGE, M_LARGE, X_LARGE = 16384, 1024, 400.0
+ADAM_LARGE = 3
+# Bounds of the large path (f32 kernel path) against the f64 plain path,
+# written before its first run on the card.
+LARGE_BOUNDS = {
+    "value_rtol": 1e-5,  # gp_observe at v0, relative
+    "grad_rtol": 1e-3,  # its gradient, relative to the largest entry
+    "adam_v_atol": 1e-4,  # v after 3 Adam steps
+    "pred_atol": 1e-3,  # forecast mean and std at Adam's v
+}
+# K4 against K3 and plain on the same factors at these n: where the
+# carried-over gate between them (cb._TRSV2D_MIN_N) lies on this card.
+GATE_SIZES = (4096, 8192, N_LARGE)
+
+# The card's peaks for the least time a kernel could take (NVIDIA's H100 SXM
+# data sheet): HBM bytes per second, and f32 FLOPs per second outside the
+# tensor cores (every kernel here computes in f32 FMA).
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS_PER_S = 67e12
+
 PALLAS = "gogp_tpu/ops/cholesky_pallas.py"
 KERNELS = {
     # launch-count key: (name, source, replaces)
@@ -113,8 +156,39 @@ KERNELS = {
     "chol_inv_tile": ("K2 cholesky_inv_tile", "gogp_torch/csrc/chol_inv_tile.cu", f"{PALLAS}:251"),
     "trsv_lower": ("K3 trsv_lower", "gogp_torch/csrc/trsv.cu", f"{PALLAS}:824"),
     "trsv_lower_t": ("K3 trsv_lower_t", "gogp_torch/csrc/trsv.cu", f"{PALLAS}:850"),
+    "trsv2d_lower": ("K4 trsv2d_lower", "gogp_torch/csrc/trsv2d.cu", f"{PALLAS}:946"),
+    "trsv2d_lower_t": ("K4 trsv2d_lower_t", "gogp_torch/csrc/trsv2d.cu", f"{PALLAS}:976"),
     "tril_inv_tile": ("K5 tril_inv_tile", "gogp_torch/csrc/tril_inv_tile.cu", f"{PALLAS}:344"),
+    "chol_tile": ("K6 cholesky_tile", "gogp_torch/csrc/chol_tile.cu", f"{PALLAS}:161"),
 }
+
+
+def work(key: str, shape) -> tuple[float, float]:
+    """(bytes, FLOPs) a kernel's function needs at ``shape``: each input
+    read once, each output written once, only what the function uses (the
+    lower triangle of a factor it solves with)."""
+    b = BLOCK
+    if key == "fused_cholesky_invs":  # K's block lower triangle in; L and the tile inverses out
+        n = shape[0]
+        return 4 * (n * (n + b) / 2 + n * n + n * b), n**3 / 3 + (n // b) * b**3 / 3
+    if key == "chol_inv_tile":  # the tile in; L and inv(L) out
+        return 4 * 3 * b * b, 2 * b**3 / 3
+    if key == "chol_tile":
+        return 4 * 2 * b * b, b**3 / 3
+    if key == "tril_inv_tile":
+        count = shape[0] if len(shape) == 3 else 1
+        return 4 * 2 * count * b * b, count * b**3 / 3
+    # K3 and K4: the strictly lower block triangle and the tile inverses,
+    # y in, x out; a multiply-add per float of L and of the inverses
+    n = shape[0]
+    return 4 * (n * (n - b) / 2 + n * b + 2 * n), n * (n - b) + 2 * n * b
+
+
+def bound(key: str, shape) -> tuple[float, str]:
+    """The least time the card could take (ms), and what sets it."""
+    nbytes, flops = work(key, shape)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def emit(obj) -> None:
@@ -266,36 +340,94 @@ def run_train(gp, x, y, v0, z) -> dict:
     return {"value": value, "grad": grad, "adam": adam, "lbfgs": lbfgs, **forecast(gp, x, y, lbfgs.x, z)}
 
 
-def check_kernel(path: str, key: str, kernel, plain, shape, reps: int, bound: float = KERNEL_RTOL, **extra) -> dict:
+def large_problem(n: int, dtype: torch.dtype, device):
+    """The JAX package's large-n problem (benchmarks/tpu_round2.py:76-81) at
+    n points: rbf.scaled() + uniform_noise, v0 = 0, forecast points on
+    linspace(0, 400)."""
+    rng = np.random.default_rng(0)
+    x = np.sort(rng.uniform(0, X_LARGE, (n, 1)), axis=0)
+    y = np.sin(x[:, 0] / 3.0) + 0.1 * rng.normal(size=n)
+    gp = GP(ndim=1, simil=rbf.scaled(), noise=uniform_noise)
+
+    def t(a):
+        return torch.as_tensor(a, dtype=dtype, device=device)
+
+    v0 = torch.zeros(gp.n_theta, dtype=dtype, device=device)
+    return gp, t(x), t(y), v0, t(np.linspace(0, X_LARGE, M_LARGE))
+
+
+def large_cov(n: int, dev) -> torch.Tensor:
+    """The large path's covariance at v0 (f32), at n points."""
+    gp, x, _, v0, _ = large_problem(n, torch.float32, dev)
+    theta = torch.exp(v0)
+    return core.masked_cov(gp, theta[: gp.n_theta_simil], theta[gp.n_theta_simil :], x, None)
+
+
+def run_large(gp, x, y, v0, z, after=lambda stage: None) -> dict:
+    """The large path once: value and gradient at v0, Adam, then the
+    forecast at Adam's v; ``after(stage)`` runs after each stage."""
+    value, grad = value_and_grad_step(gp, x, y, v0, z)
+    after("step")
+    adam = mle.adam(masked_value_and_grad(make_gp_logp(gp, x=x, y=y)), v0, iters=ADAM_LARGE, threshold=0.0)
+    after("adam")
+    out = forecast(gp, x, y, adam.x, z)
+    after("forecast")
+    return {"value": value, "grad": grad, "adam": adam, **out}
+
+
+def check_kernel(path: str, key: str, kernel, plain, shape, reps: int, library=None,
+                 rtol: float = KERNEL_RTOL, **extra) -> dict:
     """Hold one kernel against its plain version on the same inputs, then
-    time both (and each of ``extra``'s calls) with CUDA events."""
+    time both, ``library`` (one PyTorch call computing the same function, or
+    None) and each of ``extra``'s calls with CUDA events."""
     got, want = kernel(), plain()
     torch.cuda.synchronize()
     pairs = list(zip(got, want)) if isinstance(got, tuple) else [(got, want)]
     errs = [max_err(g, w) for g, w in pairs]
     abs_err, rel_err = max(e[0] for e in errs), max(e[1] for e in errs)
+    bound_ms, bound_by = bound(key, shape)
     row = {
         "kernel": key, "path": path, "shape": list(shape),
-        "max_abs_err": abs_err, "max_rel_err": rel_err, "bound_rel": bound,
+        "max_abs_err": abs_err, "max_rel_err": rel_err, "bound_rel": rtol,
         "ms": event_ms(kernel, reps), "plain_ms": event_ms(plain, reps),
+        "library_ms": None if library is None else event_ms(library, reps),
+        "bound_ms": bound_ms, "bound_by": bound_by,
         **{name: event_ms(fn, reps) for name, fn in extra.items()},
     }
     emit({"phase": "kernels", **row})
-    if not rel_err <= bound:
-        raise AssertionError(f"{key} at {list(shape)}: kernel disagrees with its plain version ({rel_err:.3e} > {bound})")
+    if not rel_err <= rtol:
+        raise AssertionError(f"{key} at {list(shape)}: kernel disagrees with its plain version ({rel_err:.3e} > {rtol})")
     return row
 
 
-def solve_cases(L: torch.Tensor, invs: torch.Tensor, y: torch.Tensor) -> dict:
-    """K3 both ways and K5 on one factor, its tile inverses and a right-hand
-    side: key -> (kernel call, plain call, shape of the main input, reps)."""
-    n = L.shape[0]
-    z = cb.trsv_lower(L, y, invs, BLOCK)
-    tiles = L.view(n // BLOCK, BLOCK, n // BLOCK, BLOCK).diagonal(dim1=0, dim2=2).permute(2, 0, 1).contiguous()
+def tile_cases(tile: torch.Tensor) -> dict:
+    """K2 and K6 on one tile: key -> (kernel call, plain call, shape of the
+    main input, reps, library call)."""
     return {
-        "trsv_lower": (lambda: cb.trsv_lower(L, y, invs, BLOCK), lambda: cb.trsv_lower_plain(L, y), L.shape, 20),
-        "trsv_lower_t": (lambda: cb.trsv_lower_t(L, z, invs, BLOCK), lambda: cb.trsv_lower_t_plain(L, z), L.shape, 20),
-        "tril_inv_tile": (lambda: cb.tril_inv_tile(tiles), lambda: cb.tril_inv_tile_plain(tiles), tiles.shape, 20),
+        "chol_inv_tile": (lambda: cb.cholesky_inv_tile(tile), lambda: cb.cholesky_inv_tile_plain(tile),
+                          tile.shape, 50, None),
+        "chol_tile": (lambda: cb.cholesky_tile(tile), lambda: cb.cholesky_tile_plain(tile),
+                      tile.shape, 50, lambda: torch.linalg.cholesky(tile)),
+    }
+
+
+def solve_cases(L: torch.Tensor, invs: torch.Tensor, y: torch.Tensor, reps: int = 20, k4: bool = False) -> dict:
+    """The two solves (K3, or K4 with ``k4``) and K5 on one factor, its tile
+    inverses and a right-hand side: key -> (kernel call, plain call, shape of
+    the main input, reps, library call)."""
+    n = L.shape[0]
+    fwd, bwd = (cb.trsv2d_lower, cb.trsv2d_lower_t) if k4 else (cb.trsv_lower, cb.trsv_lower_t)
+    key = "trsv2d_lower" if k4 else "trsv_lower"
+    z = fwd(L, y, invs, BLOCK)
+    tiles = L.view(n // BLOCK, BLOCK, n // BLOCK, BLOCK).diagonal(dim1=0, dim2=2).permute(2, 0, 1).contiguous()
+    eye = torch.eye(BLOCK, dtype=L.dtype, device=L.device)
+    return {
+        key: (lambda: fwd(L, y, invs, BLOCK), lambda: cb.trsv_lower_plain(L, y), L.shape, reps,
+              lambda: torch.linalg.solve_triangular(L, y[:, None], upper=False)),
+        f"{key}_t": (lambda: bwd(L, z, invs, BLOCK), lambda: cb.trsv_lower_t_plain(L, z), L.shape, reps,
+                     lambda: torch.linalg.solve_triangular(L.mT, z[:, None], upper=True)),
+        "tril_inv_tile": (lambda: cb.tril_inv_tile(tiles), lambda: cb.tril_inv_tile_plain(tiles), tiles.shape, 20,
+                          lambda: torch.linalg.solve_triangular(tiles, eye, upper=False)),
     }
 
 
@@ -306,14 +438,13 @@ def phase_kernels(dev) -> dict:
     gp, x, y, v, ts, tn, _ = problem(torch.float32, dev)
     K = core.masked_cov(gp, ts, tn, x, None)
     L, invs = cb.blocked_cholesky_invs(K, BLOCK)  # n = 4096: the stepwise driver
-    tile = K[:BLOCK, :BLOCK].contiguous()
-    serve = {
-        "chol_inv_tile": (lambda: cb.cholesky_inv_tile(tile), lambda: cb.cholesky_inv_tile_plain(tile), tile.shape, 50),
-        # the serving path launches no K3 transpose; it is held at n = 4096 too
-        **solve_cases(L, invs, y),
-    }
+    tiles = tile_cases(K[:BLOCK, :BLOCK].contiguous())
+    # the serving path launches no K3 transpose; it is held at n = 4096 too
+    serve = {"chol_inv_tile": tiles["chol_inv_tile"], **solve_cases(L, invs, y)}
     for key, case in serve.items():
         rows["serve", key] = check_kernel("serve", key, *case)
+    # K6, which no path calls, on the same tile
+    rows["kernels", "chol_tile"] = check_kernel("kernels", "chol_tile", *tiles["chol_tile"])
     for n in K1_SIZES:
         Kn = train_cov(n, dev)
 
@@ -325,13 +456,33 @@ def phase_kernels(dev) -> dict:
         rows[path, "fused_cholesky_invs"] = check_kernel(
             path, "fused_cholesky_invs",
             lambda: cb.fused_cholesky_invs(Kn), lambda: cb.fused_cholesky_invs_plain(Kn), Kn.shape, 20,
-            bound=K1_RTOL, stepwise_ms=stepwise,
+            rtol=K1_RTOL, stepwise_ms=stepwise,
         )
     # the train path's solves: on K1's factor of its covariance at v0
     y = train_problem(N_TRAIN, torch.float32, dev)[2]
     L, invs = cb.fused_cholesky_invs(train_cov(N_TRAIN, dev))
     for key, case in solve_cases(L, invs, y).items():
         rows["train", key] = check_kernel("train", key, *case)
+    # The large path's kernels on the stepwise driver's factor of its
+    # covariance at v0; K4 also at the smaller GATE_SIZES, each solve timed
+    # beside K3 on the same factor.
+    for n in GATE_SIZES:
+        Kn = large_cov(n, dev)
+        L, invs = cb.blocked_cholesky_invs(Kn, BLOCK)
+        y = large_problem(n, torch.float32, dev)[2]
+        z = cb.trsv_lower(L, y, invs, BLOCK)
+        k3 = {"trsv2d_lower": lambda: cb.trsv_lower(L, y, invs, BLOCK),
+              "trsv2d_lower_t": lambda: cb.trsv_lower_t(L, z, invs, BLOCK)}
+        path = "large" if n == N_LARGE else f"n={n}"
+        cases = solve_cases(L, invs, y, reps=10, k4=True)
+        if n == N_LARGE:
+            cases["chol_inv_tile"] = tile_cases(Kn[:BLOCK, :BLOCK].contiguous())["chol_inv_tile"]
+        else:
+            del cases["tril_inv_tile"]
+        for key, case in cases.items():
+            extra = {"k3_ms": k3[key]} if key in k3 else {}
+            rows[path, key] = check_kernel(path, key, *case, **extra)
+        del Kn, L, invs
     return rows
 
 
@@ -378,7 +529,10 @@ def phase_slice(dev) -> tuple[dict, tuple]:
 SERVE_KERNELS = ("chol_inv_tile", "trsv_lower", "tril_inv_tile")
 # The train path's: K1 factors at n = 1536, every gradient solves alpha.
 TRAIN_KERNELS = ("fused_cholesky_invs", "trsv_lower", "trsv_lower_t", "tril_inv_tile")
-PATH_KERNELS = {"serve": SERVE_KERNELS, "train": TRAIN_KERNELS}
+# The large path's: the stepwise driver (K2), K4 both ways, K5 in the forecast.
+LARGE_KERNELS = ("chol_inv_tile", "trsv2d_lower", "trsv2d_lower_t", "tril_inv_tile")
+# K6 is on no path; its entry counts its launches in the kernels phase.
+PATH_KERNELS = {"serve": SERVE_KERNELS, "train": TRAIN_KERNELS, "large": LARGE_KERNELS, "kernels": ("chol_tile",)}
 
 
 def phase_launches(launches: dict, args32) -> None:
@@ -494,6 +648,103 @@ def phase_train(dev) -> dict:
     return {"launches": launches, "args32": args32}
 
 
+def phase_large(dev) -> dict:
+    args32 = large_problem(N_LARGE, torch.float32, dev)
+    args64 = large_problem(N_LARGE, torch.float64, dev)
+    nb = N_LARGE // BLOCK
+
+    stages = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cb.reset_launch_counts()
+    t0 = time.perf_counter()
+    got = run_large(*args32, after=lambda stage: stages.__setitem__(stage, dict(cb.LAUNCHES)))
+    torch.cuda.synchronize()
+    large_wall_s = time.perf_counter() - t0
+    launches = dict(cb.LAUNCHES)
+    peak_kernel_path = torch.cuda.max_memory_allocated()
+
+    gp64, x64, y64, _, z64 = args64
+    with linalg.force_plain():
+        ref = run_large(*args64)
+        ref_at_v = forecast(gp64, x64, y64, got["adam"].x.double(), z64)  # at the kernel path's v
+        plain32_v0 = value_and_grad_step(*args32)
+    torch.cuda.synchronize()
+
+    def value_rel(value):
+        return abs(float(value) - float(ref["value"])) / abs(float(ref["value"]))
+
+    def grad_rel(grad):
+        return float((grad.double() - ref["grad"]).abs().max() / ref["grad"].abs().max())
+
+    errors = {
+        "value_rel": value_rel(got["value"]), "value_rel_plain_f32": value_rel(plain32_v0[0]),
+        "grad_rel": grad_rel(got["grad"]), "grad_rel_plain_f32": grad_rel(plain32_v0[1]),
+        "adam_v_abs": float((got["adam"].x.double() - ref["adam"].x).abs().max()),
+    }
+    failures = []
+    for name in ("predict", "predict_y"):
+        for label, gt, rt in zip(("mu", "sigma"), got[name], ref_at_v[name]):
+            if gt.shape != (M_LARGE,) or not torch.isfinite(gt).all():
+                failures.append(f"{name}.{label} shape/finite")
+            errors[f"{name}_{label}_abs"] = float((gt.double() - rt).abs().max())
+    checks = {"value_rel": "value_rtol", "grad_rel": "grad_rtol", "adam_v_abs": "adam_v_atol",
+              **{f"{a}_{b}_abs": "pred_atol" for a in ("predict", "predict_y") for b in ("mu", "sigma")}}
+    failures += [k for k, b in checks.items() if not errors[k] <= LARGE_BOUNDS[b]]
+    if not all(torch.isfinite(t).all() for t in (got["value"], got["grad"], got["adam"].x)):
+        failures.append("non-finite value, gradient or v")
+
+    # launches per stage: K2 per factorization, K4 both ways per gradient
+    # step, no K3 or K1 anywhere, K5 in the forecast
+    zero = dict.fromkeys(cb.LAUNCHES, 0)
+    per_stage = {}
+    for prev, stage in ((zero, "step"), (stages["step"], "adam"), (stages["adam"], "forecast")):
+        per_stage[stage] = {k: stages[stage][k] - prev[k] for k in cb.LAUNCHES}
+    want = {
+        "step": {"chol_inv_tile": nb, "trsv2d_lower": 1, "trsv2d_lower_t": 1},
+        "adam": {"chol_inv_tile": ADAM_LARGE * nb, "trsv2d_lower": ADAM_LARGE, "trsv2d_lower_t": ADAM_LARGE},
+        "forecast": {"chol_inv_tile": nb, "trsv2d_lower": 0, "trsv2d_lower_t": 0},
+    }
+    for stage, counts in want.items():
+        failures += [f"{stage}: {k} {per_stage[stage][k]} != {v}" for k, v in counts.items()
+                     if k in LARGE_KERNELS and per_stage[stage][k] != v]
+    if "tril_inv_tile" in LARGE_KERNELS and per_stage["forecast"]["tril_inv_tile"] < 1:
+        failures.append("forecast: no K5 launch")
+    failures += [f"{k} launched" for k in ("trsv_lower", "trsv_lower_t", "fused_cholesky_invs") if launches[k]]
+
+    # times: a value-and-gradient step on both f32 paths, the factorization
+    # against cuSOLVER, the rescue's host read, and one step in TF32
+    step_ms = {"kernels_f32": wall_ms(lambda: value_and_grad_step(*args32), reps=3)}
+    with linalg.force_plain():
+        step_ms["plain_f32"] = wall_ms(lambda: value_and_grad_step(*args32), reps=3)
+    K = large_cov(N_LARGE, dev)
+    factor_ms = {"stepwise": event_ms(lambda: cb.blocked_cholesky_invs(K, BLOCK), reps=3, warmup=1),
+                 "cusolver": event_ms(lambda: cb.plain_cholesky(K), reps=3, warmup=1)}
+    L = cb.blocked_cholesky_invs(K, BLOCK)[0]
+    del K
+    rescue_read_ms = wall_ms(lambda: bool(torch.isfinite(torch.diagonal(L)).all()), reps=21)
+    del L
+    gp, x, y, v0, z = args32
+    tf32_logp = masked_value_and_grad(make_gp_logp(gp, x=x, y=y, precision="tensorfloat32"))
+    tf32_value, tf32_grad = tf32_logp(v0)
+    step_ms["kernels_tf32_rescue_engaged"] = wall_ms(lambda: tf32_logp(v0), reps=3)
+
+    emit({"phase": "large", "n": N_LARGE, "m": M_LARGE, "block": BLOCK, "adam_steps": ADAM_LARGE,
+          "bounds": LARGE_BOUNDS, "errors": errors,
+          "gp_observe_v0": {"f32_kernels": float(got["value"]), "f64_plain": float(ref["value"]),
+                            "grad_f32_kernels": got["grad"].tolist(), "grad_f64_plain": ref["grad"].tolist()},
+          "adam_v": {"f32_kernels": got["adam"].x.tolist(), "f64_plain": ref["adam"].x.tolist()},
+          "tf32": {"rescue_engaged": linalg._rescue_engaged(N_LARGE, "tensorfloat32"),
+                   "value_rel": value_rel(tf32_value), "grad_rel": grad_rel(tf32_grad)},
+          "launches": launches, "launches_per_stage": per_stage, "large_wall_s": large_wall_s,
+          "value_and_grad_step_wall_ms": step_ms, "factorization_ms": factor_ms,
+          "rescue_flag_read_wall_ms": rescue_read_ms,
+          "peak_gib_kernel_path": peak_kernel_path / 2**30})
+    if failures:
+        raise AssertionError(f"large path disagrees with the f64 plain path or its launch counts: {failures}")
+    return {"launches": launches, "args32": args32}
+
+
 def _device_busy_us(events) -> float:
     """Length of the union of the device events' time intervals."""
     spans = sorted((e.time_range.start, e.time_range.end) for e in events)
@@ -507,11 +758,12 @@ def _device_busy_us(events) -> float:
     return busy + (0.0 if end is None else end - start)
 
 
-def phase_profile(slice_args32, train_args32) -> None:
+def phase_profile(slice_args32, train_args32, large_args32) -> None:
     from torch.profiler import ProfilerActivity, profile
 
     report = {"phase": "profile"}
-    runs = {"slice": (run_slice, slice_args32), "train_step": (value_and_grad_step, train_args32)}
+    runs = {"slice": (run_slice, slice_args32), "train_step": (value_and_grad_step, train_args32),
+            "large_step": (value_and_grad_step, large_args32)}
     for run, (fn, args) in runs.items():
         for label, ctx in (("kernels", contextlib.nullcontext), ("plain", linalg.force_plain)):
             with ctx():
@@ -537,27 +789,43 @@ def phase_profile(slice_args32, train_args32) -> None:
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--profile", action="store_true", help="also run phase 7 (torch.profiler)")
+    parser.add_argument("--profile", action="store_true", help="also run phase 8 (torch.profiler)")
     args = parser.parse_args()
     info = phase_device()
     dev = torch.device("cuda", 0)
     phase_build()
-    kernels = phase_kernels(dev)
-    serve_launches, slice_args32 = phase_slice(dev)
-    phase_launches(serve_launches, slice_args32)
-    train = phase_train(dev)
+    peak_gib = {}
+
+    def measured(name, fn, *a):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn(*a)
+        torch.cuda.synchronize()
+        peak_gib[name] = torch.cuda.max_memory_allocated() / 2**30
+        return out
+
+    cb.reset_launch_counts()
+    kernels = measured("kernels", phase_kernels, dev)
+    kernels_launches = dict(cb.LAUNCHES)
+    serve_launches, slice_args32 = measured("slice", phase_slice, dev)
+    measured("launches", phase_launches, serve_launches, slice_args32)
+    train = measured("train", phase_train, dev)
+    large = measured("large", phase_large, dev)
     if args.profile:
-        phase_profile(slice_args32, train["args32"])
+        measured("profile", phase_profile, slice_args32, train["args32"], large["args32"])
+    emit({"phase": "memory", "peak_gib": peak_gib})
     # one entry per kernel and path that launches it: the path's launch
     # count beside the error and times at the shapes that path gives it
-    launches = {"serve": serve_launches, "train": train["launches"]}
+    launches = {"serve": serve_launches, "train": train["launches"], "large": large["launches"],
+                "kernels": kernels_launches}
     emit({"kernels": [
-        {"name": f"{name} ({path}, {'x'.join(map(str, kernels[path, key]['shape']))})", "route": "cuda",
+        {"name": f"{name} ({path}, {'x'.join(map(str, row['shape']))})", "route": "cuda",
          "source": source, "replaces": replaces, "launches": launches[path][key],
-         "max_abs_err": kernels[path, key]["max_abs_err"],
-         "ms": kernels[path, key]["ms"], "plain_ms": kernels[path, key]["plain_ms"]}
+         "max_abs_err": row["max_abs_err"], "ms": row["ms"], "plain_ms": row["plain_ms"],
+         "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": row["library_ms"]}
         for key, (name, source, replaces) in KERNELS.items()
         for path, keys in PATH_KERNELS.items() if key in keys
+        for row in [kernels[path, key]]
     ]})
     print(info["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": info["kind"], "count": info["count"]}})

@@ -1,6 +1,6 @@
-// Device helpers shared by the tile kernels (chol_inv_tile.cu,
+// Device helpers shared by the tile kernels (chol_inv_tile.cu, chol_tile.cu,
 // tril_inv_tile.cu), the whole-matrix factorization (fused_chol.cu) and the
-// streaming solves (trsv.cu).
+// streaming solves (trsv.cu, trsv2d.cu).
 //
 // Tiles are B x B in shared memory, row-major, with a padded leading
 // dimension B + 1: a warp that reads one COLUMN (32 rows at a
@@ -156,8 +156,10 @@ constexpr int kTileSmemFloats = 2 * B * kLd<B> + kScratch<B>;
 
 // One B x B SPD tile's Cholesky factor L and its inverse V = inv(L), by one
 // block of kTileThreads threads with kTileSmemFloats<B> floats of shared
-// memory at smem (the body of K2, shared with K1).  Tiles are row-major with
-// leading dimensions lda, ldl, ldv; l_out may alias a.  a is read through
+// memory at smem (the body of K2, shared with K1).  With kInverse false it
+// computes L alone (K6): the 32 x 32 diagonal blocks of V, which the panels
+// need, are still formed, the blocks below them and v_out are not.  Tiles
+// are row-major with leading dimensions lda, ldl, ldv; l_out may alias a.  a is read through
 // L2 (ld.global.cg), never through L1 or the read-only path, so the tile may
 // have been written by other blocks of the same launch before a grid-wide
 // barrier.  A non-positive pivot gives NaN; the body never returns early.
@@ -170,7 +172,7 @@ constexpr int kTileSmemFloats = 2 * B * kLd<B> + kScratch<B>;
 //   3. the panel below becomes A_panel inv(L_cc)^T and block row p of V is
 //      finished (inv_row_finish);
 //   4. all threads apply the rank-32 update to the trailing lower triangle.
-template <int B>
+template <int B, bool kInverse = true>
 __device__ __forceinline__ void chol_inv_tile_body(const float* a, int lda, float* l_out,
                                                    int ldl, float* v_out, int ldv,
                                                    float* smem) {
@@ -191,11 +193,11 @@ __device__ __forceinline__ void chol_inv_tile_body(const float* a, int lda, floa
   for (int p = 0; p < B / 32; ++p) {
     const int c = 32 * p;
     if (warp == 0) chol32(M, ld, c, dinv);
-    else if (p > 0) inv_row_partial<B>(M, V, T, p, warp - 1, kWarps - 1);
+    else if (kInverse && p > 0) inv_row_partial<B>(M, V, T, p, warp - 1, kWarps - 1);
     __syncthreads();
     for (int j = warp; j < 32; j += kWarps) inv32_column(M, V, ld, c, j, dinv);
     __syncthreads();
-    if (p > 0) inv_row_finish<B>(V, T, p, warp, kWarps);
+    if (kInverse && p > 0) inv_row_finish<B>(V, T, p, warp, kWarps);
     if (c + 32 == B) break;
     // Panel: P[r][s] = sum_t A[r][c + t] inv(L_cc)[s][t] for the rows r below
     // the block; warp w takes rows c + 32 + w + 16 m, lane l column s = l.
@@ -248,7 +250,7 @@ __device__ __forceinline__ void chol_inv_tile_body(const float* a, int lda, floa
   for (int idx = tid; idx < B * B; idx += kTileThreads) {
     const int i = idx / B, k = idx % B;
     l_out[i * ldl + k] = (k <= i) ? M[i * ld + k] : 0.0f;
-    v_out[i * ldv + k] = (k <= i) ? V[i * ld + k] : 0.0f;
+    if (kInverse) v_out[i * ldv + k] = (k <= i) ? V[i * ld + k] : 0.0f;
   }
 }
 

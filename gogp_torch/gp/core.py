@@ -131,7 +131,7 @@ def lml_from_posterior(post: Posterior) -> Tensor:
 def lml(gp: GP, theta_simil, theta_noise, x, y, mask=None, precision: str | None = None) -> Tensor:
     """Log marginal likelihood at natural-scale hyperparameters, through
     ``linalg.lml_core`` (the blocked kernels on CUDA f32 at n >= 1024).
-    ``precision``: accepted for parity; f32 matmuls run at full f32."""
+    ``precision``: the blocked drivers' matmul precision (``ops.linalg``)."""
     theta_simil, theta_noise, x, y, mask = _prepare(gp, theta_simil, theta_noise, x, y, mask)
     K = masked_cov(gp, theta_simil, theta_noise, x, mask)
     return -0.5 * mask.sum() * _LOG_2PI + linalg.lml_core(K, y, precision)

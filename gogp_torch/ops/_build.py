@@ -45,6 +45,9 @@ SIGNATURES = {
     "gogp_tril_inv_tiles": [_P, _P, _I, _I, _P],
     "gogp_trsv_lower": [_P, _P, _P, _P, _I, _I, _P],
     "gogp_trsv_lower_t": [_P, _P, _P, _P, _I, _I, _P],
+    "gogp_trsv2d_lower": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
+    "gogp_trsv2d_lower_t": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
+    "gogp_chol_tile": [_P, _I, _P, _I, _I, _P],
 }
 
 

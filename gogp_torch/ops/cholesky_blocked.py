@@ -9,7 +9,10 @@ TPU's Pallas kernels one for one:
     K2  cholesky_inv_tile   <- _chol_inv_kernel / pallas_cholesky_inv_tile
     K3  trsv_lower          <- _trsv_kernel / pallas_trsv_lower
         trsv_lower_t        <- _trsv_t_kernel / pallas_trsv_lower_t
+    K4  trsv2d_lower        <- _trsv2d_kernel / pallas_trsv2d_lower
+        trsv2d_lower_t      <- _trsv2d_t_kernel / pallas_trsv2d_lower_t
     K5  tril_inv_tile       <- _tril_inv_kernel / pallas_tril_inv_tile
+    K6  cholesky_tile       <- _chol_kernel / pallas_cholesky_tile
 
 Each wrapper has a plain PyTorch version beside it (``*_plain``).  A tensor on
 the CPU takes the plain version; a CUDA tensor launches the kernel or raises.
@@ -19,7 +22,9 @@ There is no fallback between the two.  Each launch adds one to its entry in
 ``blocked_cholesky_invs`` dispatches as the JAX twin does: K1 for a 2-D
 matrix with n <= ``_FUSED_MAX_N`` unless :func:`no_fused_whole` is set, the
 stepwise driver (K2 per diagonal tile, cuBLAS panels and trailing updates)
-otherwise.
+otherwise.  ``lml_core`` solves with K3 below ``_TRSV2D_MIN_N`` and with K4
+from there on, and wherever K3 does not fit (:func:`trsv_solvers`).  No path
+calls K6, as no path of the JAX package calls ``pallas_cholesky_tile``.
 
 Gradients: the kernels write through raw pointers, which autograd neither
 records nor sees, so the raw kernel wrappers run inside :class:`_ForwardOnly`,
@@ -38,10 +43,11 @@ On the CPU (under ``force_blocked``) the same Functions run with the plain
 tile versions, which is how the tests hold them against ``jax.grad``.
 
 Around the kernels, the panel products and trailing updates of the stepwise
-driver are ``torch.matmul``, as the JAX package leaves them to XLA.  On CUDA
-every f32 matmul runs at full f32 precision: the ``precision`` arguments of
-the front door are accepted for parity with the JAX twin and not mapped to
-TF32.
+driver are ``torch.matmul``, as the JAX package leaves them to XLA.  The
+per-call ``precision`` of the JAX twin sets those cuBLAS matmuls to TF32 or
+full f32 (:func:`uses_tf32`), in the forward and, kept in ``ctx``, in the
+backward, as the JAX twin threads it as a static argument into both.  The
+hand-written kernels compute in f32 FMA whatever ``precision`` says.
 
 Tile size: ``DEFAULT_BLOCK = 128``, where the TPU uses 256.  A 128 x 128 f32
 tile is 64 KB, so K2 and K5 hold a tile and its inverse (128 KB) in one
@@ -69,7 +75,10 @@ LAUNCHES = {
     "chol_inv_tile": 0,
     "trsv_lower": 0,
     "trsv_lower_t": 0,
+    "trsv2d_lower": 0,
+    "trsv2d_lower_t": 0,
     "tril_inv_tile": 0,
+    "chol_tile": 0,
 }
 
 
@@ -109,6 +118,37 @@ def no_fused_whole():
         yield
     finally:
         _FUSED_WHOLE = prev
+
+
+# The JAX package's per-call precision names, and whether each runs the
+# blocked drivers' cuBLAS matmuls in TF32 (about three decimal digits) or at
+# full f32.
+_TF32 = {
+    "tensorfloat32": True, "bfloat16": True, "default": True, "fastest": True,
+    "float32": False, "highest": False,
+}
+
+
+def uses_tf32(precision: str | None) -> bool:
+    """Whether ``precision`` runs the blocked drivers' matmuls in TF32;
+    ``None`` is torch's ambient ``torch.backends.cuda.matmul.allow_tf32``
+    (off by default)."""
+    if precision is None:
+        return torch.backends.cuda.matmul.allow_tf32
+    if precision not in _TF32:
+        raise ValueError(f"unknown precision {precision!r}: expected None or one of {sorted(_TF32)}")
+    return _TF32[precision]
+
+
+@contextlib.contextmanager
+def _matmul_tf32(tf32: bool):
+    """cuBLAS f32 matmuls in TF32 (or not) inside, the setting restored after."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
 
 
 def _eligible_block(K: Tensor) -> int | None:
@@ -228,6 +268,13 @@ def trsv_lower_t_plain(L: Tensor, y: Tensor) -> Tensor:
     return torch.linalg.solve_triangular(L.mT, y[:, None], upper=True)[:, 0]
 
 
+# K4 solves what K3 solves; only the kernels' schedules differ.
+trsv2d_lower_plain = trsv_lower_plain
+trsv2d_lower_t_plain = trsv_lower_t_plain
+# K6 factors one tile: plain_cholesky is its plain version.
+cholesky_tile_plain = plain_cholesky
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
@@ -301,6 +348,26 @@ def _cholesky_inv_tile_into(A: Tensor, L: Tensor, V: Tensor) -> None:
     LAUNCHES["chol_inv_tile"] += 1
 
 
+def cholesky_tile(A: Tensor) -> Tensor:
+    """L of one (b, b) SPD tile (K6: K2 without the inverse).  A
+    non-positive pivot gives NaN, as on the TPU.  No path of the port calls
+    it, as no path of the JAX package calls ``pallas_cholesky_tile``."""
+    if not _is_cuda(A):
+        return cholesky_tile_plain(A)
+    return _ForwardOnly.apply("cholesky_tile", _cholesky_tile_cuda, A)
+
+
+def _cholesky_tile_cuda(A: Tensor) -> Tensor:
+    b = A.shape[-1]
+    if A.shape != (b, b):
+        raise ValueError(f"cholesky_tile: expected a (b, b) tile, got {tuple(A.shape)}")
+    _check_kernel_inputs("cholesky_tile", A)
+    L = torch.empty_like(A)
+    _launch(A, "gogp_chol_tile", A.data_ptr(), b, L.data_ptr(), b, b)
+    LAUNCHES["chol_tile"] += 1
+    return L
+
+
 def tril_inv_tile(L: Tensor) -> Tensor:
     """inv(L) of a (b, b) lower-triangular tile or of a (count, b, b) stack,
     the stack in one launch (K5)."""
@@ -329,18 +396,33 @@ def _check_trsv(what: str, L: Tensor, y: Tensor, invs: Tensor, block: int) -> No
     if invs.shape != (n // block, block, block):
         raise ValueError(f"{what}: invs {tuple(invs.shape)}, expected {(n // block, block, block)}")
     _check_kernel_inputs(what, L, y, invs)
-    if L.data_ptr() % 16 != 0:
-        raise ValueError(f"{what}: L must be 16-byte aligned")
+    if L.data_ptr() % 16 != 0 or invs.data_ptr() % 16 != 0:
+        raise ValueError(f"{what}: L and invs must be 16-byte aligned")
 
 
 def trsv_fits(n: int, block: int) -> bool:
     """Whether K3 takes an n-vector: trsv.cu keeps the solution (n floats),
     one tile's residual (block floats) and 4 x 1024 partial sums in one
     block's shared memory, at most 227 KB on Hopper; n <= 53888 at block
-    128.  Beyond that the kernel refuses to launch, and the front door's
-    ``lml_core`` takes torch.linalg (the JAX package takes K4 there, which is
-    not ported)."""
+    128.  Beyond that the kernel refuses to launch, and ``lml_core`` takes
+    K4 (:func:`trsv_solvers`), which has no size limit of its own."""
     return (n + block + 4 * 1024) * 4 <= 232448
+
+
+# From this n on, lml_core solves with K4.  The JAX package sends every
+# eligible matrix from n = 8192 to K4: its block is 512 there, and a
+# (block, n) panel of K3 would pass 8 MB of VMEM (cholesky_pallas.py:1447-1448,
+# 1504-1510).  That VMEM gate has no counterpart here; the constant is
+# carried over, not yet measured on the H100.
+_TRSV2D_MIN_N = 8192
+
+
+def trsv_solvers(n: int, block: int):
+    """The (forward, transpose) solves ``lml_core`` takes at size n: K3
+    below ``_TRSV2D_MIN_N`` where it fits (:func:`trsv_fits`), K4 otherwise."""
+    if n < _TRSV2D_MIN_N and trsv_fits(n, block):
+        return trsv_lower, trsv_lower_t
+    return trsv2d_lower, trsv2d_lower_t
 
 
 def _trsv(what: str, entry: str, L: Tensor, y: Tensor, invs: Tensor, block: int) -> Tensor:
@@ -368,6 +450,37 @@ def trsv_lower_t(L: Tensor, y: Tensor, invs: Tensor, block: int) -> Tensor:
     if not _is_cuda(L, y, invs):
         return trsv_lower_t_plain(L, y)
     return _trsv("trsv_lower_t", "gogp_trsv_lower_t", L, y, invs, block)
+
+
+def _trsv2d_cuda(what: str, entry: str, L: Tensor, y: Tensor, invs: Tensor, block: int) -> Tensor:
+    _check_trsv(what, L, y, invs, block)
+    nb = L.shape[-1] // block
+    x = torch.empty_like(y)
+    counters = torch.empty(1 + 2 * nb, dtype=torch.int32, device=L.device)  # zeroed by the C side
+    partial = torch.empty(nb * (nb + 1) // 2 * block, dtype=L.dtype, device=L.device)
+    _launch(L, entry, L.data_ptr(), y.data_ptr(), invs.data_ptr(), x.data_ptr(),
+            counters.data_ptr(), partial.data_ptr(), L.shape[-1], block)
+    LAUNCHES[what] += 1
+    return x
+
+
+def trsv2d_lower(L: Tensor, y: Tensor, invs: Tensor, block: int) -> Tensor:
+    """z = L^{-1} y over the triangular grid of (block, block) tiles, one CTA
+    per tile on many SMs, diagonal tiles applied through ``invs`` (K4).
+    Reads only the strictly lower block triangle of L; any n that the tile
+    (128) divides."""
+    if not _is_cuda(L, y, invs):
+        return trsv2d_lower_plain(L, y)
+    return _ForwardOnly.apply("trsv2d_lower", _trsv2d_cuda, "trsv2d_lower", "gogp_trsv2d_lower",
+                              L, y, invs, block)
+
+
+def trsv2d_lower_t(L: Tensor, y: Tensor, invs: Tensor, block: int) -> Tensor:
+    """x = L^{-T} y over the triangular tile grid, bottom-up (K4, transpose)."""
+    if not _is_cuda(L, y, invs):
+        return trsv2d_lower_t_plain(L, y)
+    return _ForwardOnly.apply("trsv2d_lower_t", _trsv2d_cuda, "trsv2d_lower_t", "gogp_trsv2d_lower_t",
+                              L, y, invs, block)
 
 
 # ---------------------------------------------------------------------------
@@ -514,75 +627,83 @@ def _phi(A: Tensor) -> Tensor:
 class _Cholesky(torch.autograd.Function):
     """L = blocked_cholesky_invs(K)[0] with Murray's (2016) pullback
     Kbar = sym(L^-T Phi(L^T Lbar) L^-1), twin of ``cholesky`` / ``_chol_bwd``
-    (cholesky_pallas.py:1394-1420)."""
+    (cholesky_pallas.py:1394-1420).  ``tf32``: the matmuls' setting in
+    forward and backward (:func:`uses_tf32`)."""
 
     @staticmethod
-    def forward(ctx, K, block):
-        L = blocked_cholesky_invs(K, block)[0]
-        ctx.block = block
+    def forward(ctx, K, block, tf32):
+        with _matmul_tf32(tf32):
+            L = blocked_cholesky_invs(K, block)[0]
+        ctx.block, ctx.tf32 = block, tf32
         ctx.save_for_backward(L)
         return L
 
     @staticmethod
     def backward(ctx, Lbar):
         (L,) = ctx.saved_tensors
-        P = _phi(L.T @ Lbar)
-        S = blocked_trsm_lower_t(L, P, ctx.block)  # L^-T P
-        Kbar = blocked_trsm_lower_t(L, S.T, ctx.block).T  # S L^-1
-        return 0.5 * (Kbar + Kbar.T), None
+        with _matmul_tf32(ctx.tf32):
+            P = _phi(L.T @ Lbar)
+            S = blocked_trsm_lower_t(L, P, ctx.block)  # L^-T P
+            Kbar = blocked_trsm_lower_t(L, S.T, ctx.block).T  # S L^-1
+        return 0.5 * (Kbar + Kbar.T), None, None
 
 
-def cholesky(K: Tensor, block: int = DEFAULT_BLOCK) -> Tensor:
-    """Lower Cholesky factor through the blocked drivers, differentiable."""
-    return _Cholesky.apply(K, block)
+def cholesky(K: Tensor, block: int = DEFAULT_BLOCK, precision: str | None = None) -> Tensor:
+    """Lower Cholesky factor through the blocked drivers, differentiable;
+    ``precision`` sets their matmuls, forward and backward."""
+    return _Cholesky.apply(K, block, uses_tf32(precision))
 
 
 class _TrsmLower(torch.autograd.Function):
     """X = L^-1 B; Bbar = L^-T Xbar, Lbar = -tril(Bbar X^T)."""
 
     @staticmethod
-    def forward(ctx, L, B, block):
-        X = blocked_trsm_lower(L, B, block)
-        ctx.block = block
+    def forward(ctx, L, B, block, tf32):
+        with _matmul_tf32(tf32):
+            X = blocked_trsm_lower(L, B, block)
+        ctx.block, ctx.tf32 = block, tf32
         ctx.save_for_backward(L, X)
         return X
 
     @staticmethod
     def backward(ctx, Xbar):
         L, X = ctx.saved_tensors
-        Bbar = blocked_trsm_lower_t(L, Xbar, ctx.block)
-        Lbar = torch.tril(Bbar @ X.T).neg_() if ctx.needs_input_grad[0] else None
-        return Lbar, Bbar, None
+        with _matmul_tf32(ctx.tf32):
+            Bbar = blocked_trsm_lower_t(L, Xbar, ctx.block)
+            Lbar = torch.tril(Bbar @ X.T).neg_() if ctx.needs_input_grad[0] else None
+        return Lbar, Bbar, None, None
 
 
 class _TrsmLowerT(torch.autograd.Function):
     """X = L^-T B; Bbar = L^-1 Xbar, Lbar = -tril(X Bbar^T)."""
 
     @staticmethod
-    def forward(ctx, L, B, block):
-        X = blocked_trsm_lower_t(L, B, block)
-        ctx.block = block
+    def forward(ctx, L, B, block, tf32):
+        with _matmul_tf32(tf32):
+            X = blocked_trsm_lower_t(L, B, block)
+        ctx.block, ctx.tf32 = block, tf32
         ctx.save_for_backward(L, X)
         return X
 
     @staticmethod
     def backward(ctx, Xbar):
         L, X = ctx.saved_tensors
-        Bbar = blocked_trsm_lower(L, Xbar, ctx.block)
-        Lbar = torch.tril(X @ Bbar.T).neg_() if ctx.needs_input_grad[0] else None
-        return Lbar, Bbar, None
+        with _matmul_tf32(ctx.tf32):
+            Bbar = blocked_trsm_lower(L, Xbar, ctx.block)
+            Lbar = torch.tril(X @ Bbar.T).neg_() if ctx.needs_input_grad[0] else None
+        return Lbar, Bbar, None, None
 
 
-def trsm_lower_ad(L: Tensor, B: Tensor, block: int = DEFAULT_BLOCK) -> Tensor:
+def trsm_lower_ad(L: Tensor, B: Tensor, block: int = DEFAULT_BLOCK, precision: str | None = None) -> Tensor:
     """X = L^-1 B (2-D B) with the analytic pullback, twin of
     ``trsm_lower_ad`` (cholesky_pallas.py:1221-1251)."""
-    return _TrsmLower.apply(L, B, block)
+    return _TrsmLower.apply(L, B, block, uses_tf32(precision))
 
 
-def trsm_lower_t_ad(L: Tensor, B: Tensor, block: int = DEFAULT_BLOCK) -> Tensor:
+def trsm_lower_t_ad(L: Tensor, B: Tensor, block: int = DEFAULT_BLOCK, precision: str | None = None) -> Tensor:
     """X = L^-T B (2-D B) with the analytic pullback, twin of
     ``trsm_lower_t_ad`` (cholesky_pallas.py:1254-1277)."""
-    return _TrsmLowerT.apply(L, B, block)
+    return _TrsmLowerT.apply(L, B, block, uses_tf32(precision))
 
 
 class _LmlCore(torch.autograd.Function):
@@ -590,16 +711,19 @@ class _LmlCore(torch.autograd.Function):
     ``lml_core`` / ``_lml_core_bwd`` (cholesky_pallas.py:1496-1546).
 
     The forward factors (K1 or the stepwise driver) and solves z = L^-1 y
-    (K3).  alpha = L^-T z (K3, transpose), the residual the backward reads,
-    is solved only when ``needs_grad``: a value-only call launches no
-    transpose solve."""
+    (K3 or K4, :func:`trsv_solvers`).  alpha = L^-T z (the transpose solve),
+    the residual the backward reads, is solved only when ``needs_grad``: a
+    value-only call launches no transpose solve.  ``tf32``: the matmuls'
+    setting in forward and backward."""
 
     @staticmethod
-    def forward(ctx, K, y, block, needs_grad):
-        L, invs = blocked_cholesky_invs(K, block)
-        z = trsv_lower(L, y, invs, block)
-        alpha = trsv_lower_t(L, z, invs, block) if needs_grad else None
-        ctx.block = block
+    def forward(ctx, K, y, block, needs_grad, tf32):
+        with _matmul_tf32(tf32):
+            L, invs = blocked_cholesky_invs(K, block)
+        solve, solve_t = trsv_solvers(K.shape[-1], block)
+        z = solve(L, y, invs, block)
+        alpha = solve_t(L, z, invs, block) if needs_grad else None
+        ctx.block, ctx.tf32 = block, tf32
         ctx.save_for_backward(L, alpha, invs)
         logdet = 2.0 * torch.log(torch.diagonal(L)).sum()
         return -0.5 * (logdet + z @ z)
@@ -610,15 +734,17 @@ class _LmlCore(torch.autograd.Function):
         Kbar = ybar = None
         if ctx.needs_input_grad[0]:
             # K^-1 = W^T W, W = inv(L) from the factorization's tile inverses
-            Kinv = syrk_lower_t(blocked_tril_inv(L, ctx.block, invs))
+            with _matmul_tf32(ctx.tf32):
+                Kinv = syrk_lower_t(blocked_tril_inv(L, ctx.block, invs))
             Kbar = (0.5 * g) * (torch.outer(alpha, alpha) - Kinv)
         if ctx.needs_input_grad[1]:
             ybar = -g * alpha
-        return Kbar, ybar, None, None
+        return Kbar, ybar, None, None, None
 
 
-def lml_core(K: Tensor, y: Tensor, block: int = DEFAULT_BLOCK) -> Tensor:
-    """-(log|K| + y^T K^-1 y)/2 through the blocked driver and K3, with the
-    analytic GPML-5.9 backward, on both devices."""
+def lml_core(K: Tensor, y: Tensor, block: int = DEFAULT_BLOCK, precision: str | None = None) -> Tensor:
+    """-(log|K| + y^T K^-1 y)/2 through the blocked driver and K3 or K4, with
+    the analytic GPML-5.9 backward, on both devices; ``precision`` sets the
+    drivers' matmuls, forward and backward."""
     needs_grad = torch.is_grad_enabled() and (K.requires_grad or y.requires_grad)
-    return _LmlCore.apply(K, y, block, needs_grad)
+    return _LmlCore.apply(K, y, block, needs_grad, uses_tf32(precision))

@@ -183,19 +183,26 @@ def test_trsv_fits_is_k3_shared_memory_limit():
 
 
 def test_lml_core_beyond_k3_limit_takes_torch_linalg(monkeypatch, factor256):
-    """Where K3 cannot take the size, the front door's lml_core runs
-    torch.linalg (JAX would take K4, not ported) instead of raising."""
+    """Where K3 cannot take the size, the front door's lml_core stays on the
+    blocked path and solves with K4, as JAX does, and not with torch.linalg
+    or K3."""
     K, y, _, _ = factor256
+    taken = []
 
     def boom(*a, **k):
-        raise AssertionError("blocked lml_core taken beyond K3's limit")
+        raise AssertionError("K3 taken beyond its limit")
+
+    def spy(name, fn):
+        return lambda *a: taken.append(name) or fn(*a)
 
     with cp.force_interpret(), cp.no_fused_whole():
         want = float(cp.lml_core(jnp.asarray(K), jnp.asarray(y), 64))
     monkeypatch.setattr(cb, "trsv_fits", lambda n, block: False)
-    monkeypatch.setattr(cb, "lml_core", boom)
+    monkeypatch.setattr(cb, "trsv_lower", boom)
+    monkeypatch.setattr(cb, "trsv2d_lower", spy("K4", cb.trsv2d_lower))
     with cb.force_blocked(64):
         got = float(linalg.lml_core(T(K), T(y)))
+    assert taken == ["K4"]
     assert abs(got - want) <= 1e-9 * abs(want)
 
 
