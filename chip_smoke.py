@@ -59,12 +59,31 @@ process per source) and then runs these phases, each printing JSON lines:
               against cuSOLVER; peak device memory; the precision rescue's
               host read, and one step at "tensorfloat32", where it engages.
 
+8. bayes    - Bayesian hyperparameter inference: the hyperpriors study
+              (gogp_tpu/tutorial/hyperpriors.py, n = 44 points, 6
+              log-thetas) under ChEES-HMC at the protocol of
+              benchmarks/ess_nuts.py:729 (64 chains, 512 warmup and 512
+              sampling transitions, seed 0).  K7 against its plain version
+              at the study's covariances of 16, 64 and 256 positions and at
+              K7's n limit; the value and gradient of the log-joint
+              ``bayes.build_logjoint`` gives the sampler (K7 route, f32)
+              against the plain route's in f64 at 256 positions; the main
+              path, ``bayes.main(["hyperpriors", "--engine", "chees",
+              "--chains", "64", "--seed", "0", "--warmup", "512",
+              "--samples", "32768", "selfcheck"])`` in process on the K7
+              route, whose K7 launches must equal its log-joint's calls
+              (counted by wrapping ``chees.run_chees``), with 50 finite
+              forecast rows; one transition from its sampler's final state
+              on both routes with the same draws; the same command line
+              under force_plain at 128 + 128 transitions (none of its calls
+              may launch K7).
+
 With ``--profile``, one more phase follows:
 
-8. profile  - one serving slice run, one train and one large value-and-gradient
-              step on each path under torch.profiler: the device's busy time
-              and idle share over the run, and the kernels with the most
-              device time.
+9. profile  - one serving slice run, one train and one large value-and-gradient
+              step, and one 64-chain value and gradient of the bayes path, on
+              each path under torch.profiler: the device's busy time and idle
+              share over the run, and the kernels with the most device time.
 
 Then the peak device memory of each phase, one JSON line with the per-kernel
 summary, the nvidia-smi line, and last ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero;
@@ -75,11 +94,13 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import io
 import json
 import statistics
 import subprocess
 import sys
 import time
+import unittest.mock
 
 import numpy as np
 import torch
@@ -87,8 +108,11 @@ import torch
 from gogp_torch import GP, make_gp_logp, masked_value_and_grad, matern32, mle, rbf, uniform_noise
 from gogp_torch.gp import core
 from gogp_torch.models.params import gp_observe, gp_posterior
-from gogp_torch.ops import _build, linalg
+from gogp_torch.infer import chees, diagnostics
+from gogp_torch.ops import _build, fused_gp, linalg
 from gogp_torch.ops import cholesky_blocked as cb
+from gogp_torch.tutorial import bayes
+from gogp_torch.tutorial import io as tio
 
 N, M = 4096, 1024
 BLOCK = cb.DEFAULT_BLOCK
@@ -143,6 +167,26 @@ LARGE_BOUNDS = {
 # carried-over gate between them (cb._TRSV2D_MIN_N) lies on this card.
 GATE_SIZES = (4096, 8192, N_LARGE)
 
+# The bayes path: the hyperpriors study under ChEES-HMC at the protocol of
+# benchmarks/ess_nuts.py:729 (run_chees_bench: 64 chains, 512 warmup and 512
+# sampling transitions, seed 0), through the command line on the K7 route.
+# The plain route's run, reported only, is cut to 128 + 128: a transition
+# took 0.31-0.48 s on an H100 host (PERF.md), so the protocol's 1024
+# transitions on both routes took 961 s of the script's 1200.
+BAYES_CHAINS, BAYES_WARMUP, BAYES_SAMPLES, BAYES_SEED = 64, 512, 512, 0
+PLAIN_WARMUP, PLAIN_SAMPLES = 128, 128
+K7_BATCHES = (16, BAYES_CHAINS, 256)
+# Bounds of the bayes path.  Written before its first run on the card:
+# k7 1e-2, value 1e-4, gradient 1e-2, transition 1e-2; k7, the gradient and
+# the transition then set to about 10 times what an H100 showed (PERF.md).
+BAYES_BOUNDS = {
+    "k7_rtol": 5e-4,  # K7 against its plain f32 version, relative to the largest entry of L^-1 (4.1e-5)
+    "value_rtol": 1e-4,  # the K7 route's log-joint (f32) against the plain route in f64, relative (8.8e-6)
+    "grad_rtol": 4e-4,  # its gradient, relative to the largest entry (3.9e-5)
+    "transition_atol": 1e-3,  # positions after one 55-step transition on the two f32 routes, same draws (1.1e-4)
+    "accept_lo": 0.5, "accept_hi": 0.95,  # the post-warmup mean acceptance of the K7 route's run
+}
+
 # The card's peaks for the least time a kernel could take (NVIDIA's H100 SXM
 # data sheet): HBM bytes per second, and f32 FLOPs per second outside the
 # tensor cores (every kernel here computes in f32 FMA).
@@ -160,6 +204,7 @@ KERNELS = {
     "trsv2d_lower_t": ("K4 trsv2d_lower_t", "gogp_torch/csrc/trsv2d.cu", f"{PALLAS}:976"),
     "tril_inv_tile": ("K5 tril_inv_tile", "gogp_torch/csrc/tril_inv_tile.cu", f"{PALLAS}:344"),
     "chol_tile": ("K6 cholesky_tile", "gogp_torch/csrc/chol_tile.cu", f"{PALLAS}:161"),
+    "fused_gp_linv": ("K7 fused_gp_linv", "gogp_torch/csrc/fused_gp.cu", "gogp_tpu/ops/fused_gp.py:213"),
 }
 
 
@@ -168,6 +213,9 @@ def work(key: str, shape) -> tuple[float, float]:
     read once, each output written once, only what the function uses (the
     lower triangle of a factor it solves with)."""
     b = BLOCK
+    if key == "fused_gp_linv":  # each K's lower triangle in, its dense L^-1 out; n^3/3 for the factor, as much for the inverse
+        count, n = shape[0], shape[-1]
+        return 4 * count * (n * (n + 1) / 2 + n * n), count * 2 * n**3 / 3
     if key == "fused_cholesky_invs":  # K's block lower triangle in; L and the tile inverses out
         n = shape[0]
         return 4 * (n * (n + b) / 2 + n * n + n * b), n**3 / 3 + (n // b) * b**3 / 3
@@ -376,10 +424,11 @@ def run_large(gp, x, y, v0, z, after=lambda stage: None) -> dict:
 
 
 def check_kernel(path: str, key: str, kernel, plain, shape, reps: int, library=None,
-                 rtol: float = KERNEL_RTOL, **extra) -> dict:
+                 rtol: float = KERNEL_RTOL, library_name: str | None = None, **extra) -> dict:
     """Hold one kernel against its plain version on the same inputs, then
     time both, ``library`` (one PyTorch call computing the same function, or
-    None) and each of ``extra``'s calls with CUDA events."""
+    None; ``library_name`` says which where it is more than one call) and
+    each of ``extra``'s calls with CUDA events."""
     got, want = kernel(), plain()
     torch.cuda.synchronize()
     pairs = list(zip(got, want)) if isinstance(got, tuple) else [(got, want)]
@@ -391,6 +440,7 @@ def check_kernel(path: str, key: str, kernel, plain, shape, reps: int, library=N
         "max_abs_err": abs_err, "max_rel_err": rel_err, "bound_rel": rtol,
         "ms": event_ms(kernel, reps), "plain_ms": event_ms(plain, reps),
         "library_ms": None if library is None else event_ms(library, reps),
+        **({"library_name": library_name} if library_name else {}),
         "bound_ms": bound_ms, "bound_by": bound_by,
         **{name: event_ms(fn, reps) for name, fn in extra.items()},
     }
@@ -531,8 +581,11 @@ SERVE_KERNELS = ("chol_inv_tile", "trsv_lower", "tril_inv_tile")
 TRAIN_KERNELS = ("fused_cholesky_invs", "trsv_lower", "trsv_lower_t", "tril_inv_tile")
 # The large path's: the stepwise driver (K2), K4 both ways, K5 in the forecast.
 LARGE_KERNELS = ("chol_inv_tile", "trsv2d_lower", "trsv2d_lower_t", "tril_inv_tile")
+# The bayes path's: K7, once per value-and-gradient of the chain batch.
+BAYES_KERNELS = ("fused_gp_linv",)
 # K6 is on no path; its entry counts its launches in the kernels phase.
-PATH_KERNELS = {"serve": SERVE_KERNELS, "train": TRAIN_KERNELS, "large": LARGE_KERNELS, "kernels": ("chol_tile",)}
+PATH_KERNELS = {"serve": SERVE_KERNELS, "train": TRAIN_KERNELS, "large": LARGE_KERNELS, "bayes": BAYES_KERNELS,
+                "kernels": ("chol_tile",)}
 
 
 def phase_launches(launches: dict, args32) -> None:
@@ -745,6 +798,211 @@ def phase_large(dev) -> dict:
     return {"launches": launches, "args32": args32}
 
 
+def bayes_problem(dev, dtype=torch.float32, plain: bool = False):
+    """The hyperpriors study's log-joint on the K7 route (or, with
+    ``plain``, built under force_plain: gp_observe plus priors under
+    autograd) as ``bayes.main`` builds it: y normalised, v0 = 0."""
+    _, study, data = bayes.get_study("hyperpriors")
+    x, y = tio.load_csv(data)
+    y_norm = tio.normalize(y)[0]
+    with linalg.force_plain() if plain else contextlib.nullcontext():
+        logp, observed, v0, free = bayes.build_logjoint(study, x, y_norm, dev, dtype)
+    return study, x, y_norm, logp, observed, v0, free
+
+
+def bayes_step(k7_logp, plain_logp, V):
+    """One value and gradient of the chain batch by autograd, as the sampler
+    takes it: the plain route inside force_plain, the K7 route outside."""
+    q = V.detach().requires_grad_(True)
+    lp = (plain_logp if linalg._FORCE_PLAIN else k7_logp)(q)
+    return lp.detach(), torch.autograd.grad(lp.sum(), q)[0]
+
+
+def bayes_positions(count: int, dev, dtype=torch.float32, seed: int = 0) -> torch.Tensor:
+    """``count`` positions around v0, 0.1 N(0, 1), as the protocol starts
+    its chains (benchmarks/ess_nuts.py:381)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return 0.1 * torch.randn((count, 6), generator=g, dtype=dtype, device=dev)
+
+
+def bayes_covs(study, x, V: torch.Tensor) -> torch.Tensor:
+    """The study's covariance at each position: a (len(V), n, n) batch."""
+    nts = study.gp.n_theta_simil
+    xt = torch.as_tensor(x, dtype=V.dtype, device=V.device)
+    return torch.func.vmap(lambda v: core.masked_cov(study.gp, torch.exp(v[:nts]), torch.exp(v[nts:]), xt, None))(V)
+
+
+def k7_cases(dev) -> dict:
+    """K7 on the hyperpriors covariances at each of K7_BATCHES positions
+    (n = 44) and once at K7's n limit (the study's kernel on K7_MAX_N points
+    at the data's spacing): path -> (kernel call, plain call, shape, reps,
+    library call)."""
+    study, x, _, _, _, _, _ = bayes_problem(dev)
+    cases = {}
+    spacing = float(x[1, 0] - x[0, 0])
+    x_limit = spacing * np.arange(fused_gp.K7_MAX_N)[:, None]
+    for label, count, xs in [*((f"B={b}", b, x) for b in K7_BATCHES), ("n=limit", BAYES_CHAINS, x_limit)]:
+        K = bayes_covs(study, xs, bayes_positions(count, dev, seed=1))
+        eye = torch.eye(K.shape[-1], dtype=K.dtype, device=dev)
+        path = "bayes" if count == BAYES_CHAINS and xs is x else label
+        cases[path] = (lambda K=K: fused_gp.fused_gp_linv(K), lambda K=K: fused_gp.linv_plain(K), K.shape, 50,
+                       lambda K=K, eye=eye: torch.linalg.solve_triangular(torch.linalg.cholesky(K), eye, upper=False))
+    return cases
+
+
+def run_main(warmup: int, samples: int) -> dict:
+    """``bayes.main(["hyperpriors", "--engine", "chees", "--chains", "64",
+    "--seed", "0", "--warmup", warmup, "--samples", 64 * samples,
+    "selfcheck"])`` in process, its output captured.  Inside it,
+    ``chees.run_chees`` is wrapped to count the log-joint's calls and to
+    read the host clock (after a synchronize) where sampling begins; the
+    sampler runs on the state's own generator, as by default.  Returns the
+    output lines, the sampler's Samples, and walls in s and
+    value-and-gradient calls, each split into init + warmup and sampling."""
+    calls, mark, runs = [0], {}, []
+    real_run_chees = chees.run_chees
+
+    def run_chees(logp, *args, **kwargs):
+        def counted(V):
+            calls[0] += 1
+            return logp(V)
+
+        def draws(state):
+            if state.step == kwargs["num_warmup"]:  # the first sampling transition
+                torch.cuda.synchronize()
+                mark.update(t=time.perf_counter(), calls=calls[0])
+            return chees.generator_draws(state)
+
+        torch.cuda.synchronize()
+        mark.update(t0=time.perf_counter())
+        runs.append(real_run_chees(counted, *args, draws=draws, **kwargs))
+        torch.cuda.synchronize()
+        mark.update(t1=time.perf_counter())
+        return runs[-1]
+
+    out = io.StringIO()
+    argv = ["hyperpriors", "--engine", "chees", "--chains", str(BAYES_CHAINS), "--seed", str(BAYES_SEED),
+            "--warmup", str(warmup), "--samples", str(BAYES_CHAINS * samples), "selfcheck"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), unittest.mock.patch.object(chees, "run_chees", run_chees):
+        bayes.main(argv)
+    torch.cuda.synchronize()
+    return {"argv": argv, "wall_s": time.perf_counter() - t0, "lines": out.getvalue().strip().splitlines(),
+            "samples": runs[0],
+            "walls": {"init_and_warmup": mark["t"] - mark["t0"], "sampling": mark["t1"] - mark["t"]},
+            "calls": {"init_and_warmup": mark["calls"], "sampling": calls[0] - mark["calls"]}}
+
+
+def _posterior_summary(pos: torch.Tensor) -> dict:
+    """Diagnostics of (draws, chains, dim) positions, in f64."""
+    by_chain = pos.permute(1, 0, 2).double()
+    min_ess, max_rhat, converged = diagnostics.gated_min_ess(by_chain)
+    flat = by_chain.reshape(-1, by_chain.shape[-1])
+    ess = diagnostics.ess(by_chain)
+    return {"mean": flat.mean(0), "mcse": flat.std(0) / torch.sqrt(ess), "min_bulk_ess": min_ess,
+            "max_bulk_rhat": max_rhat, "converged_rhat_1.01": converged, **diagnostics.diagnose(by_chain)}
+
+
+def phase_bayes(dev) -> dict:
+    # 1. K7 against its plain version at the path's shapes
+    rows = {(path, "fused_gp_linv"): check_kernel(
+                path, "fused_gp_linv", *case, rtol=BAYES_BOUNDS["k7_rtol"],
+                library_name="torch.linalg.cholesky + torch.linalg.solve_triangular(L, I)")
+            for path, case in k7_cases(dev).items()}
+
+    # 2. the value and gradient of the log-joint the sampler runs, K7 route
+    # (f32), against the plain route's in f64, at 256 positions
+    study, x, y, logp, observed, v0, free = bayes_problem(dev)
+    plain_logp = bayes_problem(dev, plain=True)[3]
+    plain64_logp = bayes_problem(dev, torch.float64, plain=True)[3]
+    V = bayes_positions(256, dev, seed=2)
+    val, grad = bayes_step(logp, plain64_logp, V)
+    with linalg.force_plain():
+        want_val, want_grad = bayes_step(logp, plain64_logp, V.double())
+    errors = {"value_rel": float(((val.double() - want_val).abs() / want_val.abs()).max()),
+              "grad_rel": float((grad.double() - want_grad).abs().max() / want_grad.abs().max())}
+
+    # 4. the main path: the command line on the K7 route at the protocol,
+    # its K7 launches counted against its log-joint's calls
+    cb.reset_launch_counts()
+    k7_run = run_main(BAYES_WARMUP, BAYES_SAMPLES)
+    launches = dict(cb.LAUNCHES)
+    vg_calls = sum(k7_run["calls"].values())
+    pos, acc, final = k7_run["samples"].positions, k7_run["samples"].accept_probs, k7_run["samples"].state
+    k7 = _posterior_summary(pos)
+
+    # 3. one transition on both routes from one state, the same draws: the
+    # final state one transition on (its halton index, 2^10 + 1, gives a
+    # trajectory of about half the adapted length; the final state's own
+    # index 2^10 gives a single leapfrog step, whose positions the
+    # log-joint cannot change)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    start = chees.chees_transition(logp, final._replace(rng=gen), free=free)
+    fixed = chees.generator_draws(start)
+    n_steps = chees.n_leapfrog_steps(start)[0]
+    one = {label: chees.chees_transition(lp, start, free=free, draws=lambda s: fixed)
+           for label, lp in (("k7", logp), ("plain", plain_logp))}
+    accepted = {label: fixed[1] < s.accept_probs for label, s in one.items()}
+    errors["transition_abs"] = float((one["k7"].positions - one["plain"].positions).abs().max())
+    same_accepts = bool(torch.equal(accepted["k7"], accepted["plain"]))
+
+    # the command line on the plain route, cut to PLAIN_WARMUP +
+    # PLAIN_SAMPLES: no K7 launch
+    before = cb.LAUNCHES["fused_gp_linv"]
+    with linalg.force_plain():
+        plain_run = run_main(PLAIN_WARMUP, PLAIN_SAMPLES)
+    plain_launches = cb.LAUNCHES["fused_gp_linv"] - before
+    ppos, pacc = plain_run["samples"].positions, plain_run["samples"].accept_probs
+    plain = _posterior_summary(ppos)
+    gap = (k7["mean"] - plain["mean"]) / torch.sqrt(k7["mcse"] ** 2 + plain["mcse"] ** 2)
+
+    def route(run, summ, warmup):
+        walls, accepts, lines = run["walls"], run["samples"].accept_probs, run["lines"]
+        transitions = warmup + accepts.shape[0]
+        rows = np.array([[float(v) for v in line.split(",")] for line in lines[:-1]])
+        return {"argv": run["argv"], "main_wall_s": run["wall_s"], "wall_s": walls, "vg_calls": run["calls"],
+                "transitions": transitions, "ms_per_transition": 1e3 * sum(walls.values()) / transitions,
+                "ms_per_vg": 1e3 * sum(walls.values()) / sum(run["calls"].values()),
+                "mean_accept_sampling": float(accepts.mean()),
+                **{k: (v.tolist() if isinstance(v, torch.Tensor) else v) for k, v in summ.items()},
+                "ess_per_s_sampling": summ["min_bulk_ess"] / walls["sampling"],
+                "forecast_rows": list(rows.shape), "theta_mean_line": lines[-1],
+                "forecast_ok": bool(rows.shape == (50, 4) and np.isfinite(rows[:, [0, 2, 3]]).all()
+                                    and (rows[:, 3] > 0).all() and lines[-1].startswith("# posterior theta mean: "))}
+
+    report = {
+        "phase": "bayes", "chains": BAYES_CHAINS, "warmup": BAYES_WARMUP, "samples": BAYES_SAMPLES,
+        "seed": BAYES_SEED, "n": x.shape[0], "bounds": BAYES_BOUNDS, "errors": errors,
+        "same_accept_decisions": same_accepts, "transition_leapfrog_steps": n_steps,
+        "transition_accepted": int(accepted["k7"].sum()), "launches": launches, "vg_calls": vg_calls,
+        "plain_route_k7_launches": plain_launches,
+        "k7_route": {**route(k7_run, k7, BAYES_WARMUP), "step_size": float(final.step_size),
+                     "traj_length": float(torch.exp(final.log_traj)), "inv_mass": final.inv_mass.tolist()},
+        "plain_route": route(plain_run, plain, PLAIN_WARMUP),
+        "mean_gap_in_mcse": gap.tolist(),
+    }
+    emit(report)
+
+    failures = [k for k, b in (("value_rel", "value_rtol"), ("grad_rel", "grad_rtol"),
+                               ("transition_abs", "transition_atol")) if not errors[k] <= BAYES_BOUNDS[b]]
+    if not same_accepts:
+        failures.append("the two routes took different accept decisions in one transition")
+    if launches["fused_gp_linv"] != vg_calls:
+        failures.append(f"K7 launched {launches['fused_gp_linv']} times in {vg_calls} value-and-gradient calls")
+    if plain_launches:
+        failures.append(f"the plain route launched K7 {plain_launches} times")
+    if not (torch.isfinite(pos).all() and torch.isfinite(ppos).all()):
+        failures.append("non-finite draws")
+    if not BAYES_BOUNDS["accept_lo"] <= float(acc.mean()) <= BAYES_BOUNDS["accept_hi"]:
+        failures.append(f"mean acceptance {float(acc.mean()):.3f} outside the bounds")
+    failures += [f"bayes.main ({label}): not 50 finite forecast rows with sigma > 0 and the theta-mean line"
+                 for label in ("k7_route", "plain_route") if not report[label]["forecast_ok"]]
+    if failures:
+        raise AssertionError(f"bayes path: {failures}")
+    return {"launches": launches, "rows": rows, "logps": (logp, plain_logp)}
+
+
 def _device_busy_us(events) -> float:
     """Length of the union of the device events' time intervals."""
     spans = sorted((e.time_range.start, e.time_range.end) for e in events)
@@ -758,12 +1016,13 @@ def _device_busy_us(events) -> float:
     return busy + (0.0 if end is None else end - start)
 
 
-def phase_profile(slice_args32, train_args32, large_args32) -> None:
+def phase_profile(slice_args32, train_args32, large_args32, bayes_logps) -> None:
     from torch.profiler import ProfilerActivity, profile
 
     report = {"phase": "profile"}
+    V = bayes_positions(BAYES_CHAINS, slice_args32[1].device, seed=4)
     runs = {"slice": (run_slice, slice_args32), "train_step": (value_and_grad_step, train_args32),
-            "large_step": (value_and_grad_step, large_args32)}
+            "large_step": (value_and_grad_step, large_args32), "bayes_vg": (bayes_step, (*bayes_logps, V))}
     for run, (fn, args) in runs.items():
         for label, ctx in (("kernels", contextlib.nullcontext), ("plain", linalg.force_plain)):
             with ctx():
@@ -789,7 +1048,7 @@ def phase_profile(slice_args32, train_args32, large_args32) -> None:
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--profile", action="store_true", help="also run phase 8 (torch.profiler)")
+    parser.add_argument("--profile", action="store_true", help="also run phase 9 (torch.profiler)")
     args = parser.parse_args()
     info = phase_device()
     dev = torch.device("cuda", 0)
@@ -811,13 +1070,15 @@ def main() -> int:
     measured("launches", phase_launches, serve_launches, slice_args32)
     train = measured("train", phase_train, dev)
     large = measured("large", phase_large, dev)
+    bayes_out = measured("bayes", phase_bayes, dev)
+    kernels.update(bayes_out["rows"])
     if args.profile:
-        measured("profile", phase_profile, slice_args32, train["args32"], large["args32"])
+        measured("profile", phase_profile, slice_args32, train["args32"], large["args32"], bayes_out["logps"])
     emit({"phase": "memory", "peak_gib": peak_gib})
     # one entry per kernel and path that launches it: the path's launch
     # count beside the error and times at the shapes that path gives it
     launches = {"serve": serve_launches, "train": train["launches"], "large": large["launches"],
-                "kernels": kernels_launches}
+                "bayes": bayes_out["launches"], "kernels": kernels_launches}
     emit({"kernels": [
         {"name": f"{name} ({path}, {'x'.join(map(str, row['shape']))})", "route": "cuda",
          "source": source, "replaces": replaces, "launches": launches[path][key],

@@ -7,11 +7,16 @@ twin, against which the tests hold it.
 - ``gogp_torch.gp``      - covariance assembly, LML, prediction.
 - ``gogp_torch.models``  - the flat parameter-vector protocol, log-density
   composition and gradient masks.
+- ``gogp_torch.dists``   - prior log-densities.
 - ``gogp_torch.infer``   - maximum-likelihood fits (``mle.adam``,
-  ``mle.lbfgs``).
-- ``gogp_torch.ops``     - the linear-algebra front door (``linalg``) and the
-  blocked driver with its hand-written CUDA kernels (``cholesky_blocked``,
-  sources in ``gogp_torch/csrc/``).
+  ``mle.lbfgs``); ChEES-HMC (``chees``) with its warmup adaptation
+  (``adapt``), integrator (``hmc``) and diagnostics (``diagnostics``).
+- ``gogp_torch.ops``     - the linear-algebra front door (``linalg``), the
+  blocked driver with its hand-written CUDA kernels (``cholesky_blocked``),
+  and a chain population's small-GP value and gradient (``fused_gp``, K7);
+  sources in ``gogp_torch/csrc/``.
+- ``gogp_torch.tutorial`` - the hyperpriors study and the Bayesian forecast
+  command line (``python -m gogp_torch.tutorial.bayes``).
 - ``gogp_torch.convert`` - state carried across from the JAX package.
 
 The package never imports JAX.
@@ -19,6 +24,7 @@ The package never imports JAX.
 
 __version__ = "0.1.0"
 
+from gogp_torch import dists  # noqa: F401
 from gogp_torch.gp.core import GP  # noqa: F401
 from gogp_torch.infer import mle  # noqa: F401
 from gogp_torch.kernels import (  # noqa: F401

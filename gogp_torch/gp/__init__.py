@@ -7,6 +7,7 @@ from gogp_torch.gp.core import (  # noqa: F401
     masked_cov,
     predict,
     predict_from_posterior,
+    predict_mixture,
     predict_prior,
     predict_y_from_posterior,
 )

@@ -167,6 +167,42 @@ def predict(gp: GP, theta_simil, theta_noise, x, y, z, mask=None) -> tuple[Tenso
     return predict_from_posterior(gp, post, z)
 
 
+def predict_mixture(gp: GP, vs, x, y, z, mask=None) -> tuple[Tensor, Tensor]:
+    """Bayesian posterior predictive: the moment-matched mixture over sampled
+    hyperparameters.
+
+    ``vs``: (S, n_theta) log-scale draws.  Each draw conditions the GP and
+    predicts the noise-free latent at ``z``; the result is the mixture's
+    mean and std, mu = E[mu_s], var = E[sigma_s^2 + mu_s^2] - mu^2.  All S
+    draws go at once: one batched covariance build, one batched
+    ``torch.linalg`` factorization and solve (the JAX twin vmaps absorb and
+    predict_from_posterior, which XLA batches the same way).
+    """
+    x = _points(x)
+    n = x.shape[0]
+    mask = torch.ones(n, dtype=x.dtype, device=x.device) if mask is None else _like(mask, x)
+    y = _like(y, x) * mask
+    z = _points(_like(z, x))
+    theta = torch.exp(_like(vs, x))
+    nts = gp.n_theta_simil
+
+    def one(t):
+        ts, tn = t[:nts], t[nts:]
+        kstar = gp.simil.matrix(ts, x, z) * mask[:, None]
+        return masked_cov(gp, ts, tn, x, mask), kstar, gp.simil.diag_matrix(ts, z)
+
+    K, kstar, prior_var = torch.func.vmap(one)(theta)  # (S, n, n), (S, n, m), (S, m)
+    L = linalg.cholesky(K)  # a batch: torch.linalg
+    z1 = torch.linalg.solve_triangular(L, y[:, None], upper=False)
+    alpha = torch.linalg.solve_triangular(L.mT, z1, upper=True)  # (S, n, 1)
+    mus = (kstar * alpha).sum(-2)
+    v = torch.linalg.solve_triangular(L, kstar, upper=False)
+    sigmas = torch.sqrt(torch.clamp(prior_var - (v * v).sum(-2), min=0.0))
+    mu = mus.mean(0)
+    var = (sigmas * sigmas + mus * mus).mean(0) - mu * mu
+    return mu, torch.sqrt(torch.clamp(var, min=0.0))
+
+
 def predict_prior(gp: GP, theta_simil, z) -> tuple[Tensor, Tensor]:
     """Prediction with no observations: mu = 0, sigma = prior std."""
     z = _points(z)

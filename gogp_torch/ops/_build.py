@@ -48,6 +48,7 @@ SIGNATURES = {
     "gogp_trsv2d_lower": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
     "gogp_trsv2d_lower_t": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
     "gogp_chol_tile": [_P, _I, _P, _I, _I, _P],
+    "gogp_fused_gp_linv": [_P, _P, _I, _I, _P],
 }
 
 

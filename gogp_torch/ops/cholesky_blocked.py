@@ -14,6 +14,9 @@ TPU's Pallas kernels one for one:
     K5  tril_inv_tile       <- _tril_inv_kernel / pallas_tril_inv_tile
     K6  cholesky_tile       <- _chol_kernel / pallas_cholesky_tile
 
+(K7, the batched small-GP L^-1, lives in ``ops/fused_gp.py`` and counts its
+launches in :data:`LAUNCHES` too.)
+
 Each wrapper has a plain PyTorch version beside it (``*_plain``).  A tensor on
 the CPU takes the plain version; a CUDA tensor launches the kernel or raises.
 There is no fallback between the two.  Each launch adds one to its entry in
@@ -79,6 +82,7 @@ LAUNCHES = {
     "trsv2d_lower_t": 0,
     "tril_inv_tile": 0,
     "chol_tile": 0,
+    "fused_gp_linv": 0,  # K7, launched from ops/fused_gp.py
 }
 
 

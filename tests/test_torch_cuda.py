@@ -21,7 +21,7 @@ from gogp_torch import GP, rbf, uniform_noise
 from gogp_torch.gp import core
 from gogp_torch.models import params
 from gogp_torch.ops import cholesky_blocked as cb
-from gogp_torch.ops import linalg
+from gogp_torch.ops import fused_gp, linalg
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 B = cb.DEFAULT_BLOCK  # the one tile size K2 and K5 are built for
@@ -345,3 +345,76 @@ def test_lml_core_beyond_k3_limit_takes_torch_linalg(cuda):
     with linalg.force_plain():
         want = float(linalg.lml_core(K, y))
     assert np.isfinite(got) and abs(got - want) <= 1e-4 * abs(want)
+
+
+def _spd_batch(batch, n, device, seed=0):
+    """A batch of SPD matrices shaped like the hyperpriors covariances:
+    unit-scale kernels plus a small diagonal."""
+    rng = np.random.default_rng(seed)
+    x = np.sort(rng.uniform(0, 10, (batch, n, 1)), axis=1)
+    ell = rng.uniform(0.5, 2.0, (batch, 1, 1))
+    K = np.exp(-0.5 * ((x - x.transpose(0, 2, 1)) / ell) ** 2) + 0.01 * np.eye(n)
+    return torch.as_tensor(K, dtype=torch.float32, device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 44, 64, fused_gp.K7_MAX_N])
+def test_fused_gp_linv_matches_plain(cuda, n):
+    """K7 against its plain version (f32 cuSOLVER and a triangular solve):
+    1e-3 of the largest entry, as for K1, since L^-1 of a covariance with
+    noise variance 0.01 carries the f32 rounding of K's condition number."""
+    K = _spd_batch(16, n, cuda)
+    before = cb.LAUNCHES["fused_gp_linv"]
+    got = fused_gp.fused_gp_linv(K)
+    assert cb.LAUNCHES["fused_gp_linv"] == before + 1
+    want = fused_gp.linv_plain(K)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert _rel(got, want.double()) <= 1e-3
+    assert (torch.triu(got, diagonal=1) == 0).all()
+    # two runs give the same bits
+    assert torch.equal(got, fused_gp.fused_gp_linv(K))
+
+
+@pytest.mark.cuda
+def test_fused_gp_linv_non_positive_pivot_is_nan(cuda):
+    K = _spd_batch(3, 44, cuda)
+    K[1, 20, 20] = -1.0
+    got = fused_gp.fused_gp_linv(K)
+    assert torch.isnan(got[1]).any()
+    assert torch.isfinite(got[0]).all() and torch.isfinite(got[2]).all()
+
+
+@pytest.mark.cuda
+def test_fused_gp_linv_raises_on_bad_input(cuda):
+    with pytest.raises(TypeError):
+        fused_gp.fused_gp_linv(_spd_batch(2, 8, cuda).double())
+    with pytest.raises(ValueError):
+        fused_gp.fused_gp_linv(_spd_batch(1, fused_gp.K7_MAX_N + 1, cuda))
+
+
+@pytest.mark.cuda
+def test_fused_value_and_grad_route_matches_f64_plain(cuda):
+    """The K7 route in f32 against the reference route in f64 on the card:
+    one K7 launch per call, value 1e-5 relative, gradient 1e-3 of its
+    largest entry."""
+    rng = np.random.default_rng(1)
+    x = np.sort(rng.uniform(0, 10, 40))
+    y = np.sin(x) + 0.1 * rng.normal(size=40)
+    gp = GP(ndim=1, simil=rbf.scaled(), noise=uniform_noise)
+    V = 0.2 * rng.normal(size=(64, gp.n_theta))
+
+    def t(a, dtype):
+        return torch.as_tensor(a, dtype=dtype, device=cuda)
+
+    vg = fused_gp.make_fused_value_and_grad(gp, t(x, torch.float32), t(y, torch.float32))
+    ref = fused_gp.make_reference_value_and_grad(gp, t(x, torch.float64), t(y, torch.float64))
+    before = cb.LAUNCHES["fused_gp_linv"]
+    val, grad = vg(t(V, torch.float32))
+    assert cb.LAUNCHES["fused_gp_linv"] == before + 1
+    want_val, want_grad = ref(t(V, torch.float64))
+    assert float(((val.double() - want_val).abs() / want_val.abs()).max()) <= 1e-5
+    assert _rel(grad, want_grad) <= 1e-3
+    with linalg.force_plain():
+        vg(t(V, torch.float32))
+    assert cb.LAUNCHES["fused_gp_linv"] == before + 1
