@@ -19,10 +19,11 @@ process per source) and then runs these phases, each printing JSON lines:
               tile, K3 both ways and K5 on the n = 4096 factor.  Train: K1
               at n = 1536 (and at 1024 and 1792, also timed against the
               stepwise driver), K3 both ways and K5 on K1's n = 1536
-              factor.  Large: K2 on one tile, K4 both ways and K5 on the
-              n = 16384 factor; K4 also at n = 4096 and 8192, each timed
-              beside K3 on the same factor (where the carried-over gate
-              between them lies).  K6, which no path calls, on one tile.
+              factor.  Large: K2 on one tile, K3 and K4 both ways and K5 on
+              the n = 16384 factor; K3 and K4 also at n = 1024, 1536, 2048,
+              4096 and 8192 on the same factors, and a "gates" line with
+              the gate between them beside these times.  K6, which no path
+              calls, on one tile.
 4. slice    - serving: the GP problem of ``bench.py``, n = 4096 sorted
               uniform inputs on [0, 100], y = sin(x/3) + 0.1 N(0, 1) from
               numpy seed 0, rbf.scaled() + uniform_noise at log-theta 0,
@@ -53,8 +54,9 @@ process per source) and then runs these phases, each printing JSON lines:
               of gp_observe at v0, Adam for 3 steps, then gp_posterior and
               the forecast at m = 1024 points at Adam's v, held against the
               plain path in f64 on the card; the launch counts of each stage
-              (K2 per factorization, K4 both ways per gradient, no K3 or K1,
-              K5 in the forecast); wall time of a value-and-gradient step on
+              (K2 per factorization, the gate's solver, K3 as measured, both
+              ways per gradient, none of the other's or of K1, K5 in the
+              forecast); wall time of a value-and-gradient step on
               the kernel path and on the plain f32 path; the factorization
               against cuSOLVER; peak device memory; the precision rescue's
               host read, and one step at "tensorfloat32", where it engages.
@@ -64,8 +66,10 @@ process per source) and then runs these phases, each printing JSON lines:
               log-thetas) under ChEES-HMC at the protocol of
               benchmarks/ess_nuts.py:729 (64 chains, 512 warmup and 512
               sampling transitions, seed 0).  K7 against its plain version
-              at the study's covariances of 16, 64 and 256 positions and at
-              K7's n limit; the value and gradient of the log-joint
+              at the study's covariances of 16, 64 and 256 positions and, 64
+              matrices each, at n = 32, 64, 96 and K7's n limit, with a
+              "gates" line of the limit beside K7's and the library's
+              times; the value and gradient of the log-joint
               ``bayes.build_logjoint`` gives the sampler (K7 route, f32)
               against the plain route's in f64 at 256 positions; the main
               path, ``bayes.main(["hyperpriors", "--engine", "chees",
@@ -77,6 +81,12 @@ process per source) and then runs these phases, each printing JSON lines:
               on both routes with the same draws; the same command line
               under force_plain at 128 + 128 transitions (none of its calls
               may launch K7).
+
+With ``--phases a,b,...`` (of kernels, k7, gate, slice, train, large, bayes;
+k7 is the bayes phase's kernel checks without its sampler runs, gate times K3
+against K4 at n = 24576 to 65536 and is part of no whole run) only those phases
+run, after device and build, and the script ends with ``{"ok": false,
+"partial": [...]}`` and exit code 2: for work on one kernel, never a pass.
 
 With ``--profile``, one more phase follows:
 
@@ -163,9 +173,9 @@ LARGE_BOUNDS = {
     "adam_v_atol": 1e-4,  # v after 3 Adam steps
     "pred_atol": 1e-3,  # forecast mean and std at Adam's v
 }
-# K4 against K3 and plain on the same factors at these n: where the
-# carried-over gate between them (cb._TRSV2D_MIN_N) lies on this card.
-GATE_SIZES = (4096, 8192, N_LARGE)
+# K3 and K4 against plain and the library call on the same factors at these
+# n: the measurements that set the gate between them (cb._TRSV2D_MIN_N).
+GATE_SIZES = (1024, 1536, 2048, 4096, 8192, N_LARGE)
 
 # The bayes path: the hyperpriors study under ChEES-HMC at the protocol of
 # benchmarks/ess_nuts.py:729 (run_chees_bench: 64 chains, 512 warmup and 512
@@ -176,6 +186,9 @@ GATE_SIZES = (4096, 8192, N_LARGE)
 BAYES_CHAINS, BAYES_WARMUP, BAYES_SAMPLES, BAYES_SEED = 64, 512, 512, 0
 PLAIN_WARMUP, PLAIN_SAMPLES = 128, 128
 K7_BATCHES = (16, BAYES_CHAINS, 256)
+# K7 against the library pair at these n, 64 matrices each: the measurements
+# that set its dispatch limit (fused_gp.K7_MAX_N); the largest is the limit.
+K7_SIZES = (32, 64, 96, fused_gp.K7_MAX_N)
 # Bounds of the bayes path.  Written before its first run on the card:
 # k7 1e-2, value 1e-4, gradient 1e-2, transition 1e-2; k7, the gradient and
 # the transition then set to about 10 times what an H100 showed (PERF.md).
@@ -192,6 +205,9 @@ BAYES_BOUNDS = {
 # tensor cores (every kernel here computes in f32 FMA).
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+# Cycles per second assumed for the spin that event_ms queues calls behind
+# (an H100's boost clock; a faster clock only shortens the spin).
+SPIN_HZ = 2.0e9
 
 PALLAS = "gogp_tpu/ops/cholesky_pallas.py"
 KERNELS = {
@@ -244,11 +260,18 @@ def emit(obj) -> None:
 
 
 def event_ms(fn, reps: int, warmup: int = 3) -> float:
-    """Device time per call from CUDA events around ``reps`` calls."""
+    """Device time per call from CUDA events around ``reps`` calls.  The
+    card first spins for about as long as the host needs to queue the calls
+    (measured on the warmup), so that they run back to back and a kernel
+    shorter than its host-side launch still shows its device time."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     for _ in range(warmup):
         fn()
+    host_s = (time.perf_counter() - t0) / warmup
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(1.5 * reps * host_s * SPIN_HZ))
     start.record()
     for _ in range(reps):
         fn()
@@ -461,6 +484,16 @@ def tile_cases(tile: torch.Tensor) -> dict:
     }
 
 
+def solves_with_k4(n: int) -> bool:
+    """Whether ``lml_core`` solves with K4 (not K3) at size n."""
+    return cb.trsv_solvers(n, BLOCK)[0] is cb.trsv2d_lower
+
+
+def solve_keys(n: int) -> tuple[str, str]:
+    """The launch-count keys of the two solves ``lml_core`` takes at size n."""
+    return ("trsv2d_lower", "trsv2d_lower_t") if solves_with_k4(n) else ("trsv_lower", "trsv_lower_t")
+
+
 def solve_cases(L: torch.Tensor, invs: torch.Tensor, y: torch.Tensor, reps: int = 20, k4: bool = False) -> dict:
     """The two solves (K3, or K4 with ``k4``) and K5 on one factor, its tile
     inverses and a right-hand side: key -> (kernel call, plain call, shape of
@@ -489,8 +522,8 @@ def phase_kernels(dev) -> dict:
     K = core.masked_cov(gp, ts, tn, x, None)
     L, invs = cb.blocked_cholesky_invs(K, BLOCK)  # n = 4096: the stepwise driver
     tiles = tile_cases(K[:BLOCK, :BLOCK].contiguous())
-    # the serving path launches no K3 transpose; it is held at n = 4096 too
-    serve = {"chol_inv_tile": tiles["chol_inv_tile"], **solve_cases(L, invs, y)}
+    # the serving path launches no transpose solve; it is held at n = 4096 too
+    serve = {"chol_inv_tile": tiles["chol_inv_tile"], **solve_cases(L, invs, y, k4=solves_with_k4(N))}
     for key, case in serve.items():
         rows["serve", key] = check_kernel("serve", key, *case)
     # K6, which no path calls, on the same tile
@@ -511,29 +544,81 @@ def phase_kernels(dev) -> dict:
     # the train path's solves: on K1's factor of its covariance at v0
     y = train_problem(N_TRAIN, torch.float32, dev)[2]
     L, invs = cb.fused_cholesky_invs(train_cov(N_TRAIN, dev))
-    for key, case in solve_cases(L, invs, y).items():
+    for key, case in solve_cases(L, invs, y, k4=solves_with_k4(N_TRAIN)).items():
         rows["train", key] = check_kernel("train", key, *case)
-    # The large path's kernels on the stepwise driver's factor of its
-    # covariance at v0; K4 also at the smaller GATE_SIZES, each solve timed
-    # beside K3 on the same factor.
+    # Both solves by K3 and by K4 on blocked_cholesky_invs' factor of the large
+    # path's covariance at each of GATE_SIZES, beside plain and the library
+    # call; at n = N_LARGE also the large path's K2 and K5.
     for n in GATE_SIZES:
         Kn = large_cov(n, dev)
         L, invs = cb.blocked_cholesky_invs(Kn, BLOCK)
         y = large_problem(n, torch.float32, dev)[2]
-        z = cb.trsv_lower(L, y, invs, BLOCK)
-        k3 = {"trsv2d_lower": lambda: cb.trsv_lower(L, y, invs, BLOCK),
-              "trsv2d_lower_t": lambda: cb.trsv_lower_t(L, z, invs, BLOCK)}
         path = "large" if n == N_LARGE else f"n={n}"
-        cases = solve_cases(L, invs, y, reps=10, k4=True)
+        cases = {**solve_cases(L, invs, y, reps=10), **solve_cases(L, invs, y, reps=10, k4=True)}
         if n == N_LARGE:
             cases["chol_inv_tile"] = tile_cases(Kn[:BLOCK, :BLOCK].contiguous())["chol_inv_tile"]
         else:
             del cases["tril_inv_tile"]
         for key, case in cases.items():
-            extra = {"k3_ms": k3[key]} if key in k3 else {}
-            rows[path, key] = check_kernel(path, key, *case, **extra)
+            rows[path, key] = check_kernel(path, key, *case)
         del Kn, L, invs
+    for key in OFF_PATH_SOLVES:  # held at the large path's shape
+        rows["kernels", key] = rows["large", key]
+    emit(trsv_gate(rows))
     return rows
+
+
+def trsv_gate(rows: dict) -> dict:
+    """The gate between K3 and K4 beside the times that set it: device ms of
+    both solves by K3, by K4 and by ``solve_triangular`` at each of
+    GATE_SIZES, from this run's rows."""
+    sizes = {}
+    for n in GATE_SIZES:
+        path = "large" if n == N_LARGE else f"n={n}"
+        sizes[n] = {
+            "k3_ms": [rows[path, "trsv_lower"]["ms"], rows[path, "trsv_lower_t"]["ms"]],
+            "k4_ms": [rows[path, "trsv2d_lower"]["ms"], rows[path, "trsv2d_lower_t"]["ms"]],
+            "library_ms": [rows[path, "trsv_lower"]["library_ms"], rows[path, "trsv_lower_t"]["library_ms"]],
+            "takes": "K4" if solves_with_k4(n) else "K3",
+        }
+    gate = cb._TRSV2D_MIN_N
+    return {"phase": "gates", "gate": "_TRSV2D_MIN_N", "value": gate if np.isfinite(gate) else "none: K3 at every n",
+            "forward_and_transpose_ms": sizes}
+
+
+# Beyond N_LARGE the gate is looked for on synthetic factors (no
+# factorization: 17 GB of L at the largest), with ``--phases gate`` only.
+FAR_GATE_SIZES = (24576, 32768, 49152, 65536)
+
+
+def phase_gate(dev) -> None:
+    """K3 and K4 against ``solve_triangular`` beyond the large path's size,
+    on well-conditioned random lower-triangular factors: unit-scale
+    diagonal in [1, 2), entries below it 0.5 N(0, 1) / sqrt(n).  Both kernels
+    are held to 1e-4 of the largest entry of the library's solve, itself
+    f32 here; prints device ms of each, forward and transpose."""
+    sizes = {}
+    for n in FAR_GATE_SIZES:
+        g = torch.Generator(device=dev).manual_seed(n)
+        L = torch.randn((n, n), generator=g, device=dev).mul_(0.5 / np.sqrt(n)).tril_()
+        L.diagonal().copy_(1.0 + torch.rand(n, generator=g, device=dev))
+        invs = cb.tril_inv_tile(L.view(n // BLOCK, BLOCK, n // BLOCK, BLOCK).diagonal(dim1=0, dim2=2)
+                                .permute(2, 0, 1).contiguous())
+        y = torch.randn(n, generator=g, device=dev)
+        calls = {
+            "k3_ms": (lambda: cb.trsv_lower(L, y, invs, BLOCK), lambda: cb.trsv_lower_t(L, y, invs, BLOCK)),
+            "k4_ms": (lambda: cb.trsv2d_lower(L, y, invs, BLOCK), lambda: cb.trsv2d_lower_t(L, y, invs, BLOCK)),
+            "library_ms": (lambda: cb.trsv_lower_plain(L, y), lambda: cb.trsv_lower_t_plain(L, y)),
+        }
+        want = [fn() for fn in calls["library_ms"]]
+        for name in ("k3_ms", "k4_ms"):
+            for got, ref in zip((fn() for fn in calls[name]), want):
+                rel = max_err(got, ref)[1]
+                if not rel <= 1e-4:
+                    raise AssertionError(f"{name[:2]} at n = {n} disagrees with solve_triangular ({rel:.3e})")
+        sizes[n] = {name: [event_ms(fn, 5) for fn in fns] for name, fns in calls.items()}
+        del L, invs, y, want
+    emit({"phase": "gates", "gate": "_TRSV2D_MIN_N", "factors": "synthetic", "forward_and_transpose_ms": sizes})
 
 
 def phase_slice(dev) -> tuple[dict, tuple]:
@@ -574,18 +659,22 @@ def phase_slice(dev) -> tuple[dict, tuple]:
 
 
 # The serving slice's kernels: n = 4096 takes the stepwise driver (K2), and
-# no call of it asks for a gradient, so lml_core solves no alpha (no K3
-# transpose).
-SERVE_KERNELS = ("chol_inv_tile", "trsv_lower", "tril_inv_tile")
+# no call of it asks for a gradient, so lml_core solves no alpha (no
+# transpose solve).
+SERVE_KERNELS = ("chol_inv_tile", solve_keys(N)[0], "tril_inv_tile")
 # The train path's: K1 factors at n = 1536, every gradient solves alpha.
-TRAIN_KERNELS = ("fused_cholesky_invs", "trsv_lower", "trsv_lower_t", "tril_inv_tile")
-# The large path's: the stepwise driver (K2), K4 both ways, K5 in the forecast.
-LARGE_KERNELS = ("chol_inv_tile", "trsv2d_lower", "trsv2d_lower_t", "tril_inv_tile")
+TRAIN_KERNELS = ("fused_cholesky_invs", *solve_keys(N_TRAIN), "tril_inv_tile")
+# The large path's: the stepwise factorization (K2), both solves, K5 in the
+# forecast.
+LARGE_KERNELS = ("chol_inv_tile", *solve_keys(N_LARGE), "tril_inv_tile")
 # The bayes path's: K7, once per value-and-gradient of the chain batch.
 BAYES_KERNELS = ("fused_gp_linv",)
-# K6 is on no path; its entry counts its launches in the kernels phase.
+# K6 is on no path, and neither is the solver the gate leaves no size to (K4
+# as measured): their entries count their launches in the kernels phase.
+OFF_PATH_SOLVES = tuple(k for k in ("trsv_lower", "trsv_lower_t", "trsv2d_lower", "trsv2d_lower_t")
+                        if k not in (*SERVE_KERNELS, *TRAIN_KERNELS, *LARGE_KERNELS))
 PATH_KERNELS = {"serve": SERVE_KERNELS, "train": TRAIN_KERNELS, "large": LARGE_KERNELS, "bayes": BAYES_KERNELS,
-                "kernels": ("chol_tile",)}
+                "kernels": ("chol_tile", *OFF_PATH_SOLVES)}
 
 
 def phase_launches(launches: dict, args32) -> None:
@@ -609,8 +698,8 @@ def phase_launches(launches: dict, args32) -> None:
           "stage_wall_ms": stages})
     if missing:
         raise AssertionError(f"kernels not launched on the main path: {missing}")
-    if launches["trsv_lower_t"] != 0:
-        raise AssertionError("K3 transpose launched on the serving path, where no call asks for a gradient")
+    if launches["trsv_lower_t"] + launches["trsv2d_lower_t"] != 0:
+        raise AssertionError("a transpose solve launched on the serving path, where no call asks for a gradient")
 
 
 def phase_train(dev) -> dict:
@@ -747,23 +836,26 @@ def phase_large(dev) -> dict:
     if not all(torch.isfinite(t).all() for t in (got["value"], got["grad"], got["adam"].x)):
         failures.append("non-finite value, gradient or v")
 
-    # launches per stage: K2 per factorization, K4 both ways per gradient
-    # step, no K3 or K1 anywhere, K5 in the forecast
+    # launches per stage: K2 per factorization, the gate's solves both ways
+    # per gradient step, none of the other solver's or of K1 anywhere, K5 in
+    # the forecast
     zero = dict.fromkeys(cb.LAUNCHES, 0)
     per_stage = {}
     for prev, stage in ((zero, "step"), (stages["step"], "adam"), (stages["adam"], "forecast")):
         per_stage[stage] = {k: stages[stage][k] - prev[k] for k in cb.LAUNCHES}
+    fwd, bwd = solve_keys(N_LARGE)
     want = {
-        "step": {"chol_inv_tile": nb, "trsv2d_lower": 1, "trsv2d_lower_t": 1},
-        "adam": {"chol_inv_tile": ADAM_LARGE * nb, "trsv2d_lower": ADAM_LARGE, "trsv2d_lower_t": ADAM_LARGE},
-        "forecast": {"chol_inv_tile": nb, "trsv2d_lower": 0, "trsv2d_lower_t": 0},
+        "step": {"chol_inv_tile": nb, fwd: 1, bwd: 1},
+        "adam": {"chol_inv_tile": ADAM_LARGE * nb, fwd: ADAM_LARGE, bwd: ADAM_LARGE},
+        "forecast": {"chol_inv_tile": nb, fwd: 0, bwd: 0},
     }
     for stage, counts in want.items():
         failures += [f"{stage}: {k} {per_stage[stage][k]} != {v}" for k, v in counts.items()
                      if k in LARGE_KERNELS and per_stage[stage][k] != v]
     if "tril_inv_tile" in LARGE_KERNELS and per_stage["forecast"]["tril_inv_tile"] < 1:
         failures.append("forecast: no K5 launch")
-    failures += [f"{k} launched" for k in ("trsv_lower", "trsv_lower_t", "fused_cholesky_invs") if launches[k]]
+    other = [k for k in ("trsv_lower", "trsv_lower_t", "trsv2d_lower", "trsv2d_lower_t") if k not in (fwd, bwd)]
+    failures += [f"{k} launched" for k in (*other, "fused_cholesky_invs") if launches[k]]
 
     # times: a value-and-gradient step on both f32 paths, the factorization
     # against cuSOLVER, the rescue's host read, and one step in TF32
@@ -834,20 +926,35 @@ def bayes_covs(study, x, V: torch.Tensor) -> torch.Tensor:
 
 def k7_cases(dev) -> dict:
     """K7 on the hyperpriors covariances at each of K7_BATCHES positions
-    (n = 44) and once at K7's n limit (the study's kernel on K7_MAX_N points
-    at the data's spacing): path -> (kernel call, plain call, shape, reps,
-    library call)."""
+    (n = 44) and, 64 matrices each, at each n of K7_SIZES up to K7's limit
+    (the study's kernel on n points at the data's spacing): path -> (kernel
+    call, plain call, shape, reps, library call)."""
     study, x, _, _, _, _, _ = bayes_problem(dev)
     cases = {}
     spacing = float(x[1, 0] - x[0, 0])
-    x_limit = spacing * np.arange(fused_gp.K7_MAX_N)[:, None]
-    for label, count, xs in [*((f"B={b}", b, x) for b in K7_BATCHES), ("n=limit", BAYES_CHAINS, x_limit)]:
+    sized = [(f"n={n}", BAYES_CHAINS, spacing * np.arange(n)[:, None]) for n in K7_SIZES]
+    for label, count, xs in [*((f"B={b}", b, x) for b in K7_BATCHES), *sized]:
         K = bayes_covs(study, xs, bayes_positions(count, dev, seed=1))
         eye = torch.eye(K.shape[-1], dtype=K.dtype, device=dev)
         path = "bayes" if count == BAYES_CHAINS and xs is x else label
         cases[path] = (lambda K=K: fused_gp.fused_gp_linv(K), lambda K=K: fused_gp.linv_plain(K), K.shape, 50,
                        lambda K=K, eye=eye: torch.linalg.solve_triangular(torch.linalg.cholesky(K), eye, upper=False))
     return cases
+
+
+def phase_k7(dev) -> dict:
+    """K7 against its plain version and the library pair at the bayes path's
+    shapes and at K7_SIZES; returns {(path, key): row}.  Prints K7's dispatch
+    limit beside the times that set it."""
+    rows = {(path, "fused_gp_linv"): check_kernel(
+                path, "fused_gp_linv", *case, rtol=BAYES_BOUNDS["k7_rtol"],
+                library_name="torch.linalg.cholesky + torch.linalg.solve_triangular(L, I)")
+            for path, case in k7_cases(dev).items()}
+    sizes = {rows[path, key]["shape"][-1]: {"k7_ms": rows[path, key]["ms"], "library_ms": rows[path, key]["library_ms"]}
+             for path, key in rows if path == "bayes" or path.startswith("n=")}
+    emit({"phase": "gates", "gate": "K7_MAX_N", "value": fused_gp.K7_MAX_N, "batch": BAYES_CHAINS,
+          "ms": dict(sorted(sizes.items()))})
+    return rows
 
 
 def run_main(warmup: int, samples: int) -> dict:
@@ -906,10 +1013,7 @@ def _posterior_summary(pos: torch.Tensor) -> dict:
 
 def phase_bayes(dev) -> dict:
     # 1. K7 against its plain version at the path's shapes
-    rows = {(path, "fused_gp_linv"): check_kernel(
-                path, "fused_gp_linv", *case, rtol=BAYES_BOUNDS["k7_rtol"],
-                library_name="torch.linalg.cholesky + torch.linalg.solve_triangular(L, I)")
-            for path, case in k7_cases(dev).items()}
+    rows = phase_k7(dev)
 
     # 2. the value and gradient of the log-joint the sampler runs, K7 route
     # (f32), against the plain route's in f64, at 256 positions
@@ -1046,13 +1150,38 @@ def phase_profile(slice_args32, train_args32, large_args32, bayes_logps) -> None
     emit(report)
 
 
+def _partial_slice(dev) -> None:
+    phase_launches(*phase_slice(dev))
+
+
+# What ``--phases`` can name; "k7" is the bayes phase's kernel checks without
+# its sampler runs, "slice" the serving slice with its launch counts, "gate"
+# (in no whole run) K3 against K4 beyond the large path's size.
+PARTIAL_PHASES = {"kernels": phase_kernels, "k7": phase_k7, "gate": phase_gate, "slice": _partial_slice,
+                  "train": phase_train, "large": phase_large, "bayes": phase_bayes}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true", help="also run phase 9 (torch.profiler)")
+    parser.add_argument("--phases", type=lambda v: v.split(","), metavar="a,b,...",
+                        help=f"run only these phases ({', '.join(PARTIAL_PHASES)}), for work on one kernel or "
+                             "path; such a run ends with {\"ok\": false, \"partial\": [...]} and exit code 2")
     args = parser.parse_args()
+    unknown = [name for name in args.phases or () if name not in PARTIAL_PHASES]
+    if unknown:
+        parser.error(f"unknown phases {unknown}: expected some of {list(PARTIAL_PHASES)}")
     info = phase_device()
     dev = torch.device("cuda", 0)
     phase_build()
+    if args.phases:
+        for name in args.phases:
+            t0 = time.perf_counter()
+            PARTIAL_PHASES[name](dev)
+            emit({"phase": name, "seconds": round(time.perf_counter() - t0, 3)})
+        print(info["nvidia_smi"], flush=True)
+        emit({"ok": False, "partial": args.phases})
+        return 2
     peak_gib = {}
 
     def measured(name, fn, *a):

@@ -154,15 +154,14 @@ constexpr int kTileThreads = 512;
 template <int B>
 constexpr int kTileSmemFloats = 2 * B * kLd<B> + kScratch<B>;
 
-// One B x B SPD tile's Cholesky factor L and its inverse V = inv(L), by one
-// block of kTileThreads threads with kTileSmemFloats<B> floats of shared
-// memory at smem (the body of K2, shared with K1).  With kInverse false it
-// computes L alone (K6): the 32 x 32 diagonal blocks of V, which the panels
-// need, are still formed, the blocks below them and v_out are not.  Tiles
-// are row-major with leading dimensions lda, ldl, ldv; l_out may alias a.  a is read through
-// L2 (ld.global.cg), never through L1 or the read-only path, so the tile may
-// have been written by other blocks of the same launch before a grid-wide
-// barrier.  A non-positive pivot gives NaN; the body never returns early.
+// The factorization at the heart of K2, on a tile that already lies in shared
+// memory: M (B x kLd<B>, row-major, at smem) holds an SPD tile and its lower
+// triangle becomes L; V (behind M) gets inv(L), lower triangle.  One block of
+// kTileThreads threads with kTileSmemFloats<B> floats at smem; the caller
+// synchronises the block after filling M, and this function ends with a
+// barrier.  With kInverse false only the 32 x 32 diagonal blocks of V, which
+// the panels need, are formed.  A non-positive pivot gives NaN; it never
+// returns early.
 //
 // Per 32-wide sub-panel p (columns c = 32 p ...):
 //   1. warp 0 factors the 32 x 32 diagonal block in registers (chol32);
@@ -173,9 +172,7 @@ constexpr int kTileSmemFloats = 2 * B * kLd<B> + kScratch<B>;
 //      finished (inv_row_finish);
 //   4. all threads apply the rank-32 update to the trailing lower triangle.
 template <int B, bool kInverse = true>
-__device__ __forceinline__ void chol_inv_tile_body(const float* a, int lda, float* l_out,
-                                                   int ldl, float* v_out, int ldv,
-                                                   float* smem) {
+__device__ __forceinline__ void chol_inv_tile_factor(float* smem) {
   constexpr int kWarps = kTileThreads / 32;
   constexpr int ld = kLd<B>;
   constexpr int RP = B > 32 ? (B - 32 + kWarps - 1) / kWarps : 1;  // panel rows per warp
@@ -185,10 +182,6 @@ __device__ __forceinline__ void chol_inv_tile_body(const float* a, int lda, floa
   float* T = V + B * ld;                 // (B/32 - 1) blocks for inv_row_partial
   float* dinv = T + (B / 32 - 1) * 1024; // B reciprocal pivots
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-
-  for (int idx = tid; idx < B * B; idx += kTileThreads)
-    M[(idx / B) * ld + idx % B] = __ldcg(a + (idx / B) * lda + idx % B);
-  __syncthreads();  // a is read in full before l_out, which may alias it, is written
 
   for (int p = 0; p < B / 32; ++p) {
     const int c = 32 * p;
@@ -246,6 +239,31 @@ __device__ __forceinline__ void chol_inv_tile_body(const float* a, int lda, floa
     __syncthreads();
   }
   __syncthreads();
+}
+
+// One B x B SPD tile's Cholesky factor L and its inverse V = inv(L), by one
+// block of kTileThreads threads with kTileSmemFloats<B> floats of shared
+// memory at smem (the body of K2, shared with K1): the tile is staged into
+// shared memory, factored by chol_inv_tile_factor and written out.  With
+// kInverse false it computes L alone (K6) and v_out is not written.  Tiles
+// are row-major with leading dimensions lda, ldl, ldv; l_out may alias a.  a is read through
+// L2 (ld.global.cg), never through L1 or the read-only path, so the tile may
+// have been written by other blocks of the same launch before a grid-wide
+// barrier.
+template <int B, bool kInverse = true>
+__device__ __forceinline__ void chol_inv_tile_body(const float* a, int lda, float* l_out,
+                                                   int ldl, float* v_out, int ldv,
+                                                   float* smem) {
+  constexpr int ld = kLd<B>;
+  float* M = smem;
+  float* V = M + B * ld;
+  const int tid = threadIdx.x;
+
+  for (int idx = tid; idx < B * B; idx += kTileThreads)
+    M[(idx / B) * ld + idx % B] = __ldcg(a + (idx / B) * lda + idx % B);
+  __syncthreads();  // a is read in full before l_out, which may alias it, is written
+
+  chol_inv_tile_factor<B, kInverse>(smem);
 
   for (int idx = tid; idx < B * B; idx += kTileThreads) {
     const int i = idx / B, k = idx % B;

@@ -2,32 +2,86 @@
 //   z = L^{-1} y      (gogp_trsv_lower)
 //   x = L^{-T} z      (gogp_trsv_lower_t)
 // with the diagonal tiles applied through their precomputed inverses
-// invs[k] = inv(L[kb:(k+1)b, kb:(k+1)b]), the by-product of K2.
+// invs[k] = inv(L[kb:(k+1)b, kb:(k+1)b]), the by-product of K1 and K2.
 //
 // Replaces _trsv_kernel / pallas_trsv_lower and _trsv_t_kernel /
 // pallas_trsv_lower_t in gogp_tpu/ops/cholesky_pallas.py.  Those run a
 // sequential grid over block rows that carries the solved prefix from one
 // step to the next in VMEM scratch.  Blocks of a CUDA grid run in no order
-// and share nothing, so here ONE block loops over the block rows and keeps the
-// whole solution vector in shared memory (n floats: 16 KB at n = 4096).
+// and share no scratch, so the prefix lives in global memory (x itself) and
+// the order is made by flags.
 //
-// What bounds it here: bytes.  Each solve reads the lower triangle of L once,
-// n*n/2 floats (32 MB at n = 4096) against 2*n*n/2 FLOPs, and one SM cannot
-// pull more than a fraction of the card's bandwidth.  The design keeps every
-// read of L coalesced and many reads in flight: the forward solve reads rows
-// of L[c0:c1, :c0] as float4, one warp per row, eight independent sums per
-// lane, and a warp reduction; the transpose solve reads the column panel
-// L[c1:, c0:c1], b contiguous floats in each row, as float4 with the rows
-// split among thread groups whose partial sums meet in shared memory.  The
-// diagonal tile's inverse is applied the same way.  Spreading the solve over
-// many SMs is later work.
+// What bounds it here: the chain of nb = n/b dependent block rows (each needs
+// every block of x before it), and bytes: a solve reads the strictly lower
+// block triangle of L once, n(n-b)/2 floats (32 MB at n = 4096) for 2 FLOPs
+// each, which one SM cannot pull at more than a fraction of the card's rate.
+// So the solve is a wavefront over the SMs, one CTA per block row:
+//
+//   - the grid has nb CTAs of 256 threads.  A CTA takes a ticket r from an
+//     atomic counter and with it step row r: block out = r of x (forward) or
+//     out = nb-1-r (transpose, bottom-up);
+//   - CTA r walks its tiles left to right (forward: L[out, c], c = 0..r-1;
+//     transpose: L[nb-1-c, out], the column panel from the bottom up) and
+//     keeps the row's running sum in registers.  Each tile (64 KB) is held in
+//     registers, 16 float4 a thread, a warp reading 512 contiguous bytes of
+//     a tile row, and the next tile is loaded before the CTA waits for the
+//     block of x the current one multiplies, so the loads are in flight
+//     during the wait;
+//   - before tile c it waits for ready[c]: one thread spins on an acquire
+//     load, the CTA meets at a barrier, and each thread reads what it needs
+//     of x's block through L2 (__ldcg);
+//   - after the last product the same CTA subtracts the sum from y, applies
+//     inv(L_out) (staged in shared memory at the start), writes its block of
+//     x, meets at a barrier, and one thread fences and releases ready[r].
+//     So a block row costs ONE hand-off between CTAs: the product with the
+//     newest block of x and the diagonal solve happen in the same CTA (K4,
+//     trsv2d.cu, pays two, product CTA to diagonal CTA to the next product);
+//   - the sum over a row is taken left to right, every thread adding its own
+//     tile entries in tile order, and the sums across threads meet in a fixed
+//     order: no float atomics, the same bits from run to run.
+//
+// Forward progress: CTA r waits only for ready[c], c < r, set by the CTA
+// with ticket c.  A ticket is taken only by a CTA that is already running, so
+// the running CTA with the smallest unfinished ticket waits for nothing
+// unfinished: the launch cannot hang, whatever order the hardware schedules
+// CTAs in and however few fit on the card at once (one per SM here; beyond
+// 132 block rows the later CTAs start as earlier ones leave).
+//
+// Coherence, as in K4: x is written and read by CTAs of the same launch.  A
+// writer's threads store, meet at a barrier, one thread fences and publishes
+// with a release at device scope; a reader's thread spins on acquire loads,
+// its CTA meets at a barrier and reads x through L2, never through L1 or the
+// read-only path.  L and invs are only read, with an evict-first hint
+// (__ldcs).  The workspace (ticket and ready, 1 + nb ints) is zeroed on the
+// stream before each launch.  A NaN in L or y flows into x; no CTA returns
+// early and every flag is set, so NaN never hangs the launch.  x lives in
+// global memory, so n has no limit of the kernel's own.
+#include <cuda/atomic>
 #include <cuda_runtime.h>
 
 #include "tile_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 1024;
+constexpr int B = gogp::kTile;
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kRows = B / kWarps;  // tile rows each warp holds
+static_assert(B == 4 * 32 && kRows == 16, "the thread layouts below");
+// inv(L_out), the cross-warp sums and the diagonal solve's right-hand side
+constexpr int kSmemBytes = (B * B + kWarps * B + B) * static_cast<int>(sizeof(float));
+
+using AtomicInt = cuda::atomic_ref<int, cuda::thread_scope_device>;
+
+__device__ __forceinline__ void wait_until(int* flag, int value) {
+  AtomicInt f(*flag);
+  while (f.load(cuda::memory_order_acquire) < value) {
+  }
+}
+
+__device__ __forceinline__ float dot4(float4 a, float4 u, float s) {
+  return fmaf(a.w, u.w, fmaf(a.z, u.z, fmaf(a.y, u.y, fmaf(a.x, u.x, s))));
+}
 
 __device__ __forceinline__ void axpy4(float4& s, float4 a, float x) {
   s.x = fmaf(a.x, x, s.x);
@@ -36,136 +90,175 @@ __device__ __forceinline__ void axpy4(float4& s, float4 a, float x) {
   s.w = fmaf(a.w, x, s.w);
 }
 
-__device__ __forceinline__ float dot4(float4 a, float4 u, float s) {
-  s = fmaf(a.x, u.x, s);
-  s = fmaf(a.y, u.y, s);
-  s = fmaf(a.z, u.z, s);
-  return fmaf(a.w, u.w, s);
-}
+// Rows warp, warp + kWarps, ... of a tile; lane l holds columns 4l .. 4l+3.
+struct Tile {
+  float4 m[kRows];
+};
 
-__global__ void __launch_bounds__(kThreads)
-    trsv_lower_kernel(const float* __restrict__ L, const float* __restrict__ y,
-                      const float* __restrict__ invs, float* __restrict__ x_out,
-                      int n, int b) {
-  extern __shared__ __align__(16) float smem[];
-  float* x = smem;       // n: the solution, filled block row by block row
-  float* resid = x + n;  // b: right-hand side of the current diagonal tile
+__device__ __forceinline__ void load_tile(Tile& t, const float* tile, size_t ld) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  const float4* x4 = reinterpret_cast<const float4*>(x);
-
-  for (int c0 = 0; c0 < n; c0 += b) {
-    // resid[r] = y[c0 + r] - L[c0 + r, :c0] . x[:c0]
-    for (int r = warp; r < b; r += nwarps) {
-      const float4* row = reinterpret_cast<const float4*>(L + static_cast<size_t>(c0 + r) * n);
-      // eight independent chains keep eight 16-byte loads per lane in flight
-      float s[8] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-      const int end = c0 / 4;
-      int c = lane;
-      for (; c + 7 * 32 < end; c += 8 * 32) {
 #pragma unroll
-        for (int u = 0; u < 8; ++u) s[u] = dot4(row[c + 32 * u], x4[c + 32 * u], s[u]);
-      }
-      for (; c < end; c += 32) s[0] = dot4(row[c], x4[c], s[0]);
-      const float sum = gogp::warp_sum(((s[0] + s[1]) + (s[2] + s[3])) + ((s[4] + s[5]) + (s[6] + s[7])));
-      if (lane == 0) resid[r] = y[c0 + r] - sum;
-    }
-    __syncthreads();
-    // x[c0 + r] = inv_k[r, :] . resid
-    const float* inv = invs + static_cast<size_t>(c0) * b;
-    for (int r = warp; r < b; r += nwarps) {
-      float s = 0.0f;
-      for (int c = lane; c < b; c += 32) s = fmaf(inv[r * b + c], resid[c], s);
-      s = gogp::warp_sum(s);
-      if (lane == 0) x[c0 + r] = s;
-    }
-    __syncthreads();
-  }
-  for (int i = threadIdx.x; i < n; i += blockDim.x) x_out[i] = x[i];
+  for (int i = 0; i < kRows; ++i)
+    t.m[i] = __ldcs(reinterpret_cast<const float4*>(tile + (warp + kWarps * i) * ld) + lane);
 }
 
-__global__ void __launch_bounds__(kThreads)
-    trsv_lower_t_kernel(const float* __restrict__ L, const float* __restrict__ z,
-                        const float* __restrict__ invs, float* __restrict__ x_out,
-                        int n, int b) {
+// The running sum of a step row.  Forward: dot[i] is this lane's share of
+// row warp + kWarps i of (sum_c L[out, c] x[c]).  Transpose: col is this
+// warp's share of columns 4 lane .. 4 lane + 3 of (sum_c L[in_c, out]^T x[in_c]).
+struct Sum {
+  float dot[kRows];
+  float4 col;
+};
+
+template <bool kTranspose>
+__device__ __forceinline__ void consume(Sum& sum, const Tile& t, const float* x_in, int* ready) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (threadIdx.x == 0) wait_until(ready, 1);
+  __syncthreads();
+  if (!kTranspose) {
+    const float4 v = __ldcg(reinterpret_cast<const float4*>(x_in) + lane);
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) sum.dot[i] = dot4(t.m[i], v, sum.dot[i]);
+  } else {
+    // lane l (and l + 16) fetches the entry of x that tile row warp + kWarps l meets
+    const float xv = __ldcg(x_in + warp + kWarps * (lane & (kRows - 1)));
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) axpy4(sum.col, t.m[i], __shfl_sync(gogp::kFullMask, xv, i));
+  }
+}
+
+template <bool kTranspose>
+__global__ void __launch_bounds__(kThreads, 1)
+    trsv_wave_kernel(const float* __restrict__ L, const float* __restrict__ y,
+                     const float* __restrict__ invs, float* x, int n, int* ticket, int* ready) {
   extern __shared__ __align__(16) float smem[];
-  float* x = smem;           // n: the solution, filled bottom-up
-  float* resid = x + n;      // b
-  float* part = resid + b;   // 4 * blockDim.x partial sums
-  // Panel reads: thread (g4, r4) takes columns 4 r4 .. 4 r4 + 3 of rows
-  // g4, g4 + groups4, ... as one float4.
-  const int r4 = threadIdx.x % (b / 4), g4 = threadIdx.x / (b / 4);
-  const int groups4 = blockDim.x / (b / 4);
-  // Tile-inverse reads: thread (g, r) takes column r of rows g, g + groups, ...
-  const int r = threadIdx.x % b, g = threadIdx.x / b;
-  const int groups = blockDim.x / b;
+  float* inv = smem;              // B x B: inv(L_out)
+  float* red = inv + B * B;       // kWarps x B: sums across warps
+  float* resid = red + kWarps * B;  // B: y's block, then the diagonal solve's right-hand side
+  __shared__ int s_ticket;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nb = n / B;
+  if (tid == 0) s_ticket = atomicAdd(ticket, 1);
+  __syncthreads();
+  const int r = s_ticket;
+  const int out = kTranspose ? nb - 1 - r : r;
+  const size_t ld = static_cast<size_t>(n);
+  // Tile c of the step row and the block of x it multiplies.
+  auto block_in = [&](int c) { return kTranspose ? nb - 1 - c : c; };
+  auto tile_at = [&](int c) {
+    const size_t in = static_cast<size_t>(block_in(c)), o = static_cast<size_t>(out);
+    return kTranspose ? L + in * B * ld + o * B : L + o * B * ld + in * B;
+  };
 
-  for (int c0 = n - b; c0 >= 0; c0 -= b) {
-    const int c1 = c0 + b;
-    // resid[r] = z[c0 + r] - L[c1:, c0 + r] . x[c1:]
-    const float* col = L + c0 + 4 * r4;
-    float4 s0 = {0.0f, 0.0f, 0.0f, 0.0f}, s1 = s0, s2 = s0, s3 = s0;
-    int i = c1 + g4;
-    for (; i + 3 * groups4 < n; i += 4 * groups4) {
-      axpy4(s0, *reinterpret_cast<const float4*>(col + static_cast<size_t>(i) * n), x[i]);
-      axpy4(s1, *reinterpret_cast<const float4*>(col + static_cast<size_t>(i + groups4) * n), x[i + groups4]);
-      axpy4(s2, *reinterpret_cast<const float4*>(col + static_cast<size_t>(i + 2 * groups4) * n), x[i + 2 * groups4]);
-      axpy4(s3, *reinterpret_cast<const float4*>(col + static_cast<size_t>(i + 3 * groups4) * n), x[i + 3 * groups4]);
+  Tile a, b;
+  if (r > 0) load_tile(a, tile_at(0), ld);
+  // Stage inv(L_out) and y's block; both are first read after a barrier.
+  {
+    const float* src = invs + static_cast<size_t>(out) * B * B;
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      const int row = warp + kWarps * i;
+      reinterpret_cast<float4*>(inv + row * B)[lane] =
+          __ldcs(reinterpret_cast<const float4*>(src + row * B) + lane);
     }
-    for (; i < n; i += groups4)
-      axpy4(s0, *reinterpret_cast<const float4*>(col + static_cast<size_t>(i) * n), x[i]);
-    float4 sum;
-    sum.x = (s0.x + s1.x) + (s2.x + s3.x);
-    sum.y = (s0.y + s1.y) + (s2.y + s3.y);
-    sum.z = (s0.z + s1.z) + (s2.z + s3.z);
-    sum.w = (s0.w + s1.w) + (s2.w + s3.w);
-    *reinterpret_cast<float4*>(part + g4 * b + 4 * r4) = sum;
-    __syncthreads();
-    if (threadIdx.x < b) {
-      float t = 0.0f;
-      for (int q = 0; q < groups4; ++q) t += part[q * b + threadIdx.x];
-      resid[threadIdx.x] = z[c0 + threadIdx.x] - t;
-    }
-    __syncthreads();
-    // x[c0 + r] = inv_k[:, r] . resid (inv_k^T applied), split over the
-    // groups so that reads of inv_k rows stay coalesced
-    const float* inv = invs + static_cast<size_t>(c0) * b;
-    float t = 0.0f;
-    for (int q = g; q < b; q += groups) t = fmaf(inv[q * b + r], resid[q], t);
-    part[threadIdx.x] = t;  // part[] was last read before the barrier above
-    __syncthreads();
-    if (threadIdx.x < b) {
-      float u = 0.0f;
-      for (int q = 0; q < groups; ++q) u += part[q * b + threadIdx.x];
-      x[c0 + threadIdx.x] = u;
-    }
-    __syncthreads();
+    if (tid < B) resid[tid] = y[static_cast<size_t>(out) * B + tid];
   }
-  for (int i = threadIdx.x; i < n; i += blockDim.x) x_out[i] = x[i];
+
+  Sum sum;
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) sum.dot[i] = 0.0f;
+  sum.col = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  // Two tiles a step, so that each lives in its own registers: the next tile
+  // is requested before the wait for the current one's block of x.
+  for (int c = 0; c < r; c += 2) {
+    if (c + 1 < r) load_tile(b, tile_at(c + 1), ld);
+    consume<kTranspose>(sum, a, x + static_cast<size_t>(block_in(c)) * B, ready + c);
+    if (c + 1 < r) {
+      if (c + 2 < r) load_tile(a, tile_at(c + 2), ld);
+      consume<kTranspose>(sum, b, x + static_cast<size_t>(block_in(c + 1)) * B, ready + c + 1);
+    }
+  }
+  __syncthreads();  // inv and resid are staged (no tile was consumed when r = 0)
+
+  float* x_out = x + static_cast<size_t>(out) * B;
+  if (!kTranspose) {
+    // resid[row] = y[row] - sum[row]; x[row] = inv[row, :] . resid.  The
+    // sixteen reductions of a warp interleave.
+    float s[kRows];
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) s[i] = gogp::warp_sum(sum.dot[i]);
+    if (lane == 0) {
+#pragma unroll
+      for (int i = 0; i < kRows; ++i) resid[warp + kWarps * i] -= s[i];
+    }
+    __syncthreads();
+    const float4 v = reinterpret_cast<const float4*>(resid)[lane];
+#pragma unroll
+    for (int i = 0; i < kRows; ++i)
+      s[i] = gogp::warp_sum(dot4(reinterpret_cast<const float4*>(inv + (warp + kWarps * i) * B)[lane], v, 0.0f));
+    if (lane == 0) {
+#pragma unroll
+      for (int i = 0; i < kRows; ++i) x_out[warp + kWarps * i] = s[i];
+    }
+  } else {
+    // resid[col] = z[col] - sum over warps; x[col] = inv[:, col] . resid.
+    reinterpret_cast<float4*>(red + warp * B)[lane] = sum.col;
+    __syncthreads();
+    if (tid < B) {
+      float s = 0.0f;
+#pragma unroll
+      for (int q = 0; q < kWarps; ++q) s += red[q * B + tid];
+      resid[tid] -= s;
+    }
+    __syncthreads();
+    float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      const int row = warp + kWarps * i;
+      axpy4(acc, reinterpret_cast<const float4*>(inv + row * B)[lane], resid[row]);
+    }
+    reinterpret_cast<float4*>(red + warp * B)[lane] = acc;  // red was last read before the barrier above
+    __syncthreads();
+    if (tid < B) {
+      float s = 0.0f;
+#pragma unroll
+      for (int q = 0; q < kWarps; ++q) s += red[q * B + tid];
+      x_out[tid] = s;
+    }
+  }
+
+  __syncthreads();  // x's block is written in full before it is published
+  if (tid == 0) {
+    __threadfence();
+    AtomicInt(ready[r]).store(1, cuda::memory_order_release);
+  }
 }
 
-int launch(bool transpose, const float* L, const float* y, const float* invs,
-           float* x, int n, int b, cudaStream_t stream) {
-  if (b < 32 || b % 32 != 0 || kThreads % b != 0 || n % b != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int smem = (n + b + 4 * kThreads) * static_cast<int>(sizeof(float));
-  if (smem > gogp::kMaxSharedBytes) return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = transpose ? trsv_lower_t_kernel : trsv_lower_kernel;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+int launch(bool transpose, const float* L, const float* y, const float* invs, float* x,
+           int* counters, int n, int b, cudaStream_t stream) {
+  if (b != B || n < B || n % B != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int nb = n / B;
+  cudaError_t err = cudaMemsetAsync(counters, 0, (1 + static_cast<size_t>(nb)) * sizeof(int), stream);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<1, kThreads, smem, stream>>>(L, y, invs, x, n, b);
+  auto kernel = transpose ? trsv_wave_kernel<true> : trsv_wave_kernel<false>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<nb, kThreads, kSmemBytes, stream>>>(L, y, invs, x, n, counters, counters + 1);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-extern "C" int gogp_trsv_lower(const float* L, const float* y, const float* invs,
-                               float* x, int n, int b, cudaStream_t stream) {
-  return launch(false, L, y, invs, x, n, b, stream);
+// L (n x n, row-major, 16-byte aligned; only its strictly lower block
+// triangle is read), y and x (n), invs (n/b, b, b, 16-byte aligned); b must be
+// the tile size and n a multiple of it.  Workspace from the caller: counters
+// (1 + n/b ints, zeroed here on the stream).
+extern "C" int gogp_trsv_lower(const float* L, const float* y, const float* invs, float* x,
+                               int* counters, int n, int b, cudaStream_t stream) {
+  return launch(false, L, y, invs, x, counters, n, b, stream);
 }
 
-extern "C" int gogp_trsv_lower_t(const float* L, const float* z, const float* invs,
-                                 float* x, int n, int b, cudaStream_t stream) {
-  return launch(true, L, z, invs, x, n, b, stream);
+extern "C" int gogp_trsv_lower_t(const float* L, const float* z, const float* invs, float* x,
+                                 int* counters, int n, int b, cudaStream_t stream) {
+  return launch(true, L, z, invs, x, counters, n, b, stream);
 }

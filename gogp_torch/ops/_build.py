@@ -3,7 +3,9 @@
 ``nvcc`` compiles every source for ``sm_90a`` (Hopper), one process per
 source, all started together, and links the objects into one shared library
 with a plain C interface, which ``ctypes`` loads.  On an H100 host that took
-10-14 s, against 20-25 s for one ``nvcc -shared`` over all the sources.  The build runs at
+26-32 s, the longest source alone (``fused_gp.cu``, whose warp kernels are
+fully unrolled); before that source grew, 10-14 s against 20-25 s for one
+``nvcc -shared`` over all the sources.  The build runs at
 first use, into ``build/gogp_torch/<hash>/`` at the root of the checkout,
 keyed by a hash of the sources and flags, so an edited source builds anew and
 an unchanged one loads in milliseconds.  Nothing here runs at import time: the
@@ -43,8 +45,8 @@ SIGNATURES = {
     "gogp_fused_cholesky_invs": [_P, _P, _P, _I, _I, _P],
     "gogp_chol_inv_tile": [_P, _I, _P, _I, _P, _I, _I, _P],
     "gogp_tril_inv_tiles": [_P, _P, _I, _I, _P],
-    "gogp_trsv_lower": [_P, _P, _P, _P, _I, _I, _P],
-    "gogp_trsv_lower_t": [_P, _P, _P, _P, _I, _I, _P],
+    "gogp_trsv_lower": [_P, _P, _P, _P, _P, _I, _I, _P],
+    "gogp_trsv_lower_t": [_P, _P, _P, _P, _P, _I, _I, _P],
     "gogp_trsv2d_lower": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
     "gogp_trsv2d_lower_t": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
     "gogp_chol_tile": [_P, _I, _P, _I, _I, _P],

@@ -26,7 +26,8 @@ There is no fallback between the two.  Each launch adds one to its entry in
 matrix with n <= ``_FUSED_MAX_N`` unless :func:`no_fused_whole` is set, the
 stepwise driver (K2 per diagonal tile, cuBLAS panels and trailing updates)
 otherwise.  ``lml_core`` solves with K3 below ``_TRSV2D_MIN_N`` and with K4
-from there on, and wherever K3 does not fit (:func:`trsv_solvers`).  No path
+from there on (:func:`trsv_solvers`); as measured on the H100 the gate is
+infinite, so every size takes K3 and K4, like K6, is on no path.  No path
 calls K6, as no path of the JAX package calls ``pallas_cholesky_tile``.
 
 Gradients: the kernels write through raw pointers, which autograd neither
@@ -404,27 +405,24 @@ def _check_trsv(what: str, L: Tensor, y: Tensor, invs: Tensor, block: int) -> No
         raise ValueError(f"{what}: L and invs must be 16-byte aligned")
 
 
-def trsv_fits(n: int, block: int) -> bool:
-    """Whether K3 takes an n-vector: trsv.cu keeps the solution (n floats),
-    one tile's residual (block floats) and 4 x 1024 partial sums in one
-    block's shared memory, at most 227 KB on Hopper; n <= 53888 at block
-    128.  Beyond that the kernel refuses to launch, and ``lml_core`` takes
-    K4 (:func:`trsv_solvers`), which has no size limit of its own."""
-    return (n + block + 4 * 1024) * 4 <= 232448
-
-
-# From this n on, lml_core solves with K4.  The JAX package sends every
-# eligible matrix from n = 8192 to K4: its block is 512 there, and a
-# (block, n) panel of K3 would pass 8 MB of VMEM (cholesky_pallas.py:1447-1448,
-# 1504-1510).  That VMEM gate has no counterpart here; the constant is
-# carried over, not yet measured on the H100.
-_TRSV2D_MIN_N = 8192
+# From this n on, lml_core solves with K4; below it with K3.  Both are
+# hand-written kernels that take any n the tile divides.  The JAX package's
+# gate (8192, cholesky_pallas.py:1447-1448, 1504-1510) is a VMEM limit with no
+# counterpart here, so this one is the crossing measured on an NVIDIA H100
+# 80GB HBM3 (700 W) by chip_smoke.py, and there is none: forward / transpose,
+# K3 against K4, in ms, at n = 1024 0.025 / 0.019 against 0.036 / 0.030, at
+# 4096 0.088 / 0.065 against 0.148 / 0.124, at 16384 0.357 / 0.285 against
+# 0.808 / 0.721, and on synthetic factors at 65536 3.07 / 3.01 against 6.69 /
+# 6.32 (PERF.md has every size).  K3's one hand-off per block row beats K4's
+# two at every n, so every size takes K3; K4 stays built, tested and timed
+# beside it.
+_TRSV2D_MIN_N = float("inf")
 
 
 def trsv_solvers(n: int, block: int):
     """The (forward, transpose) solves ``lml_core`` takes at size n: K3
-    below ``_TRSV2D_MIN_N`` where it fits (:func:`trsv_fits`), K4 otherwise."""
-    if n < _TRSV2D_MIN_N and trsv_fits(n, block):
+    below ``_TRSV2D_MIN_N``, K4 from there on."""
+    if n < _TRSV2D_MIN_N:
         return trsv_lower, trsv_lower_t
     return trsv2d_lower, trsv2d_lower_t
 
@@ -436,21 +434,25 @@ def _trsv(what: str, entry: str, L: Tensor, y: Tensor, invs: Tensor, block: int)
 def _trsv_cuda(what: str, entry: str, L: Tensor, y: Tensor, invs: Tensor, block: int) -> Tensor:
     _check_trsv(what, L, y, invs, block)
     x = torch.empty_like(y)
-    _launch(L, entry, L.data_ptr(), y.data_ptr(), invs.data_ptr(), x.data_ptr(), L.shape[-1], block)
+    counters = torch.empty(1 + L.shape[-1] // block, dtype=torch.int32, device=L.device)  # zeroed by the C side
+    _launch(L, entry, L.data_ptr(), y.data_ptr(), invs.data_ptr(), x.data_ptr(), counters.data_ptr(),
+            L.shape[-1], block)
     LAUNCHES[what] += 1
     return x
 
 
 def trsv_lower(L: Tensor, y: Tensor, invs: Tensor, block: int) -> Tensor:
-    """z = L^{-1} y streamed over block rows, diagonal tiles applied through
-    ``invs`` (nb, block, block) (K3)."""
+    """z = L^{-1} y as a wavefront over block rows, one CTA per row, diagonal
+    tiles applied through ``invs`` (nb, block, block) (K3).  Reads only the
+    strictly lower block triangle of L; any n that the tile (128) divides."""
     if not _is_cuda(L, y, invs):
         return trsv_lower_plain(L, y)
     return _trsv("trsv_lower", "gogp_trsv_lower", L, y, invs, block)
 
 
 def trsv_lower_t(L: Tensor, y: Tensor, invs: Tensor, block: int) -> Tensor:
-    """x = L^{-T} y streamed bottom-up over column panels (K3, transpose)."""
+    """x = L^{-T} y as a wavefront over column panels, bottom-up (K3,
+    transpose)."""
     if not _is_cuda(L, y, invs):
         return trsv_lower_t_plain(L, y)
     return _trsv("trsv_lower_t", "gogp_trsv_lower_t", L, y, invs, block)

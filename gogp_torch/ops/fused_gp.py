@@ -8,7 +8,8 @@ theta-only model (x, y fixed) that evaluation is
 - the covariance K(v) of each chain, built by the study's own kernel
   functions (``torch.func.vmap`` over ``gp.core.masked_cov``);
 - L^-1 of each K, K = L L^T: K7 (``fused_gp_linv``, hand-written CUDA in
-  ``gogp_torch/csrc/fused_gp.cu``, one CTA per chain), the one kernel;
+  ``gogp_torch/csrc/fused_gp.cu``: one warp per chain for n <= 64, one CTA
+  per chain above), the one kernel;
 - the LML and W = alpha alpha^T - K^-1 from L^-1 (``_lml_and_w_from_linv``,
   batched ``torch.matmul``; the JAX package keeps it in XLA outside the
   Pallas kernel too);
@@ -49,8 +50,11 @@ Tensor = torch.Tensor
 
 _LOG_2PI = 1.8378770664093453
 
-# The largest n K7 takes: K and L^-1 (n x (n + 1) floats each) in one block's
-# 227 KB of shared memory, with room to spare (129 KB at 128).
+# The largest n K7 takes: its blocked class pads to 128, K2's tile.  Measured
+# on an NVIDIA H100 80GB HBM3 (700 W) by chip_smoke.py, 64 matrices: K7
+# against ``cholesky`` + ``solve_triangular(L, I)`` 0.009 / 0.146 ms at n =
+# 32, 0.019 / 0.187 at 44, 0.036 / 0.147 at 64, 0.043 / 0.276 at 96, 0.069 /
+# 0.290 at 128: K7 wins at every n up to the limit, so the limit stays.
 K7_MAX_N = 128
 
 

@@ -174,36 +174,40 @@ def test_eligible_block_rules():
 
 
 def test_trsv_fits_is_k3_shared_memory_limit():
-    """K3 holds n + b + 4096 floats in one block's 227 KB of shared memory:
-    n = 53888 (421 tiles of 128) fits, the next multiple of the tile does
-    not.  test_torch_cuda.py checks the C side refuses the same n."""
-    assert cb.trsv_fits(53888, 128)
-    assert not cb.trsv_fits(54016, 128)
-    assert cb.trsv_fits(4096, cb.DEFAULT_BLOCK)
+    """K3 used to hold the solution in one block's shared memory and refuse
+    n > 53888 (``trsv_fits``).  It keeps x in global memory now, so the rule
+    is gone: the sizes on either side of the old limit take the same solver,
+    and the binding passes K3 its workspace (the ticket and ready flags) as
+    K4's does."""
+    assert not hasattr(cb, "trsv_fits")
+    assert cb.trsv_solvers(53888, 128) == cb.trsv_solvers(54016, 128) == (cb.trsv_lower, cb.trsv_lower_t)
+    for entry in ("gogp_trsv_lower", "gogp_trsv_lower_t"):
+        # L, y, invs, x, counters, n, b, stream
+        assert len(_build.SIGNATURES[entry]) == 8
+        assert len(_build.SIGNATURES[entry.replace("trsv", "trsv2d")]) == 9  # and partial
 
 
 def test_lml_core_beyond_k3_limit_takes_torch_linalg(monkeypatch, factor256):
-    """Where K3 cannot take the size, the front door's lml_core stays on the
-    blocked path and solves with K4, as JAX does, and not with torch.linalg
-    or K3."""
+    """The front door's lml_core stays on the blocked path on either side of
+    the K3/K4 gate: K3 below it (every size, as the gate stands), K4 from a
+    lowered gate on, with the same value."""
     K, y, _, _ = factor256
     taken = []
-
-    def boom(*a, **k):
-        raise AssertionError("K3 taken beyond its limit")
 
     def spy(name, fn):
         return lambda *a: taken.append(name) or fn(*a)
 
     with cp.force_interpret(), cp.no_fused_whole():
         want = float(cp.lml_core(jnp.asarray(K), jnp.asarray(y), 64))
-    monkeypatch.setattr(cb, "trsv_fits", lambda n, block: False)
-    monkeypatch.setattr(cb, "trsv_lower", boom)
+    monkeypatch.setattr(cb, "trsv_lower", spy("K3", cb.trsv_lower))
     monkeypatch.setattr(cb, "trsv2d_lower", spy("K4", cb.trsv2d_lower))
-    with cb.force_blocked(64):
-        got = float(linalg.lml_core(T(K), T(y)))
-    assert taken == ["K4"]
-    assert abs(got - want) <= 1e-9 * abs(want)
+    with cb.force_blocked(64), cb.no_fused_whole():
+        got_k3 = float(linalg.lml_core(T(K), T(y)))
+        monkeypatch.setattr(cb, "_TRSV2D_MIN_N", 256)
+        got_k4 = float(linalg.lml_core(T(K), T(y)))
+    assert taken == ["K3", "K4"]
+    assert abs(got_k3 - want) <= 1e-9 * abs(want)
+    assert abs(got_k4 - want) <= 1e-9 * abs(want)
 
 
 def test_forward_only_backward_raises():

@@ -74,17 +74,77 @@ def test_tril_inv_tile_stack(cuda):
     torch.testing.assert_close(cb.tril_inv_tile(tiles[1].contiguous()), cb.tril_inv_tile_plain(tiles[1]), **TOL)
 
 
+def _factor(n, device, seed=0):
+    """The stepwise factorization's factor and tile inverses of an SPD matrix,
+    and a right-hand side."""
+    with cb.no_fused_whole():
+        L, invs = cb.blocked_cholesky_invs(_spd(n, device, seed), B)
+    y = torch.as_tensor(np.random.default_rng(seed + 1).normal(size=n), dtype=torch.float32, device=device)
+    return L, invs, y
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,b", [(1024, B), (512, B), (512, 64)])
-def test_trsv_both_directions(cuda, n, b):
-    """K3 at the driver's tile and, from the driver's factor, at b = 64: the
-    solve takes any multiple of 32 that divides its 1024 threads."""
-    L, _ = cb.blocked_cholesky_invs(_spd(n, cuda), B)
-    tiles = L.view(n // b, b, n // b, b).diagonal(dim1=0, dim2=2).permute(2, 0, 1)
-    invs = cb.tril_inv_tile_plain(tiles).contiguous()
-    y = torch.as_tensor(np.random.default_rng(1).normal(size=n), dtype=torch.float32, device=cuda)
-    torch.testing.assert_close(cb.trsv_lower(L, y, invs, b), cb.trsv_lower_plain(L, y), **TOL)
-    torch.testing.assert_close(cb.trsv_lower_t(L, y, invs, b), cb.trsv_lower_t_plain(L, y), **TOL)
+@pytest.mark.parametrize("n", [128, 512, 1024, 1536, 4096, 8064])
+def test_trsv_both_directions(cuda, n):
+    """K3, one CTA per block row, against its plain version within 1e-5 of
+    the largest entry, one launch each way; the sums run in a fixed order, so
+    five more runs give the same bits."""
+    L, invs, y = _factor(n, cuda)
+    before = dict(cb.LAUNCHES)
+    z = cb.trsv_lower(L, y, invs, B)
+    x = cb.trsv_lower_t(L, y, invs, B)
+    assert cb.LAUNCHES["trsv_lower"] == before["trsv_lower"] + 1
+    assert cb.LAUNCHES["trsv_lower_t"] == before["trsv_lower_t"] + 1
+    assert _rel(z, cb.trsv_lower_plain(L.double(), y.double())) <= 1e-5
+    assert _rel(x, cb.trsv_lower_t_plain(L.double(), y.double())) <= 1e-5
+    for _ in range(5):
+        assert torch.equal(cb.trsv_lower(L, y, invs, B), z)
+        assert torch.equal(cb.trsv_lower_t(L, y, invs, B), x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1024, 4096])
+def test_trsv_back_to_back_launches_give_the_same_bits(cuda, n):
+    """200 launches each way queued on one stream without a synchronize: the
+    ticket and the ready flags are zeroed per launch, on the stream, so no
+    launch sees another's."""
+    L, invs, y = _factor(n, cuda, seed=3)
+    for solve in (cb.trsv_lower, cb.trsv_lower_t):
+        outs = [solve(L, y, invs, B) for _ in range(200)]
+        torch.cuda.synchronize()
+        assert all(torch.equal(o, outs[0]) for o in outs[1:])
+
+
+@pytest.mark.cuda
+def test_trsv_nan_in_gives_nan_out(cuda):
+    """A NaN in L or in y flows into x, and the launch does not hang: every
+    block row's flag is still published."""
+    n = 1024
+    L, invs, _ = _factor(n, cuda)
+    y = torch.ones(n, device=cuda)
+    Lnan = L.clone()
+    Lnan[300, 200] = float("nan")  # block row 2, block column 1
+    ynan = y.clone()
+    ynan[5] = float("nan")
+    for solve in (cb.trsv_lower, cb.trsv_lower_t):
+        out = solve(Lnan, y, invs, B)
+        torch.cuda.synchronize()
+        assert torch.isnan(out).any()
+        assert torch.isnan(solve(L, ynan, invs, B)).any()
+    z = cb.trsv_lower(Lnan, y, invs, B)
+    assert torch.isfinite(z[:256]).all() and torch.isnan(z[256:]).all()
+
+
+@pytest.mark.cuda
+def test_trsv_raises_on_bad_input(cuda):
+    """K3 is built for the tile size alone, like K4."""
+    L = torch.eye(256, device=cuda)
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        cb.trsv_lower(L, torch.ones(256, device=cuda), torch.eye(64, device=cuda).repeat(4, 1, 1), 64)
+    with pytest.raises(ValueError):
+        cb.trsv_lower(L, torch.ones(255, device=cuda), torch.eye(B, device=cuda).repeat(2, 1, 1), B)
+    with pytest.raises(TypeError):
+        cb.trsv_lower_t(L.double(), torch.ones(256, device=cuda), torch.eye(B, device=cuda).repeat(2, 1, 1), B)
 
 
 @pytest.mark.cuda
@@ -152,11 +212,17 @@ def test_cholesky_tile(cuda):
 
 
 @pytest.mark.cuda
-def test_lml_core_takes_k4_from_8192(cuda):
-    """At n = 8192 the front door's lml_core solves with K4 both ways (no
-    K3), and its value and gradient agree with autograd of the plain path
-    in f64; at "tensorfloat32" the rescue is engaged, and the result is
-    finite and within 1e-2 (TF32 keeps about three decimal digits)."""
+@pytest.mark.parametrize("gate,solver", [(None, "trsv_lower"), (8192, "trsv2d_lower")])
+def test_lml_core_at_8192_on_either_side_of_the_gate(cuda, monkeypatch, gate, solver):
+    """At n = 8192 the front door's lml_core solves with K3 both ways as the
+    measured gate stands, and with K4 both ways (no K3) with the gate at the
+    JAX package's 8192; either way its value and gradient agree with autograd
+    of the plain path in f64.  At "tensorfloat32" the rescue is engaged, and
+    the result is finite and within 1e-2 (TF32 keeps about three decimal
+    digits)."""
+    if gate is not None:
+        monkeypatch.setattr(cb, "_TRSV2D_MIN_N", gate)
+    other = "trsv2d_lower" if solver == "trsv_lower" else "trsv_lower"
     n = 8192
     x = torch.linspace(0, 400, n, device=cuda, dtype=torch.float64)
     K64 = (-0.5 * (x[:, None] - x[None, :]) ** 2).exp_()
@@ -166,8 +232,8 @@ def test_lml_core_takes_k4_from_8192(cuda):
     cb.reset_launch_counts()
     value = linalg.lml_core(K, y)
     value.backward()
-    assert (cb.LAUNCHES["trsv2d_lower"], cb.LAUNCHES["trsv2d_lower_t"]) == (1, 1), cb.LAUNCHES
-    assert cb.LAUNCHES["trsv_lower"] == cb.LAUNCHES["trsv_lower_t"] == 0
+    assert (cb.LAUNCHES[solver], cb.LAUNCHES[f"{solver}_t"]) == (1, 1), cb.LAUNCHES
+    assert cb.LAUNCHES[other] == cb.LAUNCHES[f"{other}_t"] == 0
     K64.requires_grad_(True)
     with linalg.force_plain():
         want = linalg.lml_core(K64, y64)
@@ -263,7 +329,7 @@ def test_slice_kernel_path_matches_f64_plain_path(cuda):
 
     cb.reset_launch_counts()
     got = run(torch.float32)
-    # n = 1024: K1 factors (not K2), and no call asks for a gradient (no K3
+    # n = 1024: K1 factors (not K2), and no call asks for a gradient (no
     # transpose solve)
     launched = {k for k, n in cb.LAUNCHES.items() if n >= 1}
     assert launched == {"fused_cholesky_invs", "trsv_lower", "tril_inv_tile"}, cb.LAUNCHES
@@ -327,21 +393,18 @@ def test_blocked_path_backward_matches_plain_autograd(cuda, output):
 @pytest.mark.cuda
 def test_lml_core_beyond_k3_limit_takes_torch_linalg(cuda):
     """At n = 54016, the first multiple of the tile that K3's shared memory
-    cannot take, the C side refuses K3, and the front door's lml_core stays
-    on the blocked path with K4, as the JAX package does, where it used to
-    take torch.linalg (about 12 GB per n x n f32 matrix)."""
+    could not take while it kept the solution there, the front door's
+    lml_core stays on the blocked path and solves with K3, which keeps x in
+    global memory now (about 12 GB per n x n f32 matrix)."""
     n = 54016
-    assert not cb.trsv_fits(n, B)
     x = torch.linspace(0, 100, n, device=cuda)
     K = x[:, None] - x[None, :]
     K.square_().mul_(-0.5).exp_()
     K.diagonal().add_(1.0)
     y = torch.sin(x / 3.0)
-    with pytest.raises(RuntimeError, match="invalid argument"):
-        cb.trsv_lower(K, y, torch.zeros(n // B, B, B, device=cuda), B)
     cb.reset_launch_counts()
     got = float(linalg.lml_core(K, y))
-    assert cb.LAUNCHES["trsv2d_lower"] == 1 and cb.LAUNCHES["trsv_lower"] == 0, cb.LAUNCHES
+    assert cb.LAUNCHES["trsv_lower"] == 1 and cb.LAUNCHES["trsv2d_lower"] == 0, cb.LAUNCHES
     with linalg.force_plain():
         want = float(linalg.lml_core(K, y))
     assert np.isfinite(got) and abs(got - want) <= 1e-4 * abs(want)
@@ -358,31 +421,46 @@ def _spd_batch(batch, n, device, seed=0):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [1, 44, 64, fused_gp.K7_MAX_N])
-def test_fused_gp_linv_matches_plain(cuda, n):
-    """K7 against its plain version (f32 cuSOLVER and a triangular solve):
-    1e-3 of the largest entry, as for K1, since L^-1 of a covariance with
-    noise variance 0.01 carries the f32 rounding of K's condition number."""
-    K = _spd_batch(16, n, cuda)
+@pytest.mark.parametrize("batch", [1, 5, 64, 257])
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 44, 63, 64, 65, 96, 127, 128])
+def test_fused_gp_linv_matches_plain(cuda, n, batch):
+    """K7 against its plain version in f64 at the edges of its size classes
+    (32, 48 and 64 columns in a warp's registers, 96 and 128 in a CTA's
+    shared memory) and at batches that leave the last CTA ragged: 5e-4 of the
+    largest entry, since L^-1 of a covariance with noise variance 0.01
+    carries the f32 rounding of K's condition number."""
+    K = _spd_batch(batch, n, cuda)
     before = cb.LAUNCHES["fused_gp_linv"]
     got = fused_gp.fused_gp_linv(K)
     assert cb.LAUNCHES["fused_gp_linv"] == before + 1
-    want = fused_gp.linv_plain(K)
+    want = fused_gp.linv_plain(K.double())
     torch.cuda.synchronize()
     assert torch.isfinite(got).all()
-    assert _rel(got, want.double()) <= 1e-3
+    assert _rel(got, want) <= 5e-4
     assert (torch.triu(got, diagonal=1) == 0).all()
     # two runs give the same bits
     assert torch.equal(got, fused_gp.fused_gp_linv(K))
+    # an unaligned batch (a view one matrix in) takes the scalar loads
+    if batch > 1 and n % 2 == 1:
+        assert torch.equal(fused_gp.fused_gp_linv(K[1:]), got[1:])
 
 
 @pytest.mark.cuda
-def test_fused_gp_linv_non_positive_pivot_is_nan(cuda):
-    K = _spd_batch(3, 44, cuda)
-    K[1, 20, 20] = -1.0
+@pytest.mark.parametrize("n", [20, 44, 64, 100, 128])
+def test_fused_gp_linv_non_positive_pivot_is_nan(cuda, n):
+    """A matrix that is not positive definite, or holds a NaN, gives NaN
+    throughout its own L^-1, as the plain version does, and leaves the other
+    matrices of the batch alone."""
+    K = _spd_batch(5, n, cuda)
+    K[1, n // 2, n // 2] = -1.0
+    K[3, 2, 1] = K[3, 1, 2] = float("nan")
     got = fused_gp.fused_gp_linv(K)
-    assert torch.isnan(got[1]).any()
-    assert torch.isfinite(got[0]).all() and torch.isfinite(got[2]).all()
+    torch.cuda.synchronize()
+    for i in (1, 3):
+        assert torch.isnan(got[i]).all()
+    want = fused_gp.linv_plain(K.double())
+    for i in (0, 2, 4):
+        assert torch.isfinite(got[i]).all() and _rel(got[i], want[i]) <= 5e-4
 
 
 @pytest.mark.cuda

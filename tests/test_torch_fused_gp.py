@@ -133,6 +133,35 @@ def test_linv_plain_matches_jax_linv_value():
     assert torch.equal(fused_gp.fused_gp_linv(torch.tensor(K)), fused_gp.linv_plain(torch.tensor(K)))
 
 
+@pytest.mark.parametrize("n", [32, 64, 96])
+def test_linv_plain_matches_pallas_linv_interpret(monkeypatch, n):
+    """K7's plain version against the Pallas kernel's own output
+    (``pallas_linv`` in interpret mode, read where the JAX route hands it to
+    ``_lml_and_w_from_linv``) at the edges of the CUDA kernel's size classes.
+    JAX pads n to a multiple of 64 with identity rows; the leading n x n
+    block is L^-1 of the unpadded K.  f64, 1e-9 of the largest entry."""
+    x, y = _data(n=n, seed=n)
+    jgp = JGP(ndim=1, simil=j_rbf.scaled(), noise=j_uniform)
+    tgp = GP(ndim=1, simil=rbf.scaled(), noise=uniform_noise)
+    v = 0.2 * np.random.default_rng(n).normal(size=tgp.n_theta)
+    seen = []
+    real = jfused._lml_and_w_from_linv
+    monkeypatch.setattr(jfused, "_lml_and_w_from_linv", lambda Linv, *a: seen.append(np.asarray(Linv)) or real(Linv, *a))
+    with jfused.force_interpret():
+        jfused.make_fused_value_and_grad(jgp, x, y)(jnp.asarray(v))
+    (want,) = seen
+    n_pad = -(-n // 64) * 64
+    assert want.shape == (n_pad, n_pad)
+    np.testing.assert_array_equal(want[n:, :n], 0.0)
+    np.testing.assert_array_equal(want[n:, n:], np.eye(n_pad - n))
+    from gogp_torch.gp.core import masked_cov
+
+    theta = torch.exp(torch.tensor(v))
+    K = masked_cov(tgp, theta[:tgp.n_theta_simil], theta[tgp.n_theta_simil:], torch.tensor(x), None)
+    got = fused_gp.linv_plain(K).numpy()
+    np.testing.assert_allclose(got, want[:n, :n], rtol=0, atol=VALUE_RTOL * np.abs(want).max())
+
+
 def test_masked_padding_exact():
     """Padded rows (identity rows of K, zero y) leave the value and the
     gradient of the unpadded problem, on both routes (the counterpart of

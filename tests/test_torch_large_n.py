@@ -4,7 +4,8 @@
   Cholesky): their plain versions against the Pallas kernels in interpret
   mode, as tests/test_pallas.py runs them (atol 1e-9 on the solves, 1e-10 on
   the factor).
-- lml_core's rule between K3 and K4 (``cholesky_blocked.trsv_solvers``).
+- lml_core's rule between K3 and K4 (``cholesky_blocked.trsv_solvers``) and
+  its measured gate.
 - gp_observe's value and gradient through the K4 route (gate lowered) against
   JAX's gp_observe under ``jax.value_and_grad`` (rtol 1e-9 on the value, 1e-8
   on the gradient).  JAX on the CPU takes its XLA path here, so the
@@ -92,17 +93,21 @@ def test_cholesky_tile_plain_matches_pallas(b):
 # -- lml_core's rule between K3 and K4 ------------------------------------------
 
 
-def test_trsv_solvers_k3_below_8192_k4_from_there():
-    """K3 below _TRSV2D_MIN_N = 8192, the n from which the JAX package sends
-    every eligible matrix to K4; K4 at and above it, and wherever K3's shared
-    memory cannot take the size."""
-    assert cb._TRSV2D_MIN_N == 8192
+def test_trsv_solvers_k3_below_8192_k4_from_there(monkeypatch):
+    """K3 below _TRSV2D_MIN_N, K4 at and above it.  The constant is the
+    measured crossing on the H100, and there is none: K3 took 0.40-0.70 of
+    K4's time at every n from 1024 to 65536, so the gate is infinite and
+    every size solves with K3.  With the gate at the JAX package's 8192 the
+    rule splits the sizes on either side of it."""
+    assert cb._TRSV2D_MIN_N == float("inf")
     k3, k4 = (cb.trsv_lower, cb.trsv_lower_t), (cb.trsv2d_lower, cb.trsv2d_lower_t)
+    for n in (1024, 4096, 8064, 8192, 16384, 60000):
+        assert cb.trsv_solvers(n, 128) == k3, n
+    monkeypatch.setattr(cb, "_TRSV2D_MIN_N", 8192)
     for n in (1024, 4096, 8064):
         assert cb.trsv_solvers(n, 128) == k3, n
     for n in (8192, 16384, 60000):
         assert cb.trsv_solvers(n, 128) == k4, n
-    assert not cb.trsv_fits(60000, 128)
 
 
 def large_problem(n):
