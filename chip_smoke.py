@@ -15,11 +15,14 @@ process per source) and then runs these phases, each printing JSON lines:
               errors and times (CUDA events after a warmup), beside the
               least time the card could take (bytes over 3.35 TB/s or FLOPs
               over 67 TFLOP/s, the larger) and one PyTorch library call
-              where one computes the same function.  Serving: K2 on one
-              tile, K3 both ways and K5 on the n = 4096 factor.  Train: K1
-              at n = 1536 (and at 1024 and 1792, also timed against the
-              stepwise driver), K3 both ways and K5 on K1's n = 1536
-              factor.  Large: K2 on one tile, K3 and K4 both ways and K5 on
+              where one computes the same function.  Serving: K1 on its
+              n = 4096 covariance (K2 on one tile where the gate sends
+              n = 4096 to the stepwise driver), K3 both ways and K5 on the
+              factor.  Train: K1 at n = 1536 (and at 1024, 1792, 2048, 2560,
+              3072, also timed against the stepwise driver and cholesky_ex,
+              with a "gates" line of K1's gate beside these times), K3 both
+              ways and K5 on K1's n = 1536 factor.  Large: K2 on one tile,
+              K3 and K4 both ways and K5 on
               the n = 16384 factor; K3 and K4 also at n = 1024, 1536, 2048,
               4096 and 8192 on the same factors, and a "gates" line with
               the gate between them beside these times.  K6, which no path
@@ -32,7 +35,8 @@ process per source) and then runs these phases, each printing JSON lines:
               run once through the front door in f32 (the kernel path), and
               are held against the same calls on the plain path in f64 on
               the card.
-5. launches - the kernels' launch counts during that one run (K2, K3 and K5
+5. launches - the kernels' launch counts during that one run (K1, or K2
+              where the gate sends n = 4096 to the stepwise driver, K3 and K5
               must each be launched, the K3 transpose not), and wall times of
               the kernel path and of the plain f32 path.
 6. train    - training, then serving: the reference's barebones study
@@ -139,7 +143,10 @@ KERNEL_RTOL = 1e-5
 # of its tiles): the factor of a covariance with noise variance 0.01 carries
 # the f32 rounding of K's condition number, about 1e3-1e4.
 K1_RTOL = 1e-3
-K1_SIZES = (1024, 1536, 1792)
+# K1 is held and timed, beside the stepwise driver and cholesky_ex, at these
+# n: the measurements that set its gate (cb._FUSED_MAX_N).  Beyond the gate
+# the kernel entry is called past the wrapper's range check, here only.
+K1_SIZES = (1024, 1536, 1792, 2048, 2560, 3072, 4096)
 
 # The train path: the barebones study at n = 1536, forecast at m = 512.
 N_TRAIN, M_TRAIN = 1536, 512
@@ -331,8 +338,14 @@ def phase_build() -> None:
     _build.library()
     seconds = time.perf_counter() - t0
     log = (lib_path.parent / "build.log").read_text().splitlines()
-    emit({"phase": "build", "seconds": round(seconds, 3), "library": str(lib_path.name),
-          "ptxas": [line.strip() for line in log if "Used" in line or "spill" in line]})
+    emit({"phase": "build", "seconds": round(seconds, 3), "library": str(lib_path.name), "ptxas": ptxas_lines(log)})
+
+
+def ptxas_lines(log: list[str]) -> list[str]:
+    """ptxas's per-kernel lines from a build log: each entry function's name,
+    then its registers, shared memory and spills."""
+    keep = ("Compiling entry", "Used", "spill")
+    return [line.replace("ptxas info    : ", "").strip() for line in log if any(k in line for k in keep)]
 
 
 def problem(dtype: torch.dtype, device):
@@ -446,12 +459,22 @@ def run_large(gp, x, y, v0, z, after=lambda stage: None) -> dict:
     return {"value": value, "grad": grad, "adam": adam, **out}
 
 
+# What the library call beside a kernel computes, where it is more than one
+# call or less than the kernel's function.
+LIBRARY_NAMES = {
+    "chol_inv_tile": "torch.linalg.cholesky + torch.linalg.solve_triangular(L, I)",
+    "fused_cholesky_invs": "cholesky_ex, L only (no tile inverses)",
+    "fused_gp_linv": "torch.linalg.cholesky + torch.linalg.solve_triangular(L, I)",
+}
+
+
 def check_kernel(path: str, key: str, kernel, plain, shape, reps: int, library=None,
-                 rtol: float = KERNEL_RTOL, library_name: str | None = None, **extra) -> dict:
+                 rtol: float = KERNEL_RTOL, **extra) -> dict:
     """Hold one kernel against its plain version on the same inputs, then
     time both, ``library`` (one PyTorch call computing the same function, or
-    None; ``library_name`` says which where it is more than one call) and
-    each of ``extra``'s calls with CUDA events."""
+    None; LIBRARY_NAMES says which where it is more than one call) and each
+    of ``extra``'s calls with CUDA events."""
+    library_name = LIBRARY_NAMES.get(key) if library is not None else None
     got, want = kernel(), plain()
     torch.cuda.synchronize()
     pairs = list(zip(got, want)) if isinstance(got, tuple) else [(got, want)]
@@ -476,9 +499,11 @@ def check_kernel(path: str, key: str, kernel, plain, shape, reps: int, library=N
 def tile_cases(tile: torch.Tensor) -> dict:
     """K2 and K6 on one tile: key -> (kernel call, plain call, shape of the
     main input, reps, library call)."""
+    eye = torch.eye(BLOCK, dtype=tile.dtype, device=tile.device)
     return {
         "chol_inv_tile": (lambda: cb.cholesky_inv_tile(tile), lambda: cb.cholesky_inv_tile_plain(tile),
-                          tile.shape, 50, None),
+                          tile.shape, 50,
+                          lambda: torch.linalg.solve_triangular(torch.linalg.cholesky(tile), eye, upper=False)),
         "chol_tile": (lambda: cb.cholesky_tile(tile), lambda: cb.cholesky_tile_plain(tile),
                       tile.shape, 50, lambda: torch.linalg.cholesky(tile)),
     }
@@ -520,27 +545,34 @@ def phase_kernels(dev) -> dict:
     rows = {}
     gp, x, y, v, ts, tn, _ = problem(torch.float32, dev)
     K = core.masked_cov(gp, ts, tn, x, None)
-    L, invs = cb.blocked_cholesky_invs(K, BLOCK)  # n = 4096: the stepwise driver
+    L, invs = cb.blocked_cholesky_invs(K, BLOCK)  # n = 4096: K1 or the stepwise driver, as the gate says
     tiles = tile_cases(K[:BLOCK, :BLOCK].contiguous())
-    # the serving path launches no transpose solve; it is held at n = 4096 too
-    serve = {"chol_inv_tile": tiles["chol_inv_tile"], **solve_cases(L, invs, y, k4=solves_with_k4(N))}
+    # the serving path launches no transpose solve; it is held at n = 4096
+    # too.  Its factorization is held with K1's sizes below, or here if the
+    # gate sends n = 4096 to the stepwise driver (K2).
+    serve = solve_cases(L, invs, y, k4=solves_with_k4(N))
+    if SERVE_FACTOR == "chol_inv_tile":
+        serve["chol_inv_tile"] = tiles["chol_inv_tile"]
     for key, case in serve.items():
         rows["serve", key] = check_kernel("serve", key, *case)
     # K6, which no path calls, on the same tile
     rows["kernels", "chol_tile"] = check_kernel("kernels", "chol_tile", *tiles["chol_tile"])
     for n in K1_SIZES:
-        Kn = train_cov(n, dev)
+        Kn = K if k1_path(n) == "serve" else train_cov(n, dev)  # serving's own covariance at N
 
         def stepwise(Kn=Kn):
             with cb.no_fused_whole():
                 return cb.blocked_cholesky_invs(Kn)
 
-        path = "train" if n == N_TRAIN else f"n={n}"
-        rows[path, "fused_cholesky_invs"] = check_kernel(
-            path, "fused_cholesky_invs",
-            lambda: cb.fused_cholesky_invs(Kn), lambda: cb.fused_cholesky_invs_plain(Kn), Kn.shape, 20,
-            rtol=K1_RTOL, stepwise_ms=stepwise,
-        )
+        path = k1_path(n)
+        with unittest.mock.patch.object(cb, "_FUSED_MAX_N", max(K1_SIZES)):  # past the range check
+            rows[path, "fused_cholesky_invs"] = check_kernel(
+                path, "fused_cholesky_invs",
+                lambda: cb.fused_cholesky_invs(Kn), lambda: cb.fused_cholesky_invs_plain(Kn), Kn.shape, 20,
+                lambda: torch.linalg.cholesky_ex(Kn), rtol=K1_RTOL, stepwise_ms=stepwise,
+            )
+        del Kn
+    emit(fused_gate(rows))
     # the train path's solves: on K1's factor of its covariance at v0
     y = train_problem(N_TRAIN, torch.float32, dev)[2]
     L, invs = cb.fused_cholesky_invs(train_cov(N_TRAIN, dev))
@@ -566,6 +598,26 @@ def phase_kernels(dev) -> dict:
         rows["kernels", key] = rows["large", key]
     emit(trsv_gate(rows))
     return rows
+
+
+def k1_path(n: int) -> str:
+    """The path whose row K1's check at size n fills: train at N_TRAIN,
+    serve at N where the gate sends serving to K1."""
+    if n == N_TRAIN:
+        return "train"
+    return "serve" if n == N and SERVE_FACTOR == "fused_cholesky_invs" else f"n={n}"
+
+
+def fused_gate(rows: dict) -> dict:
+    """K1's gate beside the times that set it: device ms of K1, of the
+    stepwise driver and of cholesky_ex (the factor alone) at each of
+    K1_SIZES, from this run's rows, and which route the gate gives each n."""
+    sizes = {}
+    for n in K1_SIZES:
+        row = rows[k1_path(n), "fused_cholesky_invs"]
+        sizes[n] = {"k1_ms": row["ms"], "stepwise_ms": row["stepwise_ms"], "cholesky_ex_ms": row["library_ms"],
+                    "takes": "K1" if n <= cb._FUSED_MAX_N else "stepwise"}
+    return {"phase": "gates", "gate": "_FUSED_MAX_N", "value": cb._FUSED_MAX_N, "ms": sizes}
 
 
 def trsv_gate(rows: dict) -> dict:
@@ -658,10 +710,11 @@ def phase_slice(dev) -> tuple[dict, tuple]:
     return launches, args32
 
 
-# The serving slice's kernels: n = 4096 takes the stepwise driver (K2), and
-# no call of it asks for a gradient, so lml_core solves no alpha (no
-# transpose solve).
-SERVE_KERNELS = ("chol_inv_tile", solve_keys(N)[0], "tril_inv_tile")
+# The serving slice's kernels: n = 4096 factors with K1 below the measured
+# gate (cb._FUSED_MAX_N), with the stepwise driver (K2) above it, and no call
+# of it asks for a gradient, so lml_core solves no alpha (no transpose solve).
+SERVE_FACTOR = "fused_cholesky_invs" if N <= cb._FUSED_MAX_N else "chol_inv_tile"
+SERVE_KERNELS = (SERVE_FACTOR, solve_keys(N)[0], "tril_inv_tile")
 # The train path's: K1 factors at n = 1536, every gradient solves alpha.
 TRAIN_KERNELS = ("fused_cholesky_invs", *solve_keys(N_TRAIN), "tril_inv_tile")
 # The large path's: the stepwise factorization (K2), both solves, K5 in the
@@ -786,7 +839,7 @@ def phase_train(dev) -> dict:
     if missing:
         raise AssertionError(f"kernels not launched on the train path: {missing}")
     if launches["chol_inv_tile"] != 0:
-        raise AssertionError("K2 launched on the train path, where K1 factors every n <= 2047")
+        raise AssertionError(f"K2 launched on the train path, where K1 factors every n <= {cb._FUSED_MAX_N}")
     return {"launches": launches, "args32": args32}
 
 
@@ -946,9 +999,7 @@ def phase_k7(dev) -> dict:
     """K7 against its plain version and the library pair at the bayes path's
     shapes and at K7_SIZES; returns {(path, key): row}.  Prints K7's dispatch
     limit beside the times that set it."""
-    rows = {(path, "fused_gp_linv"): check_kernel(
-                path, "fused_gp_linv", *case, rtol=BAYES_BOUNDS["k7_rtol"],
-                library_name="torch.linalg.cholesky + torch.linalg.solve_triangular(L, I)")
+    rows = {(path, "fused_gp_linv"): check_kernel(path, "fused_gp_linv", *case, rtol=BAYES_BOUNDS["k7_rtol"])
             for path, case in k7_cases(dev).items()}
     sizes = {rows[path, key]["shape"][-1]: {"k7_ms": rows[path, key]["ms"], "library_ms": rows[path, key]["library_ms"]}
              for path, key in rows if path == "bayes" or path.startswith("n=")}
@@ -1150,15 +1201,74 @@ def phase_profile(slice_args32, train_args32, large_args32, bayes_logps) -> None
     emit(report)
 
 
+# The tile body's stages as tile_common.cuh's TileStage numbers them.
+TILE_STAGES = ("start", "load", "diagonal factor (warp 0)", "diagonal step", "diagonal inverse (warp 0)",
+               "panel", "panel write", "update", "last inverse rows", "store")
+
+
+def phase_stamps(dev, launches: int = 20) -> None:
+    """The tile body's stages on the serving path's first tile: K2 built
+    apart with -DGOGP_TILE_STAMPS (thread 0 records clock64() as it passes
+    each stage), ``launches`` launches, the median cycles from each stamp to
+    the next, labelled by the stage that ends there and its panel, with the
+    whole launch's cycles and the stamped and normal K2's device times.  In
+    no whole run; the normal build records nothing."""
+    import ctypes
+
+    lib_path = _build.build(defines=("GOGP_TILE_STAMPS",), sources=("chol_inv_tile.cu",))
+    lib = ctypes.CDLL(str(lib_path))
+    lib.gogp_chol_inv_tile.argtypes = _build.SIGNATURES["gogp_chol_inv_tile"]
+    lib.gogp_chol_inv_tile_stamps.argtypes = _build.SIGNATURES["gogp_chol_inv_tile_stamps"]
+    gp, x, _, _, ts, tn, _ = problem(torch.float32, dev)
+    tile = core.masked_cov(gp, ts, tn, x, None)[:BLOCK, :BLOCK].contiguous()
+    L, V = torch.empty_like(tile), torch.empty_like(tile)
+    buf = torch.zeros(2 * 64, dtype=torch.int64, device=dev)
+    count = torch.zeros(1, dtype=torch.int32, device=dev)
+
+    def stamped():
+        stream = torch.cuda.current_stream().cuda_stream
+        _build.check(lib.gogp_chol_inv_tile(tile.data_ptr(), BLOCK, L.data_ptr(), BLOCK, V.data_ptr(), BLOCK,
+                                            BLOCK, stream), "stamped K2")
+
+    runs = []
+    for _ in range(launches):
+        stamped()
+        _build.check(lib.gogp_chol_inv_tile_stamps(buf.data_ptr(), count.data_ptr(),
+                                                   torch.cuda.current_stream().cuda_stream), "K2 stamps")
+        pairs = buf[: 2 * int(count)].view(-1, 2).tolist()
+        runs.append([(f"{TILE_STAGES[code // 8]}/{code % 8}", clock) for code, clock in pairs])
+    labels = [label for label, _ in runs[0]]
+    if any([label for label, _ in run] != labels for run in runs):
+        raise AssertionError("the stamped tile body passed different stages in different launches")
+    deltas = {labels[i]: statistics.median(run[i][1] - run[i - 1][1] for run in runs) for i in range(1, len(labels))}
+    by_stage = {}
+    for label, cycles in deltas.items():
+        stage = label.split("/")[0]
+        by_stage[stage] = by_stage.get(stage, 0) + cycles
+    Lp, Vp = cb.cholesky_inv_tile_plain(tile)
+    err = max(max_err(L, Lp)[1], max_err(V, Vp)[1])
+    mhz = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True, timeout=60).stdout.split()[0]
+    emit({"phase": "stamps", "tile": list(tile.shape), "launches": launches, "max_rel_err": err,
+          "total_cycles": statistics.median(run[-1][1] - run[0][1] for run in runs),
+          "max_sm_mhz": float(mhz), "stamped_ms": event_ms(stamped, 50),
+          "k2_ms": event_ms(lambda: cb.cholesky_inv_tile(tile), 50),
+          "cycles_by_stage": by_stage, "cycles_to_each_stamp": deltas,
+          "ptxas": ptxas_lines((lib_path.parent / "build.log").read_text().splitlines())})
+    if not err <= KERNEL_RTOL:
+        raise AssertionError(f"the stamped tile body disagrees with its plain version ({err:.3e})")
+
+
 def _partial_slice(dev) -> None:
     phase_launches(*phase_slice(dev))
 
 
 # What ``--phases`` can name; "k7" is the bayes phase's kernel checks without
 # its sampler runs, "slice" the serving slice with its launch counts, "gate"
-# (in no whole run) K3 against K4 beyond the large path's size.
+# (in no whole run) K3 against K4 beyond the large path's size, "stamps" (in
+# no whole run) the tile body's stage cycles.
 PARTIAL_PHASES = {"kernels": phase_kernels, "k7": phase_k7, "gate": phase_gate, "slice": _partial_slice,
-                  "train": phase_train, "large": phase_large, "bayes": phase_bayes}
+                  "train": phase_train, "large": phase_large, "bayes": phase_bayes, "stamps": phase_stamps}
 
 
 def main() -> int:

@@ -7,9 +7,10 @@
 //
 // What bounds it here: latency, as in K2 (chol_inv_tile.cu), whose body it
 // runs with the inverse left out (chol_inv_tile_body<B, false> in
-// tile_common.cuh): the 32-wide sub-panels, the 32 x 32 diagonal blocks
-// factored in registers by one warp and inverted for the panel solves, and
-// the rank-32 trailing updates, without the blocks of inv(L) below the
+// tile_common.cuh): the 32 x 32 diagonal blocks factored and inverted by one
+// warp in registers while the other warps apply the previous panel's update
+// (look-ahead), the panel solves as products with those inverses, and the
+// rank-32 updates as register tiles, without the blocks of inv(L) below the
 // diagonal.  A non-positive pivot gives NaN, as on the TPU.
 #include <cuda_runtime.h>
 
@@ -20,7 +21,7 @@ namespace {
 template <int B>
 __global__ void __launch_bounds__(gogp::kTileThreads)
     chol_tile_kernel(const float* a, int lda, float* l_out, int ldl) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
   gogp::chol_inv_tile_body<B, false>(a, lda, l_out, ldl, nullptr, 0, smem);
 }
 

@@ -36,12 +36,14 @@
 //
 //   64 < n <= 128: one CTA of 512 threads per matrix, blocked.  The matrix
 //   is padded with the identity to 96 or 128 and factored by K2's body
-//   (tile_common.cuh, chol_inv_tile_factor): panels of 32 columns, a warp
-//   factors the 32 x 32 diagonal block in registers with shuffles, the panel
-//   below is multiplied by that block's inverse, the trailing lower triangle
-//   gets a rank-32 update, and L^-1 follows block row by block row from the
-//   diagonal blocks' inverses.  A handful of block barriers per panel, 3 or
-//   4 panels.  The padding factors to itself and costs no accuracy.
+//   (tile_common.cuh, chol_inv_tile_factor): block columns of 32, a warp
+//   factors and inverts the 32 x 32 diagonal block in registers while the
+//   other warps apply the previous panel's update beyond it (look-ahead),
+//   the panel below is multiplied by that block's inverse, and L^-1 follows
+//   block row by block row, all products as register tiles.  Four block
+//   barriers per block column, 3 or 4 of them.  The padding factors to
+//   itself and costs no accuracy.  This kernel reads L^-1 and 1 / diag(L)
+//   from the body's shared memory (kTileV, kTileDinv).
 //
 // A non-positive or NaN pivot gives NaN throughout that matrix's L^-1 and
 // never an early return; other matrices of the batch are untouched.
@@ -169,11 +171,11 @@ template <int B>
 __global__ void __launch_bounds__(gogp::kTileThreads)
     linv_block_kernel(const float* __restrict__ k, float* __restrict__ linv, int n) {
   extern __shared__ __align__(16) float smem[];
-  constexpr int ld = gogp::kLd<B>;
+  constexpr int ld = gogp::kTileLd<B>;
   constexpr int kWarps = gogp::kTileThreads / 32;
-  float* M = smem;                                    // K padded with the identity; becomes L
-  const float* V = M + B * ld;                        // L^-1
-  const float* dinv = V + B * ld + (B / 32 - 1) * 1024;  // 1 / diag(L), as the factor leaves it
+  float* M = smem;                                  // K padded with the identity; becomes L
+  const float* V = smem + gogp::kTileV<B>;          // L^-1
+  const float* dinv = smem + gogp::kTileDinv<B>;    // 1 / diag(L), as the factor leaves it
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const float* src = k + static_cast<size_t>(blockIdx.x) * n * n;
   float* dst = linv + static_cast<size_t>(blockIdx.x) * n * n;

@@ -30,9 +30,6 @@ _CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_ROOT = pathlib.Path(__file__).resolve().parents[2] / "build" / "gogp_torch"
 _LIB_NAME = "libgogp_kernels.so"
 
-# K1 (fused_chol.cu) synchronises its grid with cooperative_groups'
-# grid.sync(), which needs a cooperative launch but not relocatable device
-# code: no -rdc=true.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-O3", "-std=c++17", "-Xcompiler", "-fPIC",
@@ -42,8 +39,9 @@ NVCC_FLAGS = (
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # name -> argtypes; every pointer and the stream are c_void_p
 SIGNATURES = {
-    "gogp_fused_cholesky_invs": [_P, _P, _P, _I, _I, _P],
+    "gogp_fused_cholesky_invs": [_P, _P, _P, _P, _I, _I, _P],
     "gogp_chol_inv_tile": [_P, _I, _P, _I, _P, _I, _I, _P],
+    "gogp_chol_inv_tile_stamps": [_P, _P, _P],  # a GOGP_TILE_STAMPS build's only
     "gogp_tril_inv_tiles": [_P, _P, _I, _I, _P],
     "gogp_trsv_lower": [_P, _P, _P, _P, _P, _I, _I, _P],
     "gogp_trsv_lower_t": [_P, _P, _P, _P, _P, _I, _I, _P],
@@ -70,18 +68,23 @@ def _sources() -> list[pathlib.Path]:
     return sorted(_CSRC.glob("*.cu"))
 
 
-def _digest() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _digest(flags: tuple[str, ...], sources: list[pathlib.Path]) -> str:
+    h = hashlib.sha256(" ".join((*flags, *(p.name for p in sources))).encode())
     for p in sorted(_CSRC.glob("*.cu*")):
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return h.hexdigest()[:16]
 
 
-def build() -> pathlib.Path:
+def build(defines: tuple[str, ...] = (), sources: tuple[str, ...] | None = None) -> pathlib.Path:
     """Compile the kernels unless a library for these sources exists; return
-    its path.  ``build.log`` beside it keeps nvcc's output."""
-    out_dir = _BUILD_ROOT / _digest()
+    its path.  ``build.log`` beside it keeps nvcc's output.  ``defines`` adds
+    ``-D`` flags and ``sources`` (file names in ``csrc/``) builds a subset:
+    for measurement builds such as the tile body's stage stamps
+    (``GOGP_TILE_STAMPS``), which :func:`library` never loads."""
+    flags = (*NVCC_FLAGS, *(f"-D{d}" for d in defines))
+    srcs = _sources() if sources is None else [_CSRC / s for s in sources]
+    out_dir = _BUILD_ROOT / _digest(flags, srcs)
     lib = out_dir / _LIB_NAME
     if lib.exists():
         return lib
@@ -90,9 +93,9 @@ def build() -> pathlib.Path:
     nvcc = _nvcc()
     t0 = time.perf_counter()
     compiles = []
-    for src in _sources():
+    for src in srcs:
         obj = out_dir / f"{src.stem}.{tag}.o"
-        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        cmd = [nvcc, *flags, "-c", "-o", str(obj), str(src)]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         compiles.append((cmd, obj, proc))
     log, failed = [], []

@@ -70,9 +70,16 @@ Tensor = torch.Tensor
 
 DEFAULT_BLOCK = 128  # the only tile size K1, K2 and K5 are built for
 _MIN_N = 1024  # below this the front door runs torch.linalg, as JAX runs XLA
-# K1 takes n <= _FUSED_MAX_N, the JAX twin's gate, carried over from the TPU
-# and not yet measured on the H100 (ROADMAP.md).
-_FUSED_MAX_N = 2047
+# K1 takes n <= _FUSED_MAX_N (and n >= _MIN_N): the largest n measured at
+# which K1 is no slower than the stepwise driver, on an NVIDIA H100 80GB HBM3
+# (700 W) by chip_smoke.py (PERF.md), where the JAX twin has 2047, a VMEM
+# limit.  K1 against the stepwise driver (and cholesky_ex, the factor alone),
+# in ms: n = 1024 0.389 / 0.350 (0.351), 1536 0.583 / 0.578 (0.532), 1792
+# 0.678 / 0.735 (0.627), 2048 0.775 / 0.889 (0.741), 2560 0.968 / 1.262
+# (0.954), 3072 1.163 / 2.085 (1.172), 4096 1.775 / 3.014 (1.850).  K1 wins
+# from 1792 on, ties at 1536 and loses by 5-11% at 1024 (two runs); larger n
+# are not measured.
+_FUSED_MAX_N = 4096
 
 LAUNCHES = {
     "fused_cholesky_invs": 0,
@@ -286,10 +293,10 @@ cholesky_tile_plain = plain_cholesky
 
 
 def fused_cholesky_invs(K: Tensor, block: int = DEFAULT_BLOCK) -> tuple[Tensor, Tensor]:
-    """(L, invs) of an n x n SPD matrix in one cooperative launch (K1): the
-    whole lower factor and the (nb, block, block) diagonal-tile inverses.
-    The kernel takes f32, contiguous, block 128 and 1024 <= n <= 2047 with n
-    a multiple of 128.  A non-positive pivot gives NaN, as on the TPU."""
+    """(L, invs) of an n x n SPD matrix in one launch (K1): the whole lower
+    factor and the (nb, block, block) diagonal-tile inverses.
+    The kernel takes f32, contiguous, block 128 and n a multiple of 128 in
+    [_MIN_N, _FUSED_MAX_N] (1024 to 4096).  A non-positive pivot gives NaN, as on the TPU."""
     if not _is_cuda(K):
         return fused_cholesky_invs_plain(K, block)
     return _ForwardOnly.apply("fused_cholesky_invs", _fused_cholesky_invs_cuda, K, block)
@@ -305,9 +312,11 @@ def _fused_cholesky_invs_cuda(K: Tensor, block: int) -> tuple[Tensor, Tensor]:
             f"fused_cholesky_invs: the CUDA kernel takes block {DEFAULT_BLOCK} and n a multiple "
             f"of it in [{_MIN_N}, {_FUSED_MAX_N}], got n={n}, block={block}"
         )
+    nb = n // block
     L = torch.empty_like(K)
-    invs = torch.empty((n // block, block, block), dtype=K.dtype, device=K.device)
-    _launch(K, "gogp_fused_cholesky_invs", K.data_ptr(), L.data_ptr(), invs.data_ptr(), n, block)
+    invs = torch.empty((nb, block, block), dtype=K.dtype, device=K.device)
+    work = torch.empty(1 + 2 * nb + nb * nb, dtype=torch.int32, device=K.device)  # zeroed by the C side
+    _launch(K, "gogp_fused_cholesky_invs", K.data_ptr(), L.data_ptr(), invs.data_ptr(), work.data_ptr(), n, block)
     LAUNCHES["fused_cholesky_invs"] += 1
     return L, invs
 

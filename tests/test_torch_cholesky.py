@@ -143,22 +143,24 @@ def test_fused_cholesky_invs_plain_matches_pallas(factor256):
 
 
 def test_driver_takes_k1_up_to_fused_max_n(monkeypatch):
-    """As cholesky_pallas.py:624-645: K1 for a 2-D matrix with n <= 2047
-    unless no_fused_whole(); the stepwise driver above it or under
-    no_fused_whole().  On CUDA, K1 also needs block 128 and n >= 1024."""
+    """As cholesky_pallas.py:624-645: K1 for a 2-D matrix with n <=
+    _FUSED_MAX_N unless no_fused_whole(); the stepwise driver above it or
+    under no_fused_whole().  The port's gate is its own, measured on the H100
+    (4096, where the JAX twin has 2047).  On CUDA, K1 also needs block 128
+    and n >= 1024."""
     taken = []
     monkeypatch.setattr(cb, "fused_cholesky_invs", lambda K, b: taken.append("K1"))
     monkeypatch.setattr(cb, "_stepwise_cholesky_invs", lambda K, b: taken.append("stepwise"))
     cb.blocked_cholesky_invs(torch.zeros(256, 256), 64)
-    cb.blocked_cholesky_invs(torch.zeros(1920, 1920), 128)
-    cb.blocked_cholesky_invs(torch.zeros(2048, 2048), 128)
+    cb.blocked_cholesky_invs(torch.zeros(4096, 4096), 128)
+    cb.blocked_cholesky_invs(torch.zeros(4224, 4224), 128)
     with cb.no_fused_whole():
         cb.blocked_cholesky_invs(torch.zeros(256, 256), 64)
     assert taken == ["K1", "K1", "stepwise", "stepwise"]
-    assert cb._FUSED_MAX_N == cp._FUSED_MAX_N == 2047
+    assert cb._FUSED_MAX_N == 4096 and cp._FUSED_MAX_N == 2047
     monkeypatch.setattr(cb, "_is_cuda", lambda *ts: True)  # the CUDA rule, on the CPU
-    for n, block, route in [(1024, 128, True), (1536, 128, True), (512, 128, False),
-                            (1024, 64, False), (2048, 128, False)]:
+    for n, block, route in [(1024, 128, True), (1536, 128, True), (2048, 128, True), (4096, 128, True),
+                            (512, 128, False), (1024, 64, False), (4224, 128, False)]:
         assert cb._takes_fused(torch.zeros(n, n), block) is route, (n, block)
 
 

@@ -58,11 +58,78 @@ def test_cholesky_inv_tile(cuda):
 
 
 @pytest.mark.cuda
-def test_cholesky_inv_tile_non_positive_pivot_is_nan(cuda):
+@pytest.mark.parametrize("row", [10, 0, 31, 32, 100, 127])
+def test_cholesky_inv_tile_non_positive_pivot_is_nan(cuda, row):
+    """A non-positive pivot at row ``row`` (the edges of the tile body's
+    32-wide diagonal blocks among them): NaN on L's diagonal from there on,
+    L finite above and left of it, and the launch returns; K6 alike."""
     A = _spd(B, cuda)
-    A[10, 10] = -1.0
-    L, _ = cb.cholesky_inv_tile(A)
-    assert torch.isnan(L).any()
+    A[row, row] = -1.0
+    L, V = cb.cholesky_inv_tile(A)
+    L6 = cb.cholesky_tile(A)
+    torch.cuda.synchronize()
+    for got in (L, L6):
+        assert torch.isnan(got.diagonal()[row:]).all()
+        assert torch.isfinite(got[:row, :row]).all()
+    assert torch.isnan(V).any()
+
+
+def _spd_cond(n, cond, device, seed=0):
+    """An n x n SPD matrix Q diag(eig) Q^T with eigenvalues log-spaced from 1
+    to ``cond`` and a random orthogonal Q, in f64 on the device."""
+    rng = np.random.default_rng(seed)
+    q, _ = np.linalg.qr(rng.normal(size=(n, n)))
+    a = (q * np.logspace(0, np.log10(cond), n)) @ q.T
+    return torch.as_tensor(0.5 * (a + a.T), dtype=torch.float64, device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cond", [1e1, 1e3, 1e5])
+def test_tile_body_across_conditioning(cuda, cond):
+    """K2 and K6 (the tile body) on tiles of condition number 1e1 to 1e5:
+    within 1e-5 of the largest entry of the f64 factor and inverse, or within
+    four times cuSOLVER's own f32 error where the conditioning makes that
+    larger; the same bits over five runs."""
+    A64 = _spd_cond(B, cond, cuda)
+    A = A64.float()
+    L, V = cb.cholesky_inv_tile(A)
+    L6 = cb.cholesky_tile(A)
+    L64, V64 = cb.cholesky_inv_tile_plain(A64)
+    Lp, Vp = cb.cholesky_inv_tile_plain(A)
+    for got, plain, want in ((L, Lp, L64), (V, Vp, V64), (L6, Lp, L64)):
+        assert torch.isfinite(got).all()
+        assert _rel(got, want) <= max(1e-5, 4 * _rel(plain, want)), (cond, _rel(got, want), _rel(plain, want))
+    assert torch.equal(torch.triu(L, 1), torch.zeros_like(L)) and torch.equal(torch.triu(V, 1), torch.zeros_like(V))
+    for _ in range(5):
+        L2, V2 = cb.cholesky_inv_tile(A)
+        assert torch.equal(L2, L) and torch.equal(V2, V)
+        assert torch.equal(cb.cholesky_tile(A), L6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ld", [200, 131])
+def test_tile_body_in_place_inside_a_larger_matrix(cuda, ld):
+    """K2 as the stepwise driver calls it: the tile a view into a larger
+    matrix (row stride ``ld``: float4 rows at 200, scalar at 131), factored
+    in place, V written into another view; nothing outside the tile
+    changes."""
+    big = torch.randn(3 * B, ld, device=cuda)
+    A = _spd(B, cuda, seed=4)
+    col = 40 if ld % 4 == 0 else 3
+    tile = big[B:2 * B, col:col + B]
+    tile.copy_(A)
+    before = big.clone()
+    Vbig = torch.full((B + 5, ld), 7.0, device=cuda)
+    cb._cholesky_inv_tile_into(tile, tile, Vbig[5:, 1:1 + B])
+    Lp, Vp = cb.cholesky_inv_tile_plain(A)
+    torch.testing.assert_close(tile, Lp, **TOL)
+    torch.testing.assert_close(Vbig[5:, 1:1 + B], Vp, **TOL)
+    mask = torch.ones_like(big, dtype=torch.bool)
+    mask[B:2 * B, col:col + B] = False
+    assert torch.equal(big[mask], before[mask])
+    vmask = torch.ones_like(Vbig, dtype=torch.bool)
+    vmask[5:, 1:1 + B] = False
+    assert (Vbig[vmask] == 7.0).all()
 
 
 @pytest.mark.cuda
@@ -255,9 +322,22 @@ def test_blocked_driver_matches_cusolver(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [1024, 1792])
+def test_fused_cholesky_invs_back_to_back_launches_give_the_same_bits(cuda):
+    """200 launches of K1 queued on one stream without a synchronize give the
+    same bits: whatever the launch keeps between its CTAs is reset per
+    launch, on the stream."""
+    K = _spd(1536, cuda, seed=5)
+    outs = [cb.fused_cholesky_invs(K) for _ in range(200)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(L, outs[0][0]) and torch.equal(v, outs[0][1]) for L, v in outs[1:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1024, 1152, 1536, 1792, 2048, 3072, 4096])
 def test_fused_cholesky_invs_matches_plain(cuda, n):
-    """K1 in one cooperative launch, and the driver's dispatch to it."""
+    """K1 in one launch at the train path's sizes and up to its gate (4096,
+    serving's n), the driver's dispatch to it, and the same bits over five
+    more runs: every sum runs in a fixed order, no float atomics."""
     K = _spd(n, cuda)
     before = cb.LAUNCHES["fused_cholesky_invs"]
     L, invs = cb.fused_cholesky_invs(K)
@@ -267,17 +347,25 @@ def test_fused_cholesky_invs_matches_plain(cuda, n):
     assert torch.equal(torch.triu(L, 1), torch.zeros_like(L))
     cb.blocked_cholesky_invs(K)
     assert cb.LAUNCHES["fused_cholesky_invs"] == before + 2
+    for _ in range(5):
+        L2, invs2 = cb.fused_cholesky_invs(K)
+        assert torch.equal(L2, L) and torch.equal(invs2, invs)
 
 
 @pytest.mark.cuda
-def test_fused_cholesky_invs_non_positive_pivot_is_nan(cuda):
-    """NaN from the bad pivot on, and the grid does not hang: every block
-    still reaches every grid-wide barrier."""
-    K = _spd(1024, cuda)
-    K[300, 300] = -1.0
+@pytest.mark.parametrize("row", [300, 7, 5 * 128 + 7, 1536 - 128 + 7])
+def test_fused_cholesky_invs_non_positive_pivot_is_nan(cuda, row):
+    """A non-positive pivot in block column 2, 0, 5 or the last of n = 1536:
+    NaN on L's diagonal from there on, L finite before that block column,
+    and the launch does not hang: every work item still publishes its
+    counter."""
+    K = _spd(1536, cuda)
+    K[row, row] = -1.0
     L, _ = cb.fused_cholesky_invs(K)
     torch.cuda.synchronize()
-    assert torch.isnan(L).any() and torch.isfinite(L[:256, :256]).all()
+    assert torch.isnan(L.diagonal()[row:]).all()
+    c0 = row // B * B
+    assert torch.isfinite(L[:c0, :c0]).all()
 
 
 @pytest.mark.cuda
@@ -288,9 +376,9 @@ def test_fused_cholesky_invs_raises_on_bad_input(cuda):
         cb.fused_cholesky_invs(_spd(1024, cuda).T.contiguous()[:, :1000])  # not square
     with pytest.raises(ValueError):
         cb.fused_cholesky_invs(_spd(1024, cuda).T)  # not contiguous
-    for n in (512, 2048, 1000):
+    for n in (512, cb._FUSED_MAX_N + 128, 1000):
         with pytest.raises(ValueError):
-            cb.fused_cholesky_invs(_spd(n, cuda))  # outside [1024, 2047] or not a tile multiple
+            cb.fused_cholesky_invs(_spd(n, cuda))  # outside [1024, 4096] or not a tile multiple
     with pytest.raises(ValueError):
         cb.fused_cholesky_invs(_spd(1024, cuda), 64)  # built for b = 128 only
 
@@ -422,7 +510,7 @@ def _spd_batch(batch, n, device, seed=0):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("batch", [1, 5, 64, 257])
-@pytest.mark.parametrize("n", [1, 31, 32, 33, 44, 63, 64, 65, 96, 127, 128])
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 44, 63, 64, 65, 96, 97, 127, 128])
 def test_fused_gp_linv_matches_plain(cuda, n, batch):
     """K7 against its plain version in f64 at the edges of its size classes
     (32, 48 and 64 columns in a warp's registers, 96 and 128 in a CTA's
