@@ -17,16 +17,20 @@ process per source) and then runs these phases, each printing JSON lines:
               over 67 TFLOP/s, the larger) and one PyTorch library call
               where one computes the same function.  Serving: K1 on its
               n = 4096 covariance (K2 on one tile where the gate sends
-              n = 4096 to the stepwise driver), K3 both ways and K5 on the
-              factor.  Train: K1 at n = 1536 (and at 1024, 1792, 2048, 2560,
-              3072, also timed against the stepwise driver and cholesky_ex,
-              with a "gates" line of K1's gate beside these times), K3 both
-              ways and K5 on K1's n = 1536 factor.  Large: K2 on one tile,
-              K3 and K4 both ways and K5 on
-              the n = 16384 factor; K3 and K4 also at n = 1024, 1536, 2048,
-              4096 and 8192 on the same factors, and a "gates" line with
-              the gate between them beside these times.  K6, which no path
-              calls, on one tile.
+              n = 4096 to the stepwise driver), the gate's solver (K4 as
+              measured: K3 below n = 1024) both ways and K5 on the factor.
+              Train: K1 at n = 1536 (and at 1024, 1792, 2048, 2560, 3072,
+              also timed against the stepwise driver and cholesky_ex, with
+              a "gates" line of K1's gate beside these times), the solver
+              both ways and K5 on K1's n = 1536 factor.  Large: K2 on one
+              tile, K3 and K4 both ways and K5 on the n = 16384 factor; K3
+              and K4 also at n = 1024, 1536, 2048, 4096 and 8192 on the same
+              factors, and a "gates" line with the gate between them beside
+              these times.  K6, which no path calls, on one tile.
+   k5       - K5 at each path's count of tiles (12, 32, 128) and at 200, one
+              CTA a tile and split over 2 and 4 by block column, against its
+              plain version, with a "gates" line of the fastest split at
+              each count; K5 on ill-conditioned GP tiles against f64.
 4. slice    - serving: the GP problem of ``bench.py``, n = 4096 sorted
               uniform inputs on [0, 100], y = sin(x/3) + 0.1 N(0, 1) from
               numpy seed 0, rbf.scaled() + uniform_noise at log-theta 0,
@@ -36,8 +40,9 @@ process per source) and then runs these phases, each printing JSON lines:
               are held against the same calls on the plain path in f64 on
               the card.
 5. launches - the kernels' launch counts during that one run (K1, or K2
-              where the gate sends n = 4096 to the stepwise driver, K3 and K5
-              must each be launched, the K3 transpose not), and wall times of
+              where the gate sends n = 4096 to the stepwise driver, the
+              gate's solver and K5 must each be launched, no transpose
+              solve), and wall times of
               the kernel path and of the plain f32 path.
 6. train    - training, then serving: the reference's barebones study
               (matern32.scaled() + uniform_noise.scaled_by(0.01)) on the same
@@ -47,7 +52,8 @@ process per source) and then runs these phases, each printing JSON lines:
               the forecast at m = 512 points at the LBFGS optimum.  The kernel
               path in f32 is held against the plain path in f64 on the card
               (the forecast at the kernel path's own optimum on both);
-              K1, K3, K3 transpose and K5 must each be launched, K2 not.  Wall
+              K1, the gate's solver both ways and K5 must each be launched,
+              K2 not.  Wall
               time per value-and-gradient step and per fit on the kernel path
               and on the plain f32 path.
 
@@ -58,7 +64,7 @@ process per source) and then runs these phases, each printing JSON lines:
               of gp_observe at v0, Adam for 3 steps, then gp_posterior and
               the forecast at m = 1024 points at Adam's v, held against the
               plain path in f64 on the card; the launch counts of each stage
-              (K2 per factorization, the gate's solver, K3 as measured, both
+              (K2 per factorization, the gate's solver, K4 as measured, both
               ways per gradient, none of the other's or of K1, K5 in the
               forecast); wall time of a value-and-gradient step on
               the kernel path and on the plain f32 path; the factorization
@@ -86,9 +92,10 @@ process per source) and then runs these phases, each printing JSON lines:
               under force_plain at 128 + 128 transitions (none of its calls
               may launch K7).
 
-With ``--phases a,b,...`` (of kernels, k7, gate, slice, train, large, bayes;
-k7 is the bayes phase's kernel checks without its sampler runs, gate times K3
-against K4 at n = 24576 to 65536 and is part of no whole run) only those phases
+With ``--phases a,b,...`` (of kernels, k5, k7, gate, stamps, slice, train,
+large, bayes; k7 is the bayes phase's kernel checks without its sampler runs,
+gate times K3 against K4 at n = 24576 to 65536 and stamps records the stages
+of K2, K5 and K4's chain step, both in no whole run) only those phases
 run, after device and build, and the script ends with ``{"ok": false,
 "partial": [...]}`` and exit code 2: for work on one kernel, never a pass.
 
@@ -527,7 +534,7 @@ def solve_cases(L: torch.Tensor, invs: torch.Tensor, y: torch.Tensor, reps: int 
     fwd, bwd = (cb.trsv2d_lower, cb.trsv2d_lower_t) if k4 else (cb.trsv_lower, cb.trsv_lower_t)
     key = "trsv2d_lower" if k4 else "trsv_lower"
     z = fwd(L, y, invs, BLOCK)
-    tiles = L.view(n // BLOCK, BLOCK, n // BLOCK, BLOCK).diagonal(dim1=0, dim2=2).permute(2, 0, 1).contiguous()
+    tiles = diag_tiles(L)
     eye = torch.eye(BLOCK, dtype=L.dtype, device=L.device)
     return {
         key: (lambda: fwd(L, y, invs, BLOCK), lambda: cb.trsv_lower_plain(L, y), L.shape, reps,
@@ -643,20 +650,31 @@ def trsv_gate(rows: dict) -> dict:
 FAR_GATE_SIZES = (24576, 32768, 49152, 65536)
 
 
+def synthetic_factor(n: int, dev):
+    """A well-conditioned random lower-triangular factor at size n (unit-scale
+    diagonal in [1, 2), entries below it 0.5 N(0, 1) / sqrt(n)), its tile
+    inverses by K5 and a right-hand side, from a generator seeded with n."""
+    g = torch.Generator(device=dev).manual_seed(n)
+    L = torch.randn((n, n), generator=g, device=dev).mul_(0.5 / np.sqrt(n)).tril_()
+    L.diagonal().copy_(1.0 + torch.rand(n, generator=g, device=dev))
+    invs = cb.tril_inv_tile(diag_tiles(L))
+    return L, invs, torch.randn(n, generator=g, device=dev)
+
+
+def diag_tiles(L: torch.Tensor) -> torch.Tensor:
+    """The (n/b, b, b) stack of L's diagonal tiles, contiguous."""
+    n = L.shape[0]
+    return L.view(n // BLOCK, BLOCK, n // BLOCK, BLOCK).diagonal(dim1=0, dim2=2).permute(2, 0, 1).contiguous()
+
+
 def phase_gate(dev) -> None:
     """K3 and K4 against ``solve_triangular`` beyond the large path's size,
-    on well-conditioned random lower-triangular factors: unit-scale
-    diagonal in [1, 2), entries below it 0.5 N(0, 1) / sqrt(n).  Both kernels
-    are held to 1e-4 of the largest entry of the library's solve, itself
-    f32 here; prints device ms of each, forward and transpose."""
+    on synthetic factors (``synthetic_factor``).  Both kernels are held to
+    1e-4 of the largest entry of the library's solve, itself f32 here;
+    prints device ms of each, forward and transpose."""
     sizes = {}
     for n in FAR_GATE_SIZES:
-        g = torch.Generator(device=dev).manual_seed(n)
-        L = torch.randn((n, n), generator=g, device=dev).mul_(0.5 / np.sqrt(n)).tril_()
-        L.diagonal().copy_(1.0 + torch.rand(n, generator=g, device=dev))
-        invs = cb.tril_inv_tile(L.view(n // BLOCK, BLOCK, n // BLOCK, BLOCK).diagonal(dim1=0, dim2=2)
-                                .permute(2, 0, 1).contiguous())
-        y = torch.randn(n, generator=g, device=dev)
+        L, invs, y = synthetic_factor(n, dev)
         calls = {
             "k3_ms": (lambda: cb.trsv_lower(L, y, invs, BLOCK), lambda: cb.trsv_lower_t(L, y, invs, BLOCK)),
             "k4_ms": (lambda: cb.trsv2d_lower(L, y, invs, BLOCK), lambda: cb.trsv2d_lower_t(L, y, invs, BLOCK)),
@@ -671,6 +689,91 @@ def phase_gate(dev) -> None:
         sizes[n] = {name: [event_ms(fn, 5) for fn in fns] for name, fns in calls.items()}
         del L, invs, y, want
     emit({"phase": "gates", "gate": "_TRSV2D_MIN_N", "factors": "synthetic", "forward_and_transpose_ms": sizes})
+
+
+# K5 one CTA a tile and split over 2 and 4 CTAs by block column, at each
+# path's count of tiles and past the card's 132 SMs: the measurements that
+# set gogp_tril_inv_tiles' split (tril_inv_tile.cu).
+K5_SPLITS = (1, 2, 4)
+K5_FAR_COUNT = 200
+# K5 on ill-conditioned tiles (diagonal from 1 down to 4e-4-2e-3) against
+# f64, column by column: the largest error in a column over that column's
+# largest entry.  Written before the first run on the card: 1e-3; then set to
+# about 10 times the 3.3e-4 an H100 showed (forward substitution, the plain
+# version, 2.7e-4).
+K5_ILL_RTOL = 3e-3
+
+
+def k5_split(tiles: torch.Tensor, split: int) -> torch.Tensor:
+    """K5 at the given split (CTAs a tile), past the wrapper: for
+    measurement only, counted nowhere."""
+    out = torch.empty_like(tiles)
+    _build.check(_build.library().gogp_tril_inv_tiles_split(
+        tiles.data_ptr(), out.data_ptr(), tiles.shape[0], BLOCK, split, torch.cuda.current_stream().cuda_stream),
+        "K5 at a split")
+    return out
+
+
+def ill_conditioned_tiles(count: int, dev) -> torch.Tensor:
+    """(count, b, b) Cholesky factors of rbf covariances on b points of [0,
+    1] plus jitter 1e-7, the length scale from 0.05 to 1 (log-spaced): their
+    diagonals run from 1 down to 4e-4-2e-3, and forward substitution loses
+    about 3e-4 of a column's scale on them in f32."""
+    x = np.linspace(0, 1, BLOCK)
+    tiles = [np.linalg.cholesky(np.exp(-0.5 * (x[:, None] - x[None]) ** 2 / ell**2) + 1e-7 * np.eye(BLOCK))
+             for ell in np.logspace(np.log10(0.05), 0, count)]
+    return torch.as_tensor(np.stack(tiles), dtype=torch.float32, device=dev)
+
+
+def col_rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Largest error in a column over the column's largest entry, in f64."""
+    got, want = got.double(), want.double()
+    return float(((got - want).abs().amax(dim=-2) / want.abs().amax(dim=-2).clamp_min(1e-300)).max())
+
+
+def phase_k5(dev) -> dict:
+    """K5 at each path's count of tiles (train 12, serve 32, large 128, on
+    each path's own factor) and at K5_FAR_COUNT synthetic tiles, at every
+    split of K5_SPLITS against its plain version, with device times of each
+    split, of the wrapper, of the plain version and of ``solve_triangular``;
+    then K5 on ill-conditioned tiles against f64.  Returns {count: ms by
+    split}."""
+    gp, x, _, _, ts, tn, _ = problem(torch.float32, dev)
+    stacks = {
+        "train": diag_tiles(cb.fused_cholesky_invs(train_cov(N_TRAIN, dev))[0]),
+        "serve": diag_tiles(cb.blocked_cholesky_invs(core.masked_cov(gp, ts, tn, x, None), BLOCK)[0]),
+        "large": diag_tiles(cb.blocked_cholesky_invs(large_cov(N_LARGE, dev), BLOCK)[0]),
+        f"count={K5_FAR_COUNT}": diag_tiles(synthetic_factor(K5_FAR_COUNT * BLOCK, dev)[0]),
+    }
+    eye = torch.eye(BLOCK, device=dev)
+    times = {}
+    for label, tiles in stacks.items():
+        want = cb.tril_inv_tile_plain(tiles)
+        errs = {split: max_err(k5_split(tiles, split), want)[1] for split in K5_SPLITS}
+        ms = {split: event_ms(lambda split=split: k5_split(tiles, split), 20) for split in K5_SPLITS}
+        times[tiles.shape[0]] = ms
+        emit({"phase": "k5", "path": label, "count": tiles.shape[0], "max_rel_err": errs, "bound_rel": KERNEL_RTOL,
+              "split_ms": ms, "fastest_split": min(ms, key=ms.get),
+              "wrapper_ms": event_ms(lambda: cb.tril_inv_tile(tiles), 20),
+              "plain_ms": event_ms(lambda: cb.tril_inv_tile_plain(tiles), 20),
+              "library_ms": event_ms(lambda: torch.linalg.solve_triangular(tiles, eye, upper=False), 20),
+              "bound_ms": bound("tril_inv_tile", tiles.shape)[0]})
+        bad = {split: err for split, err in errs.items() if not err <= KERNEL_RTOL}
+        if bad:
+            raise AssertionError(f"K5 at {label} disagrees with its plain version: {bad}")
+    tiles = ill_conditioned_tiles(16, dev)
+    want = cb.tril_inv_tile_plain(tiles.double())
+    errs = {split: col_rel_err(k5_split(tiles, split), want) for split in K5_SPLITS}
+    emit({"phase": "k5", "path": "ill-conditioned", "count": tiles.shape[0],
+          "diagonal": [float(tiles.diagonal(dim1=1, dim2=2).min()), float(tiles.diagonal(dim1=1, dim2=2).max())],
+          "col_rel_err_vs_f64": errs, "plain_f32_col_rel_err_vs_f64": col_rel_err(cb.tril_inv_tile_plain(tiles), want),
+          "wrapper_col_rel_err_vs_f64": col_rel_err(cb.tril_inv_tile(tiles), want), "bound": K5_ILL_RTOL})
+    bad = {split: err for split, err in errs.items() if not err <= K5_ILL_RTOL}
+    if bad:
+        raise AssertionError(f"K5 on ill-conditioned tiles disagrees with f64: {bad}")
+    emit({"phase": "gates", "gate": "K5 split (tril_inv_tile.cu)", "ms_by_split": times,
+          "fastest": {count: min(ms, key=ms.get) for count, ms in times.items()}})
+    return times
 
 
 def phase_slice(dev) -> tuple[dict, tuple]:
@@ -722,8 +825,9 @@ TRAIN_KERNELS = ("fused_cholesky_invs", *solve_keys(N_TRAIN), "tril_inv_tile")
 LARGE_KERNELS = ("chol_inv_tile", *solve_keys(N_LARGE), "tril_inv_tile")
 # The bayes path's: K7, once per value-and-gradient of the chain batch.
 BAYES_KERNELS = ("fused_gp_linv",)
-# K6 is on no path, and neither is the solver the gate leaves no size to (K4
-# as measured): their entries count their launches in the kernels phase.
+# K6 is on no path, and neither is the solver the gate leaves no path's size
+# to (K3 as measured, K4 from n = 1024 on): their entries count their
+# launches in the kernels phase.
 OFF_PATH_SOLVES = tuple(k for k in ("trsv_lower", "trsv_lower_t", "trsv2d_lower", "trsv2d_lower_t")
                         if k not in (*SERVE_KERNELS, *TRAIN_KERNELS, *LARGE_KERNELS))
 PATH_KERNELS = {"serve": SERVE_KERNELS, "train": TRAIN_KERNELS, "large": LARGE_KERNELS, "bayes": BAYES_KERNELS,
@@ -1206,57 +1310,146 @@ TILE_STAGES = ("start", "load", "diagonal factor (warp 0)", "diagonal step", "di
                "panel", "panel write", "update", "last inverse rows", "store")
 
 
-def phase_stamps(dev, launches: int = 20) -> None:
-    """The tile body's stages on the serving path's first tile: K2 built
-    apart with -DGOGP_TILE_STAMPS (thread 0 records clock64() as it passes
-    each stage), ``launches`` launches, the median cycles from each stamp to
-    the next, labelled by the stage that ends there and its panel, with the
-    whole launch's cycles and the stamped and normal K2's device times.  In
-    no whole run; the normal build records nothing."""
-    import ctypes
+# K5's stages under the same stamps (tril_inv_tile.cu), each with its block
+# row as the panel.
+K5_STAGES = ("start", "load, block row 0 in place", "-", "solve (warp 0)", "-", "products", "-",
+             "right-hand sides", "rest of the solves, last block row stored, next block row in place", "store")
 
-    lib_path = _build.build(defines=("GOGP_TILE_STAMPS",), sources=("chol_inv_tile.cu",))
-    lib = ctypes.CDLL(str(lib_path))
-    lib.gogp_chol_inv_tile.argtypes = _build.SIGNATURES["gogp_chol_inv_tile"]
-    lib.gogp_chol_inv_tile_stamps.argtypes = _build.SIGNATURES["gogp_chol_inv_tile_stamps"]
-    gp, x, _, _, ts, tn, _ = problem(torch.float32, dev)
-    tile = core.masked_cov(gp, ts, tn, x, None)[:BLOCK, :BLOCK].contiguous()
-    L, V = torch.empty_like(tile), torch.empty_like(tile)
-    buf = torch.zeros(2 * 64, dtype=torch.int64, device=dev)
-    count = torch.zeros(1, dtype=torch.int32, device=dev)
 
-    def stamped():
-        stream = torch.cuda.current_stream().cuda_stream
-        _build.check(lib.gogp_chol_inv_tile(tile.data_ptr(), BLOCK, L.data_ptr(), BLOCK, V.data_ptr(), BLOCK,
-                                            BLOCK, stream), "stamped K2")
-
+def stage_cycles(stamped, read_stamps, labels, launches: int) -> dict:
+    """Runs ``stamped`` ``launches`` times, reading the (stage * 8 + panel,
+    clock64()) pairs with ``read_stamps(buf, count)`` after each: the median
+    cycles from each stamp to the next, labelled by the stage that ends
+    there (``labels``) and its panel, their sums by stage, and the whole
+    launch's cycles."""
+    buf = torch.zeros(2 * 64, dtype=torch.int64, device="cuda")
+    count = torch.zeros(1, dtype=torch.int32, device="cuda")
     runs = []
     for _ in range(launches):
         stamped()
-        _build.check(lib.gogp_chol_inv_tile_stamps(buf.data_ptr(), count.data_ptr(),
-                                                   torch.cuda.current_stream().cuda_stream), "K2 stamps")
+        read_stamps(buf, count)
         pairs = buf[: 2 * int(count)].view(-1, 2).tolist()
-        runs.append([(f"{TILE_STAGES[code // 8]}/{code % 8}", clock) for code, clock in pairs])
-    labels = [label for label, _ in runs[0]]
-    if any([label for label, _ in run] != labels for run in runs):
-        raise AssertionError("the stamped tile body passed different stages in different launches")
-    deltas = {labels[i]: statistics.median(run[i][1] - run[i - 1][1] for run in runs) for i in range(1, len(labels))}
+        runs.append([(f"{labels[code // 8]}/{code % 8}", clock) for code, clock in pairs])
+    names = [label for label, _ in runs[0]]
+    if any([label for label, _ in run] != names for run in runs):
+        raise AssertionError("a stamped kernel passed different stages in different launches")
+    deltas = {names[i]: statistics.median(run[i][1] - run[i - 1][1] for run in runs) for i in range(1, len(names))}
     by_stage = {}
     for label, cycles in deltas.items():
         stage = label.split("/")[0]
         by_stage[stage] = by_stage.get(stage, 0) + cycles
-    Lp, Vp = cb.cholesky_inv_tile_plain(tile)
-    err = max(max_err(L, Lp)[1], max_err(V, Vp)[1])
+    return {"total_cycles": statistics.median(run[-1][1] - run[0][1] for run in runs),
+            "cycles_by_stage": by_stage, "cycles_to_each_stamp": deltas}
+
+
+def phase_stamps(dev, launches: int = 20) -> None:
+    """The tile kernels' stages on the serving path's first tile: K2 and K5
+    built apart with -DGOGP_TILE_STAMPS (thread 0 records clock64() as it
+    passes each stage), ``launches`` launches each, the median cycles from
+    each stamp to the next (``stage_cycles``), with the stamped and normal
+    kernels' device times; then K4's chain step (``chain_stamps``).  In no
+    whole run; the normal build records nothing."""
+    import ctypes
+
+    lib_path = _build.build(defines=("GOGP_TILE_STAMPS",), sources=("chol_inv_tile.cu", "tril_inv_tile.cu"))
+    lib = ctypes.CDLL(str(lib_path))
+    for name in ("gogp_chol_inv_tile", "gogp_chol_inv_tile_stamps", "gogp_tril_inv_tiles_split",
+                 "gogp_tril_inv_tiles_stamps"):
+        getattr(lib, name).argtypes = _build.SIGNATURES[name]
+    gp, x, _, _, ts, tn, _ = problem(torch.float32, dev)
+    tile = core.masked_cov(gp, ts, tn, x, None)[:BLOCK, :BLOCK].contiguous()
+    L, V, W = torch.empty_like(tile), torch.empty_like(tile), torch.empty_like(tile)
+
+    def stream():
+        return torch.cuda.current_stream().cuda_stream
+
+    def k2_stamped():
+        _build.check(lib.gogp_chol_inv_tile(tile.data_ptr(), BLOCK, L.data_ptr(), BLOCK, V.data_ptr(), BLOCK,
+                                            BLOCK, stream()), "stamped K2")
+
+    def k5_stamped():  # one CTA, whose thread 0 alone stamps
+        _build.check(lib.gogp_tril_inv_tiles_split(L.data_ptr(), W.data_ptr(), 1, BLOCK, 1, stream()), "stamped K5")
+
     mhz = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
                          capture_output=True, text=True, check=True, timeout=60).stdout.split()[0]
-    emit({"phase": "stamps", "tile": list(tile.shape), "launches": launches, "max_rel_err": err,
-          "total_cycles": statistics.median(run[-1][1] - run[0][1] for run in runs),
-          "max_sm_mhz": float(mhz), "stamped_ms": event_ms(stamped, 50),
-          "k2_ms": event_ms(lambda: cb.cholesky_inv_tile(tile), 50),
-          "cycles_by_stage": by_stage, "cycles_to_each_stamp": deltas,
-          "ptxas": ptxas_lines((lib_path.parent / "build.log").read_text().splitlines())})
+    ptxas = ptxas_lines((lib_path.parent / "build.log").read_text().splitlines())
+    k2 = stage_cycles(k2_stamped, lambda buf, count: _build.check(
+        lib.gogp_chol_inv_tile_stamps(buf.data_ptr(), count.data_ptr(), stream()), "K2 stamps"), TILE_STAGES, launches)
+    Lp, Vp = cb.cholesky_inv_tile_plain(tile)
+    err = max(max_err(L, Lp)[1], max_err(V, Vp)[1])
+    emit({"phase": "stamps", "kernel": "K2", "tile": list(tile.shape), "launches": launches, "max_rel_err": err,
+          **k2, "max_sm_mhz": float(mhz), "stamped_ms": event_ms(k2_stamped, 50),
+          "k2_ms": event_ms(lambda: cb.cholesky_inv_tile(tile), 50), "ptxas": ptxas})
     if not err <= KERNEL_RTOL:
         raise AssertionError(f"the stamped tile body disagrees with its plain version ({err:.3e})")
+    k5 = stage_cycles(k5_stamped, lambda buf, count: _build.check(
+        lib.gogp_tril_inv_tiles_stamps(buf.data_ptr(), count.data_ptr(), stream()), "K5 stamps"), K5_STAGES, launches)
+    err = max_err(W, cb.tril_inv_tile_plain(L))[1]
+    emit({"phase": "stamps", "kernel": "K5", "tile": list(tile.shape), "launches": launches, "max_rel_err": err,
+          **k5, "max_sm_mhz": float(mhz), "stamped_ms": event_ms(k5_stamped, 50),
+          "k5_ms": event_ms(lambda: k5_split(L[None], 1), 50)})
+    if not err <= KERNEL_RTOL:
+        raise AssertionError(f"the stamped K5 disagrees with its plain version ({err:.3e})")
+    chain_stamps(dev)
+
+
+# The stages of K4's chain item (trsv2d.cu, ChainStage), each named by what
+# ends at its stamp.
+CHAIN_STAGES = ("start", "partial sums (wait for done, read the slots)", "spin (wait for ready)", "barrier",
+                "product", "reduce (resid -= product) and barrier", "diagonal apply and store", "barrier", "release")
+MAX_STAMP_ROWS = 512
+
+
+def chain_stamps(dev, n: int = N_LARGE, launches: int = 5) -> None:
+    """K4's chain step on a synthetic factor at size n: trsv2d.cu built apart
+    with -DGOGP_TRSV_STAMPS (thread 0 of each chain item records clock64()
+    and %globaltimer as it passes each stage), ``launches`` launches each
+    way.  Over the step rows 8 <= r < nb - 8 and the launches, the median
+    cycles of each stage, the hand-off (release of row r - 1 to ready seen
+    in row r) and the chain step (release to release) in ns, with the
+    stamped and normal K4's device times."""
+    import ctypes
+
+    lib_path = _build.build(defines=("GOGP_TRSV_STAMPS",), sources=("trsv2d.cu",))
+    lib = ctypes.CDLL(str(lib_path))
+    for name in ("gogp_trsv2d_lower", "gogp_trsv2d_lower_t", "gogp_trsv2d_stamps"):
+        getattr(lib, name).argtypes = _build.SIGNATURES[name]
+    L, invs, y = synthetic_factor(n, dev)
+    nb = n // BLOCK
+    buf = torch.zeros(MAX_STAMP_ROWS * len(CHAIN_STAGES) * 2, dtype=torch.int64, device=dev)
+    for direction, entry, plain, wrapper in (
+            ("forward", lib.gogp_trsv2d_lower, cb.trsv_lower_plain, cb.trsv2d_lower),
+            ("transpose", lib.gogp_trsv2d_lower_t, cb.trsv_lower_t_plain, cb.trsv2d_lower_t)):
+        x = torch.empty_like(y)
+        counters = torch.empty(1 + 2 * nb, dtype=torch.int32, device=dev)
+        partial = torch.empty(nb * (nb + 1) // 2 * BLOCK, device=dev)
+
+        def stamped():
+            _build.check(entry(L.data_ptr(), y.data_ptr(), invs.data_ptr(), x.data_ptr(), counters.data_ptr(),
+                               partial.data_ptr(), n, BLOCK, torch.cuda.current_stream().cuda_stream), "stamped K4")
+
+        runs = []
+        for _ in range(launches):
+            stamped()
+            _build.check(lib.gogp_trsv2d_stamps(buf.data_ptr(), torch.cuda.current_stream().cuda_stream), "K4 stamps")
+            runs.append(buf.view(MAX_STAMP_ROWS, len(CHAIN_STAGES), 2)[:nb].cpu().numpy())
+        err = max_err(x, plain(L, y))[1]
+        rows = range(8, nb - 8)
+        cycles = {f"{s}. {CHAIN_STAGES[s]}": statistics.median(
+            float(st[r, s, 0] - st[r, s - 1, 0]) for st in runs for r in rows) for s in range(1, len(CHAIN_STAGES))}
+        seen, released = CHAIN_STAGES.index("spin (wait for ready)"), len(CHAIN_STAGES) - 1
+        emit({"phase": "stamps", "kernel": "K4 chain step", "direction": direction, "n": n, "launches": launches,
+              "rows": [rows.start, rows.stop], "max_rel_err": err, "median_cycles_by_stage": cycles,
+              "median_handoff_ns": statistics.median(
+                  float(st[r, seen, 1] - st[r - 1, released, 1]) for st in runs for r in rows),
+              "median_chain_step_ns": statistics.median(
+                  float(st[r, released, 1] - st[r - 1, released, 1]) for st in runs for r in rows),
+              "median_step_cycles_in_item": statistics.median(
+                  float(st[r, released, 0] - st[r, seen, 0]) for st in runs for r in rows),
+              "stamped_ms": event_ms(stamped, 10), "k4_ms": event_ms(lambda: wrapper(L, y, invs, BLOCK), 10),
+              "ptxas": ptxas_lines((lib_path.parent / "build.log").read_text().splitlines())})
+        if not err <= 1e-4:
+            raise AssertionError(f"the stamped K4 ({direction}) disagrees with solve_triangular ({err:.3e})")
 
 
 def _partial_slice(dev) -> None:
@@ -1266,8 +1459,9 @@ def _partial_slice(dev) -> None:
 # What ``--phases`` can name; "k7" is the bayes phase's kernel checks without
 # its sampler runs, "slice" the serving slice with its launch counts, "gate"
 # (in no whole run) K3 against K4 beyond the large path's size, "stamps" (in
-# no whole run) the tile body's stage cycles.
-PARTIAL_PHASES = {"kernels": phase_kernels, "k7": phase_k7, "gate": phase_gate, "slice": _partial_slice,
+# no whole run) the tile body's stage cycles and K4's chain step.
+PARTIAL_PHASES = {"kernels": phase_kernels, "k5": phase_k5, "k7": phase_k7, "gate": phase_gate,
+                  "slice": _partial_slice,
                   "train": phase_train, "large": phase_large, "bayes": phase_bayes, "stamps": phase_stamps}
 
 
@@ -1305,6 +1499,7 @@ def main() -> int:
     cb.reset_launch_counts()
     kernels = measured("kernels", phase_kernels, dev)
     kernels_launches = dict(cb.LAUNCHES)
+    measured("k5", phase_k5, dev)
     serve_launches, slice_args32 = measured("slice", phase_slice, dev)
     measured("launches", phase_launches, serve_launches, slice_args32)
     train = measured("train", phase_train, dev)

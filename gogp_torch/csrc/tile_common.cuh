@@ -1,14 +1,9 @@
 // Device helpers shared by the tile kernels (chol_inv_tile.cu, chol_tile.cu,
-// tril_inv_tile.cu), the whole-matrix factorization (fused_chol.cu), the
-// small-matrix inverses (fused_gp.cu) and the streaming solves (trsv.cu,
-// trsv2d.cu).
-//
-// K5's helpers (inv32_column, inv_row_partial, inv_row_finish) work on tiles
-// in shared memory, row-major, with a padded leading dimension B + 1 (kLd): a
-// warp that reads one COLUMN (32 rows at a fixed column) then hits 32
-// different banks, as does a warp reading a row.  The tile body further down
-// (chol_inv_tile_body) reads only rows and pads them to B + 4 (kTileLd), so
-// that they move as float4.
+// tril_inv_tile.cu), the whole-matrix factorization (fused_chol.cu) and the
+// small-matrix inverses (fused_gp.cu); the streaming solves (trsv.cu,
+// trsv2d.cu) take the constants and warp_sum.  Tiles live in shared memory
+// row-major with rows padded to B + 4 floats (kTileLd), so that they move as
+// float4 and every access reads or writes rows, never a column.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -23,14 +18,6 @@ constexpr int kMaxSharedBytes = 232448;
 // 32.
 constexpr int kTile = 128;
 constexpr unsigned kFullMask = 0xffffffffu;
-
-template <int B>
-constexpr int kLd = B + 1;
-
-// Scratch floats the tile kernels need beside the two tiles: the T blocks of
-// inv_row_partial, and the reciprocal diagonal of L.
-template <int B>
-constexpr int kScratch = (B / 32 - 1) * 32 * 32 + B;
 
 // Stage stamps of the tile body, for measurement only.  Built with
 // -DGOGP_TILE_STAMPS (chip_smoke.py --phases stamps), thread 0 records
@@ -67,87 +54,6 @@ __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(kFullMask, v, off);
   return v;
-}
-
-// Column j of inv(L_cc), L_cc the 32 x 32 lower-triangular block of L at
-// (c, c), written into V's block at (c, c); run by one whole warp, lane l
-// owning row c + l.  dinv[c + i] holds 1 / L[c + i][c + i].  Row by row, a
-// shuffle broadcasts the solved entry and every lane below subtracts its
-// multiple: no barrier, no shared traffic for the solution.  Rows above j
-// stay zero.
-__device__ __forceinline__ void inv32_column(const float* __restrict__ L,
-                                             float* __restrict__ V, int ld, int c,
-                                             int j, const float* __restrict__ dinv) {
-  const int lane = threadIdx.x & 31;
-  const float* row = L + (c + lane) * ld + c;
-  float x = (lane == j) ? 1.0f : 0.0f;
-  for (int i = j; i < 32; ++i) {
-    const float xi = __shfl_sync(kFullMask, x, i) * dinv[c + i];
-    if (lane == i) x = xi;
-    if (lane > i) x = fmaf(-row[i], xi, x);
-  }
-  V[(c + lane) * ld + c + j] = x;
-}
-
-// The blocks of V = inv(L) left of the diagonal in block row p follow from
-// the block rows above it:
-//
-//   T_q  = sum_{k=q}^{p-1} L_pk V_kq,      V_pq = -V_pp T_q     (q < p)
-//
-// inv_row_partial computes the T_q (it needs V's block rows < p, not V_pp);
-// inv_row_finish applies V_pp.  Each covers rows r0, r0 + rstep, ... of the
-// block row; lane l takes column l of every block, so reads of L and of V_pp
-// are warp broadcasts and reads of V_kq and T are consecutive.  The q < p
-// sums run as independent chains.  T holds (B/32 - 1) 32 x 32 blocks.
-template <int B>
-__device__ __forceinline__ void inv_row_partial(const float* __restrict__ L,
-                                                const float* __restrict__ V,
-                                                float* __restrict__ T, int p, int r0,
-                                                int rstep) {
-  constexpr int ld = kLd<B>;
-  constexpr int Q = B / 32 > 1 ? B / 32 - 1 : 1;
-  const int col = threadIdx.x & 31, cp = 32 * p;
-  for (int r = r0; r < 32; r += rstep) {
-    const float* lrow = L + (cp + r) * ld;
-    float acc[Q];
-#pragma unroll
-    for (int q = 0; q < Q; ++q) acc[q] = 0.0f;
-#pragma unroll 4
-    for (int k = 0; k < cp; ++k) {
-      const float lk = lrow[k];
-#pragma unroll
-      for (int q = 0; q < Q; ++q)
-        if (32 * q <= k) acc[q] = fmaf(lk, V[k * ld + 32 * q + col], acc[q]);
-    }
-#pragma unroll
-    for (int q = 0; q < Q; ++q)
-      if (q < p) T[(q * 32 + r) * 32 + col] = acc[q];
-  }
-}
-
-template <int B>
-__device__ __forceinline__ void inv_row_finish(float* __restrict__ V,
-                                               const float* __restrict__ T, int p,
-                                               int r0, int rstep) {
-  constexpr int ld = kLd<B>;
-  constexpr int Q = B / 32 > 1 ? B / 32 - 1 : 1;
-  const int col = threadIdx.x & 31, cp = 32 * p;
-  for (int r = r0; r < 32; r += rstep) {
-    const float* vrow = V + (cp + r) * ld + cp;
-    float acc[Q];
-#pragma unroll
-    for (int q = 0; q < Q; ++q) acc[q] = 0.0f;
-#pragma unroll 8
-    for (int s = 0; s < 32; ++s) {
-      const float v = vrow[s];
-#pragma unroll
-      for (int q = 0; q < Q; ++q)
-        if (q < p) acc[q] = fmaf(v, T[(q * 32 + s) * 32 + col], acc[q]);
-    }
-#pragma unroll
-    for (int q = 0; q < Q; ++q)
-      if (q < p) V[(cp + r) * ld + 32 * q + col] = -acc[q];
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -276,6 +182,55 @@ __device__ __forceinline__ void tile_update(float* M, const float* PT, int ld, i
   }
 }
 
+// Column `lane` of X = inv(L_cc) B, L_cc the 32 x 32 lower-triangular block
+// at (c, c) of the matrix whose rows (ld floats each, 16-byte aligned) start
+// at M, by one warp: lane j forms x_i = (b_ij - sum_{k<i} L[i][k] x_k) /
+// L[i][i] for every i, 8 rows at a time: the 8 rows' sums over the entries
+// solved before them run as independent chains, then an 8 x 8 forward
+// substitution; rows of L are read as float4 broadcasts.  B is the identity
+// (kIdentity: X = inv(L_cc), 0 above the diagonal) or the lane's column b_i
+// = x[i] on entry.  dinv[c + i] holds 1 / L[c + i][c + i] (16-byte aligned).
+template <int ld, bool kIdentity = true>
+__device__ __forceinline__ void diag_solve_column(const float* M, const float* dinv, int c, float (&x)[32]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int i0 = 0; i0 < 32; i0 += 8) {
+    // rows i0 .. i0 + 7: the right-hand side less the rows' products with
+    // the solved entries above (8 independent sums), then an 8 x 8 forward
+    // substitution, column by column
+    const float4 d0 = ld4(dinv + c + i0), d1 = ld4(dinv + c + i0 + 4);
+    const float dv[8] = {d0.x, d0.y, d0.z, d0.w, d1.x, d1.y, d1.z, d1.w};
+    float sum[8];
+#pragma unroll
+    for (int t = 0; t < 8; ++t) {
+      const float* li = M + (c + i0 + t) * ld + c;
+      float acc = kIdentity ? (i0 + t == lane ? 1.0f : 0.0f) : x[i0 + t];
+#pragma unroll
+      for (int q = 0; 4 * q < i0; ++q) {
+        const float4 l4 = ld4(li + 4 * q);
+        acc = fmaf(-l4.x, x[4 * q], acc);
+        acc = fmaf(-l4.y, x[4 * q + 1], acc);
+        acc = fmaf(-l4.z, x[4 * q + 2], acc);
+        acc = fmaf(-l4.w, x[4 * q + 3], acc);
+      }
+      sum[t] = acc;
+    }
+    float l8[8][8];
+#pragma unroll
+    for (int t = 1; t < 8; ++t) {
+      const float4 v0 = ld4(M + (c + i0 + t) * ld + c + i0), v1 = ld4(M + (c + i0 + t) * ld + c + i0 + 4);
+      l8[t][0] = v0.x, l8[t][1] = v0.y, l8[t][2] = v0.z, l8[t][3] = v0.w;
+      l8[t][4] = v1.x, l8[t][5] = v1.y, l8[t][6] = v1.z, l8[t][7] = v1.w;
+    }
+#pragma unroll
+    for (int t = 0; t < 8; ++t) {
+      x[i0 + t] = sum[t] * dv[t];
+#pragma unroll
+      for (int u = t + 1; u < 8; ++u) sum[u] = fmaf(-l8[u][t], x[i0 + t], sum[u]);
+    }
+  }
+}
+
 // Diagonal block p (columns c = 32 p ...) of the body, by one warp.
 //
 // Cholesky: lane l holds row c + l in registers, and the 32 columns go 8 at a
@@ -292,11 +247,9 @@ __device__ __forceinline__ void tile_update(float* M, const float* PT, int ld, i
 // after it.  Entries above the diagonal are never read, and the ones this
 // leaves in the registers and in M are not L's.
 //
-// Inverse: lane j forms column j of inv(L_cc), x_i = (delta_ij - sum_{k<i}
-// L[i][k] x_k) / L[i][i], 8 rows at a time: the 8 rows' sums over the
-// entries solved before them run as independent chains, then an 8 x 8
-// forward substitution; rows of L are read as float4 broadcasts.  It writes L's rows into M, the
-// column into V (kInverse) and into DT as row j, and 1 / L[i][i] into dinv.
+// Inverse: lane j forms column j of inv(L_cc) (diag_solve_column).  It
+// writes L's rows into M, the column into V (kInverse) and into DT as row j,
+// and 1 / L[i][i] into dinv.
 template <int B, bool kInverse>
 __device__ __forceinline__ void tile_diag(float* smem, int p) {
   constexpr int ld = kTileLd<B>;
@@ -387,42 +340,7 @@ __device__ __forceinline__ void tile_diag(float* smem, int p) {
   __syncwarp();
 
   float x[32];
-#pragma unroll
-  for (int i0 = 0; i0 < 32; i0 += 8) {
-    // rows i0 .. i0 + 7: the right-hand side less the rows' products with
-    // the solved entries above (8 independent sums), then an 8 x 8 forward
-    // substitution, column by column
-    const float4 d0 = ld4(smem + kTileDinv<B> + c + i0), d1 = ld4(smem + kTileDinv<B> + c + i0 + 4);
-    const float dinv[8] = {d0.x, d0.y, d0.z, d0.w, d1.x, d1.y, d1.z, d1.w};
-    float sum[8];
-#pragma unroll
-    for (int t = 0; t < 8; ++t) {
-      const float* li = smem + (c + i0 + t) * ld + c;
-      float acc = i0 + t == lane ? 1.0f : 0.0f;
-#pragma unroll
-      for (int q = 0; 4 * q < i0; ++q) {
-        const float4 l4 = ld4(li + 4 * q);
-        acc = fmaf(-l4.x, x[4 * q], acc);
-        acc = fmaf(-l4.y, x[4 * q + 1], acc);
-        acc = fmaf(-l4.z, x[4 * q + 2], acc);
-        acc = fmaf(-l4.w, x[4 * q + 3], acc);
-      }
-      sum[t] = acc;
-    }
-    float l8[8][8];
-#pragma unroll
-    for (int t = 1; t < 8; ++t) {
-      const float4 v0 = ld4(smem + (c + i0 + t) * ld + c + i0), v1 = ld4(smem + (c + i0 + t) * ld + c + i0 + 4);
-      l8[t][0] = v0.x, l8[t][1] = v0.y, l8[t][2] = v0.z, l8[t][3] = v0.w;
-      l8[t][4] = v1.x, l8[t][5] = v1.y, l8[t][6] = v1.z, l8[t][7] = v1.w;
-    }
-#pragma unroll
-    for (int t = 0; t < 8; ++t) {
-      x[i0 + t] = sum[t] * dinv[t];
-#pragma unroll
-      for (int u = t + 1; u < 8; ++u) sum[u] = fmaf(-l8[u][t], x[i0 + t], sum[u]);
-    }
-  }
+  diag_solve_column<ld>(smem, smem + kTileDinv<B>, c, x);
   float* dt = smem + kTileDT<B> + lane * kDiagLd;
 #pragma unroll
   for (int q = 0; q < 8; ++q) st4(dt + 4 * q, make_float4(x[4 * q], x[4 * q + 1], x[4 * q + 2], x[4 * q + 3]));

@@ -43,10 +43,13 @@ SIGNATURES = {
     "gogp_chol_inv_tile": [_P, _I, _P, _I, _P, _I, _I, _P],
     "gogp_chol_inv_tile_stamps": [_P, _P, _P],  # a GOGP_TILE_STAMPS build's only
     "gogp_tril_inv_tiles": [_P, _P, _I, _I, _P],
+    "gogp_tril_inv_tiles_split": [_P, _P, _I, _I, _I, _P],  # K5 at a given split, for measurement
+    "gogp_tril_inv_tiles_stamps": [_P, _P, _P],  # a GOGP_TILE_STAMPS build's only
     "gogp_trsv_lower": [_P, _P, _P, _P, _P, _I, _I, _P],
     "gogp_trsv_lower_t": [_P, _P, _P, _P, _P, _I, _I, _P],
     "gogp_trsv2d_lower": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
     "gogp_trsv2d_lower_t": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
+    "gogp_trsv2d_stamps": [_P, _P],  # a GOGP_TRSV_STAMPS build's only
     "gogp_chol_tile": [_P, _I, _P, _I, _I, _P],
     "gogp_fused_gp_linv": [_P, _P, _I, _I, _P],
 }
@@ -81,7 +84,8 @@ def build(defines: tuple[str, ...] = (), sources: tuple[str, ...] | None = None)
     its path.  ``build.log`` beside it keeps nvcc's output.  ``defines`` adds
     ``-D`` flags and ``sources`` (file names in ``csrc/``) builds a subset:
     for measurement builds such as the tile body's stage stamps
-    (``GOGP_TILE_STAMPS``), which :func:`library` never loads."""
+    (``GOGP_TILE_STAMPS``) or K4's chain stamps (``GOGP_TRSV_STAMPS``),
+    which :func:`library` never loads."""
     flags = (*NVCC_FLAGS, *(f"-D{d}" for d in defines))
     srcs = _sources() if sources is None else [_CSRC / s for s in sources]
     out_dir = _BUILD_ROOT / _digest(flags, srcs)

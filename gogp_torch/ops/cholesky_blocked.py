@@ -27,8 +27,9 @@ matrix with n <= ``_FUSED_MAX_N`` unless :func:`no_fused_whole` is set, the
 stepwise driver (K2 per diagonal tile, cuBLAS panels and trailing updates)
 otherwise.  ``lml_core`` solves with K3 below ``_TRSV2D_MIN_N`` and with K4
 from there on (:func:`trsv_solvers`); as measured on the H100 the gate is
-infinite, so every size takes K3 and K4, like K6, is on no path.  No path
-calls K6, as no path of the JAX package calls ``pallas_cholesky_tile``.
+1024, the smallest n the front door sends to the blocked path, so every path
+solves with K4 and K3 is on none.  No path calls K6, as no path of the JAX
+package calls ``pallas_cholesky_tile``.
 
 Gradients: the kernels write through raw pointers, which autograd neither
 records nor sees, so the raw kernel wrappers run inside :class:`_ForwardOnly`,
@@ -418,14 +419,15 @@ def _check_trsv(what: str, L: Tensor, y: Tensor, invs: Tensor, block: int) -> No
 # hand-written kernels that take any n the tile divides.  The JAX package's
 # gate (8192, cholesky_pallas.py:1447-1448, 1504-1510) is a VMEM limit with no
 # counterpart here, so this one is the crossing measured on an NVIDIA H100
-# 80GB HBM3 (700 W) by chip_smoke.py, and there is none: forward / transpose,
-# K3 against K4, in ms, at n = 1024 0.025 / 0.019 against 0.036 / 0.030, at
-# 4096 0.088 / 0.065 against 0.148 / 0.124, at 16384 0.357 / 0.285 against
-# 0.808 / 0.721, and on synthetic factors at 65536 3.07 / 3.01 against 6.69 /
-# 6.32 (PERF.md has every size).  K3's one hand-off per block row beats K4's
-# two at every n, so every size takes K3; K4 stays built, tested and timed
-# beside it.
-_TRSV2D_MIN_N = float("inf")
+# 80GB HBM3 (700 W) by chip_smoke.py.  K4's persistent grid, with a shorter
+# chain step than K3's, beat K3 at every n measured, from 1024 (the smallest
+# the front door sends to the blocked path) to 65536: forward / transpose,
+# K4 against K3, in ms, at n = 1024 0.0191 / 0.0183 against 0.0254 /
+# 0.0195, at 4096 0.0612 / 0.0601 against 0.0878 / 0.0647, at 16384 0.2760 /
+# 0.2649 against 0.3533 / 0.2756, and on synthetic factors at 65536 2.87 /
+# 2.92 against 3.08 / 3.02 (PERF.md has more sizes).  Below 1024 nothing was
+# measured, and K3 stays.
+_TRSV2D_MIN_N = 1024
 
 
 def trsv_solvers(n: int, block: int):
@@ -480,10 +482,11 @@ def _trsv2d_cuda(what: str, entry: str, L: Tensor, y: Tensor, invs: Tensor, bloc
 
 
 def trsv2d_lower(L: Tensor, y: Tensor, invs: Tensor, block: int) -> Tensor:
-    """z = L^{-1} y over the triangular grid of (block, block) tiles, one CTA
-    per tile on many SMs, diagonal tiles applied through ``invs`` (K4).
-    Reads only the strictly lower block triangle of L; any n that the tile
-    (128) divides."""
+    """z = L^{-1} y over the triangular grid of (block, block) tiles by a
+    persistent grid of one CTA per SM: each block row's tiles but the last
+    summed off the chain in segments, the last one and ``invs``' diagonal
+    tile applied on it (K4).  Reads only the strictly lower block triangle
+    of L; any n that the tile (128) divides."""
     if not _is_cuda(L, y, invs):
         return trsv2d_lower_plain(L, y)
     return _ForwardOnly.apply("trsv2d_lower", _trsv2d_cuda, "trsv2d_lower", "gogp_trsv2d_lower",

@@ -69,6 +69,75 @@ def test_tile_invs_stack_matches_pallas():
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
 
 
+def tril_inv_blocked(L, block=32):
+    """K5's algorithm (gogp_torch/csrc/tril_inv_tile.cu) in plain PyTorch, for
+    these tests only: blocked forward substitution, block row by block row,
+    V_pq = inv(L_pp) (delta_pq I - sum_{k=q}^{p-1} L_pk V_kq), the sum taken
+    product by product in k order, each solve row by row with reciprocal
+    pivots, x_i = (rhs_i - L[i, :i] x[:i]) * (1 / L_ii)."""
+    nb = L.shape[-1] // block
+    V = torch.zeros_like(L)
+    eye = torch.eye(block, dtype=L.dtype)
+
+    def blk(i):
+        return slice(i * block, (i + 1) * block)
+
+    for p in range(nb):
+        Lpp = L[blk(p), blk(p)]
+        dinv = 1 / torch.diagonal(Lpp)
+        for q in range(p + 1):
+            rhs = eye if q == p else -sum(L[blk(p), blk(k)] @ V[blk(k), blk(q)] for k in range(q, p))
+            X = torch.zeros_like(rhs)
+            for i in range(block):
+                X[i] = (rhs[i] - Lpp[i, :i] @ X[:i]) * dinv[i]
+            V[blk(p), blk(q)] = X
+    return V
+
+
+def gp_tile(b=128, ell=0.05, jitter=1e-7):
+    """An ill-conditioned factor tile: the Cholesky factor of an rbf
+    covariance on b points of [0, 1] (length scale ell) plus jitter; its
+    diagonal runs from 1 down to 2.2e-3."""
+    x = np.linspace(0, 1, b)
+    return np.linalg.cholesky(np.exp(-0.5 * (x[:, None] - x[None]) ** 2 / ell**2) + jitter * np.eye(b))
+
+
+def col_rel(got, want):
+    """The largest error in a column over that column's largest entry."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float((np.abs(got - want).max(0) / np.abs(want).max(0)).max())
+
+
+# K5's rendering against the exact inverse of the same rounded tile (f64),
+# column by column, about 10 times what it showed on the CPU: f64 1.4e-16
+# (random tile) and 3.8e-13 (GP tile), f32 5.8e-8 and 1.3e-4.  Forward
+# substitution (the plain version, the Pallas kernel) showed 4e-17-7.5e-8
+# and 3.5e-13-8.3e-5; the product-of-inverses recursion 4e-3 to 3e-2 on GP
+# tiles in f32 (PERF.md).
+K5_COL_RTOL = {("f64", "random"): 2e-15, ("f64", "gp"): 4e-12, ("f32", "random"): 6e-7, ("f32", "gp"): 1.3e-3}
+
+
+@pytest.mark.parametrize("tile", ["random", "gp"])
+@pytest.mark.parametrize("dtype", ["f32", "f64"])
+def test_tril_inv_blocked_rendering_matches_pallas_and_plain(dtype, tile):
+    """The blocked forward substitution K5 runs on the card, rendered in plain
+    PyTorch at the kernel's tile (b = 128, 32-blocks), on a random factor
+    tile and on an ill-conditioned GP tile (gp_tile), in f32 and f64: within
+    K5_COL_RTOL of the exact inverse, as the Pallas kernel in interpret mode
+    and tril_inv_tile_plain are."""
+    np_dtype = np.float32 if dtype == "f32" else np.float64
+    L = (np.linalg.cholesky(spd(128, seed=6)) if tile == "random" else gp_tile()).astype(np_dtype)
+    exact = np.linalg.inv(L.astype(np.float64))
+    with cp.force_interpret():
+        pallas = np.asarray(cp.pallas_tril_inv_tile(jnp.asarray(L)))
+    got = tril_inv_blocked(T(L)).numpy()
+    bound = K5_COL_RTOL[dtype, tile]
+    assert got.dtype == np_dtype
+    assert col_rel(got, exact) <= bound
+    assert col_rel(pallas, exact) <= bound
+    assert col_rel(cb.tril_inv_tile_plain(T(L)).numpy(), exact) <= bound
+
+
 @pytest.fixture(scope="module")
 def factor256():
     """(K, y, L, invs) at n = 256, b = 64 from the JAX stepwise driver."""
@@ -178,11 +247,11 @@ def test_eligible_block_rules():
 def test_trsv_fits_is_k3_shared_memory_limit():
     """K3 used to hold the solution in one block's shared memory and refuse
     n > 53888 (``trsv_fits``).  It keeps x in global memory now, so the rule
-    is gone: the sizes on either side of the old limit take the same solver,
-    and the binding passes K3 its workspace (the ticket and ready flags) as
-    K4's does."""
+    is gone: the sizes on either side of the old limit take the same solver
+    (K4, past the measured K3/K4 gate), and the binding passes K3 its
+    workspace (the ticket and ready flags) as K4's does."""
     assert not hasattr(cb, "trsv_fits")
-    assert cb.trsv_solvers(53888, 128) == cb.trsv_solvers(54016, 128) == (cb.trsv_lower, cb.trsv_lower_t)
+    assert cb.trsv_solvers(53888, 128) == cb.trsv_solvers(54016, 128) == (cb.trsv2d_lower, cb.trsv2d_lower_t)
     for entry in ("gogp_trsv_lower", "gogp_trsv_lower_t"):
         # L, y, invs, x, counters, n, b, stream
         assert len(_build.SIGNATURES[entry]) == 8
@@ -191,8 +260,8 @@ def test_trsv_fits_is_k3_shared_memory_limit():
 
 def test_lml_core_beyond_k3_limit_takes_torch_linalg(monkeypatch, factor256):
     """The front door's lml_core stays on the blocked path on either side of
-    the K3/K4 gate: K3 below it (every size, as the gate stands), K4 from a
-    lowered gate on, with the same value."""
+    the K3/K4 gate: K3 below it (n = 256 under the measured gate of 1024), K4
+    from a lowered gate on, with the same value."""
     K, y, _, _ = factor256
     taken = []
 

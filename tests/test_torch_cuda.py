@@ -21,7 +21,7 @@ from gogp_torch import GP, rbf, uniform_noise
 from gogp_torch.gp import core
 from gogp_torch.models import params
 from gogp_torch.ops import cholesky_blocked as cb
-from gogp_torch.ops import fused_gp, linalg
+from gogp_torch.ops import _build, fused_gp, linalg
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 B = cb.DEFAULT_BLOCK  # the one tile size K2 and K5 are built for
@@ -141,6 +141,74 @@ def test_tril_inv_tile_stack(cuda):
     torch.testing.assert_close(cb.tril_inv_tile(tiles[1].contiguous()), cb.tril_inv_tile_plain(tiles[1]), **TOL)
 
 
+def _tril_tiles(count, device, seed=0):
+    """count Cholesky factors of (b, b) SPD matrices A A^T + b I, f32."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    a = torch.randn((count, B, B), generator=g, device=device)
+    return torch.linalg.cholesky(a @ a.mT + B * torch.eye(B, device=device)).contiguous()
+
+
+def _k5_split(tiles, split):
+    out = torch.empty_like(tiles)
+    _build.check(_build.library().gogp_tril_inv_tiles_split(
+        tiles.data_ptr(), out.data_ptr(), tiles.shape[0], B, split, torch.cuda.current_stream().cuda_stream), "K5")
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("count", [1, 12, 32, 128, 200])
+def test_tril_inv_tile_counts_and_splits(cuda, count):
+    """K5 at each path's count of tiles, at 1 and past the card's 132 SMs,
+    through the wrapper (one launch) and at each split of a tile over CTAs,
+    within 1e-5 of the largest entry of its plain version (f32 on both
+    sides; the card showed at most 7e-7)."""
+    tiles = _tril_tiles(count, cuda, seed=count)
+    want = cb.tril_inv_tile_plain(tiles)
+    before = cb.LAUNCHES["tril_inv_tile"]
+    got = cb.tril_inv_tile(tiles)
+    assert cb.LAUNCHES["tril_inv_tile"] == before + 1
+    assert _rel(got, want) <= 1e-5
+    for split in (1, 2, 4):
+        assert _rel(_k5_split(tiles, split), want) <= 1e-5, split
+
+
+def _ill_conditioned_tiles(count, device):
+    """chip_smoke.ill_conditioned_tiles: Cholesky factors of rbf covariances
+    on b points of [0, 1] plus jitter 1e-7, length scales 0.05 to 1; their
+    diagonals run from 1 down to 4e-4-2e-3."""
+    x = np.linspace(0, 1, B)
+    tiles = [np.linalg.cholesky(np.exp(-0.5 * (x[:, None] - x[None]) ** 2 / ell**2) + 1e-7 * np.eye(B))
+             for ell in np.logspace(np.log10(0.05), 0, count)]
+    return torch.as_tensor(np.stack(tiles), dtype=torch.float32, device=device)
+
+
+@pytest.mark.cuda
+def test_tril_inv_tile_ill_conditioned_against_f64(cuda):
+    """K5 on ill-conditioned tiles against the f64 inverse of the same f32
+    tiles, column by column (a column's largest error over its largest
+    entry): within 3e-3 (K5_ILL_RTOL in chip_smoke.py), 10 times what an
+    H100 showed; forward substitution loses 2.7e-4 there."""
+    tiles = _ill_conditioned_tiles(16, cuda)
+    got, want = cb.tril_inv_tile(tiles).double(), cb.tril_inv_tile_plain(tiles.double())
+    col = ((got - want).abs().amax(dim=-2) / want.abs().amax(dim=-2)).max()
+    assert float(col) <= 3e-3
+
+
+@pytest.mark.cuda
+def test_tril_inv_tile_nan_and_same_bits(cuda):
+    """A NaN in a tile gives NaN in its inverse and leaves the other tiles
+    alone; two launches give the same bits."""
+    tiles = _tril_tiles(32, cuda, seed=5)
+    first = cb.tril_inv_tile(tiles)
+    assert torch.equal(cb.tril_inv_tile(tiles), first)
+    bad = tiles.clone()
+    bad[3, 100, 20] = float("nan")
+    out = cb.tril_inv_tile(bad)
+    assert torch.isnan(out[3]).any()
+    others = [t for t in range(32) if t != 3]
+    assert torch.equal(out[others], first[others])
+
+
 def _factor(n, device, seed=0):
     """The stepwise factorization's factor and tile inverses of an SPD matrix,
     and a right-hand side."""
@@ -215,9 +283,9 @@ def test_trsv_raises_on_bad_input(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [1024, 8192, 8320])
+@pytest.mark.parametrize("n", [256, 1024, 4096, 8192, 8320])
 def test_trsv2d_both_directions(cuda, n):
-    """K4 on the stepwise driver's factor, at a power of two and at n = 8320
+    """K4 on the stepwise driver's factor, at powers of two and at n = 8320
     (65 tiles), against its plain version: one launch each way."""
     with cb.no_fused_whole():
         L, invs = cb.blocked_cholesky_invs(_spd(n, cuda), B)
@@ -232,6 +300,45 @@ def test_trsv2d_both_directions(cuda, n):
     # the sums run in a fixed order: the same inputs give the same bits
     assert torch.equal(cb.trsv2d_lower(L, y, invs, B), z)
     assert torch.equal(cb.trsv2d_lower_t(L, y, invs, B), x)
+
+
+def _synthetic_factor(n, device):
+    """chip_smoke.synthetic_factor: unit-scale diagonal in [1, 2), entries
+    below it 0.5 N(0, 1) / sqrt(n), its tile inverses and a right-hand side."""
+    g = torch.Generator(device=device).manual_seed(n)
+    L = torch.randn((n, n), generator=g, device=device).mul_(0.5 / np.sqrt(n)).tril_()
+    L.diagonal().copy_(1.0 + torch.rand(n, generator=g, device=device))
+    tiles = L.view(n // B, B, n // B, B).diagonal(dim1=0, dim2=2).permute(2, 0, 1).contiguous()
+    return L, cb.tril_inv_tile(tiles), torch.randn(n, generator=g, device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [16384, 133 * B])
+def test_trsv2d_large_and_uneven(cuda, n):
+    """K4 and K3 at the large path's n and at 133 block rows (more than the
+    132 SMs that the persistent grid has CTAs, and a work list that does not
+    divide among them), on a synthetic factor, against the f64 solve within
+    1e-5 of its largest entry; two launches give the same bits."""
+    L, invs, y = _synthetic_factor(n, cuda)
+    want_z = cb.trsv_lower_plain(L.double(), y.double())
+    want_x = cb.trsv_lower_t_plain(L.double(), y.double())
+    for fwd, bwd in ((cb.trsv2d_lower, cb.trsv2d_lower_t), (cb.trsv_lower, cb.trsv_lower_t)):
+        z, x = fwd(L, y, invs, B), bwd(L, y, invs, B)
+        assert _rel(z, want_z) <= 1e-5 and _rel(x, want_x) <= 1e-5, fwd.__name__
+        assert torch.equal(fwd(L, y, invs, B), z) and torch.equal(bwd(L, y, invs, B), x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1024, 4096])
+def test_trsv2d_back_to_back_launches_give_the_same_bits(cuda, n):
+    """200 launches each way queued on one stream without a synchronize: the
+    counters are zeroed per launch, on the stream, so no launch sees
+    another's."""
+    L, invs, y = _factor(n, cuda, seed=3)
+    for solve in (cb.trsv2d_lower, cb.trsv2d_lower_t):
+        outs = [solve(L, y, invs, B) for _ in range(200)]
+        torch.cuda.synchronize()
+        assert all(torch.equal(o, outs[0]) for o in outs[1:])
 
 
 @pytest.mark.cuda
@@ -279,11 +386,11 @@ def test_cholesky_tile(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("gate,solver", [(None, "trsv_lower"), (8192, "trsv2d_lower")])
+@pytest.mark.parametrize("gate,solver", [(16384, "trsv_lower"), (None, "trsv2d_lower")])
 def test_lml_core_at_8192_on_either_side_of_the_gate(cuda, monkeypatch, gate, solver):
-    """At n = 8192 the front door's lml_core solves with K3 both ways as the
-    measured gate stands, and with K4 both ways (no K3) with the gate at the
-    JAX package's 8192; either way its value and gradient agree with autograd
+    """At n = 8192 the front door's lml_core solves with K4 both ways (no K3)
+    as the measured gate (1024) stands, and with K3 both ways with the gate
+    raised above 8192; either way its value and gradient agree with autograd
     of the plain path in f64.  At "tensorfloat32" the rescue is engaged, and
     the result is finite and within 1e-2 (TF32 keeps about three decimal
     digits)."""
@@ -420,7 +527,7 @@ def test_slice_kernel_path_matches_f64_plain_path(cuda):
     # n = 1024: K1 factors (not K2), and no call asks for a gradient (no
     # transpose solve)
     launched = {k for k, n in cb.LAUNCHES.items() if n >= 1}
-    assert launched == {"fused_cholesky_invs", "trsv_lower", "tril_inv_tile"}, cb.LAUNCHES
+    assert launched == {"fused_cholesky_invs", "trsv2d_lower", "tril_inv_tile"}, cb.LAUNCHES
     with linalg.force_plain():
         want = run(torch.float64)
     for g, w in zip(got[:2], want[:2]):
@@ -431,14 +538,15 @@ def test_slice_kernel_path_matches_f64_plain_path(cuda):
 
 @pytest.mark.cuda
 def test_lml_core_backward_matches_plain_autograd(cuda):
-    """The GPML-5.9 backward on the kernel path (K1, K3 both ways) against
-    autograd of torch.linalg in f64."""
+    """The GPML-5.9 backward on the kernel path (K1, and K4 both ways, as the
+    measured K3/K4 gate gives n = 1024) against autograd of torch.linalg in
+    f64."""
     K64 = _spd(1024, cuda, dtype=torch.float64)
     y64 = torch.sin(torch.arange(1024, dtype=torch.float64, device=cuda) / 30.0)
     K, y = K64.float().requires_grad_(True), y64.float().requires_grad_(True)
     cb.reset_launch_counts()
     linalg.lml_core(K, y).backward()
-    assert cb.LAUNCHES["fused_cholesky_invs"] == 1 and cb.LAUNCHES["trsv_lower_t"] == 1
+    assert cb.LAUNCHES["fused_cholesky_invs"] == 1 and cb.LAUNCHES["trsv2d_lower_t"] == 1
     Kr, yr = K64.clone().requires_grad_(True), y64.clone().requires_grad_(True)
     with linalg.force_plain():
         linalg.lml_core(Kr, yr).backward()
@@ -482,8 +590,9 @@ def test_blocked_path_backward_matches_plain_autograd(cuda, output):
 def test_lml_core_beyond_k3_limit_takes_torch_linalg(cuda):
     """At n = 54016, the first multiple of the tile that K3's shared memory
     could not take while it kept the solution there, the front door's
-    lml_core stays on the blocked path and solves with K3, which keeps x in
-    global memory now (about 12 GB per n x n f32 matrix)."""
+    lml_core stays on the blocked path and solves with K4, past the measured
+    K3/K4 gate; both keep x in global memory (about 12 GB per n x n f32
+    matrix)."""
     n = 54016
     x = torch.linspace(0, 100, n, device=cuda)
     K = x[:, None] - x[None, :]
@@ -492,7 +601,7 @@ def test_lml_core_beyond_k3_limit_takes_torch_linalg(cuda):
     y = torch.sin(x / 3.0)
     cb.reset_launch_counts()
     got = float(linalg.lml_core(K, y))
-    assert cb.LAUNCHES["trsv_lower"] == 1 and cb.LAUNCHES["trsv2d_lower"] == 0, cb.LAUNCHES
+    assert cb.LAUNCHES["trsv2d_lower"] == 1 and cb.LAUNCHES["trsv_lower"] == 0, cb.LAUNCHES
     with linalg.force_plain():
         want = float(linalg.lml_core(K, y))
     assert np.isfinite(got) and abs(got - want) <= 1e-4 * abs(want)

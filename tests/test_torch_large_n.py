@@ -5,7 +5,7 @@
   mode, as tests/test_pallas.py runs them (atol 1e-9 on the solves, 1e-10 on
   the factor).
 - lml_core's rule between K3 and K4 (``cholesky_blocked.trsv_solvers``) and
-  its measured gate.
+  its measured gate (1024: K4 from there on).
 - gp_observe's value and gradient through the K4 route (gate lowered) against
   JAX's gp_observe under ``jax.value_and_grad`` (rtol 1e-9 on the value, 1e-8
   on the gradient).  JAX on the CPU takes its XLA path here, so the
@@ -95,14 +95,17 @@ def test_cholesky_tile_plain_matches_pallas(b):
 
 def test_trsv_solvers_k3_below_8192_k4_from_there(monkeypatch):
     """K3 below _TRSV2D_MIN_N, K4 at and above it.  The constant is the
-    measured crossing on the H100, and there is none: K3 took 0.40-0.70 of
-    K4's time at every n from 1024 to 65536, so the gate is infinite and
-    every size solves with K3.  With the gate at the JAX package's 8192 the
-    rule splits the sizes on either side of it."""
-    assert cb._TRSV2D_MIN_N == float("inf")
+    measured crossing on the H100: K4 beat K3 both ways at every n from
+    1024 (the smallest the front door sends to the blocked path) to 65536,
+    so the gate is 1024 and K3 keeps only the sizes below it.  With the gate
+    at the JAX package's 8192 the rule splits the sizes on either side of
+    it."""
+    assert cb._TRSV2D_MIN_N == 1024
     k3, k4 = (cb.trsv_lower, cb.trsv_lower_t), (cb.trsv2d_lower, cb.trsv2d_lower_t)
-    for n in (1024, 4096, 8064, 8192, 16384, 60000):
+    for n in (256, 512, 896):
         assert cb.trsv_solvers(n, 128) == k3, n
+    for n in (1024, 4096, 8064, 8192, 16384, 60000):
+        assert cb.trsv_solvers(n, 128) == k4, n
     monkeypatch.setattr(cb, "_TRSV2D_MIN_N", 8192)
     for n in (1024, 4096, 8064):
         assert cb.trsv_solvers(n, 128) == k3, n
