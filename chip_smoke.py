@@ -92,8 +92,22 @@ process per source) and then runs these phases, each printing JSON lines:
               under force_plain at 128 + 128 transitions (none of its calls
               may launch K7).
 
+9. evaluate - the reference's main entry point, the rolling forecast
+              (``tutorial.evaluate``): the five studies' selfcheck data,
+              LBFGS 50 iterations (the fixtures' 200 cut, PERF.md), seed 0,
+              batched in f32 on the card's default route (K7 with one mask
+              per prefix for barebones, hyperpriors and events) against
+              float64 on the card; barebones on bench.py's generator at n =
+              128, K7's widest, 127 prefix fits in one (127, 128, 128) K7
+              batch a step, Adam 200 and LBFGS 50 on the K7 route and
+              under force_plain; a sequential run against the batched one;
+              walls, ms per batched value and gradient on both routes,
+              iterations, stalls; K7 once per batched value and gradient
+              (none under force_plain); K7 at 127 x 128 x 128 and 43 x 44 x
+              44 against its plain version.
+
 With ``--phases a,b,...`` (of kernels, k5, k7, gate, stamps, slice, train,
-large, bayes; k7 is the bayes phase's kernel checks without its sampler runs,
+large, bayes, evaluate; k7 is the bayes phase's kernel checks without its sampler runs,
 gate times K3 against K4 at n = 24576 to 65536 and stamps records the stages
 of K2, K5 and K4's chain step, both in no whole run) only those phases
 run, after device and build, and the script ends with ``{"ok": false,
@@ -101,9 +115,10 @@ run, after device and build, and the script ends with ``{"ok": false,
 
 With ``--profile``, one more phase follows:
 
-9. profile  - one serving slice run, one train and one large value-and-gradient
-              step, and one 64-chain value and gradient of the bayes path, on
-              each path under torch.profiler: the device's busy time and idle
+10. profile - one serving slice run, one train and one large value-and-gradient
+              step, one 64-chain value and gradient of the bayes path and one
+              127-prefix value and gradient of the evaluate path, on each
+              path under torch.profiler: the device's busy time and idle
               share over the run, and the kernels with the most device time.
 
 Then the peak device memory of each phase, one JSON line with the per-kernel
@@ -115,6 +130,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import importlib
 import io
 import json
 import statistics
@@ -133,6 +149,7 @@ from gogp_torch.infer import chees, diagnostics
 from gogp_torch.ops import _build, fused_gp, linalg
 from gogp_torch.ops import cholesky_blocked as cb
 from gogp_torch.tutorial import bayes
+from gogp_torch.tutorial import evaluate as tev
 from gogp_torch.tutorial import io as tio
 
 N, M = 4096, 1024
@@ -830,7 +847,12 @@ BAYES_KERNELS = ("fused_gp_linv",)
 # launches in the kernels phase.
 OFF_PATH_SOLVES = tuple(k for k in ("trsv_lower", "trsv_lower_t", "trsv2d_lower", "trsv2d_lower_t")
                         if k not in (*SERVE_KERNELS, *TRAIN_KERNELS, *LARGE_KERNELS))
+# The evaluate path's: K7, once per batched value-and-gradient of the
+# prefix fits, at 127 x 128 x 128 (barebones at EVAL_N) and 43 x 44 x 44
+# (hyperpriors).
+EVALUATE_KERNELS = ("fused_gp_linv",)
 PATH_KERNELS = {"serve": SERVE_KERNELS, "train": TRAIN_KERNELS, "large": LARGE_KERNELS, "bayes": BAYES_KERNELS,
+                "evaluate": EVALUATE_KERNELS, "evaluate_hyperpriors": EVALUATE_KERNELS,
                 "kernels": ("chol_tile", *OFF_PATH_SOLVES)}
 
 
@@ -1262,6 +1284,264 @@ def phase_bayes(dev) -> dict:
     return {"launches": launches, "rows": rows, "logps": (logp, plain_logp)}
 
 
+# The evaluate path: the reference's main entry point (tutorial.evaluate, the
+# rolling forecast) on the five studies' selfcheck data at the configuration
+# of tests/fixtures/forecast_*.csv (lbfgs, seed 0; events with EVAL_EVENTS)
+# but EVAL_ITERS iterations, batched, on the card's default route in f32 (K7
+# for the theta-only studies) against a float64 run on the card (the plain
+# route); then barebones at EVAL_N points of bench.py's generator
+# (bench.py:42-51), the widest series K7 takes: EVAL_N - 1 prefix fits in one
+# (EVAL_N - 1, EVAL_N, EVAL_N) K7 batch per step, Adam EVAL_ADAM_ITERS steps
+# and LBFGS EVAL_ITERS, on the K7 route and under force_plain.
+EVAL_STUDIES = ("barebones", "hyperpriors", "warpedtime", "anynoise", "events")
+EVAL_EVENTS = "1.0:1.0:0.5,4.2:6.7:0.25"
+EVAL_ITERS, EVAL_ADAM_ITERS, EVAL_SEQ_ITERS, EVAL_N = 200, 200, 50, fused_gp.K7_MAX_N
+# Bounds of the evaluate path (rows' relative LML as |a - b| / max(|b|, 1),
+# mu and sigma absolute in the data's units), each about 10 times the largest
+# an H100 showed (PERF.md; written before the first run as 1e-4, 1e-3, 1e-2
+# and 1e-3):
+# - "lml_eval": each row's f32 LML against f64 at the same parameters
+#   (4.1e-4, anynoise);
+# - "forecast": the f32 forecast (mu, sigma) against f64 at the same
+#   parameters (1.6e-5, barebones at EVAL_N);
+# - "lml_gap": how far below the f64 fit's LML the f32 fit ends, both scored
+#   in f64 (3.4e-5, barebones at EVAL_N; f32 cannot reach the threshold
+#   1e-6, below its resolution of the gradient, and most rows stall);
+# - "below_start": how far below its own start the f32 fit ends, both scored
+#   in f64 (a failed LBFGS search takes no step; 0 on the H100, set before
+#   the first run as 4e-3, about the f32 LML's own error);
+# - "sequential": the sequential run against the batched one, Adam
+#   EVAL_SEQ_ITERS steps, f32, LML and parameters (1.5e-6).
+# anynoise's fits part between any two roundings within 15 iterations (its
+# Laplace noise puts a kink at every latent output, where line searches
+# fail; tests/test_torch_evaluate.py), so its fit-to-fit gap is reported,
+# not bounded (3.7e-2 and 1.0e-1 on the H100).
+EVAL_BOUNDS = {"lml_eval": 4e-3, "forecast": 2e-4, "lml_gap": 4e-4, "below_start": 4e-3, "sequential": 1.5e-5}
+EVAL_UNBOUNDED_GAP = ("anynoise",)
+
+
+def eval_study(name: str):
+    """(study, x, y) of a study's selfcheck data (events with EVAL_EVENTS)."""
+    mod = importlib.import_module(f"gogp_torch.tutorial.{name}")
+    study = mod.make_study(mod.parse_events(EVAL_EVENTS)) if name == "events" else mod.make_study()
+    x, y = tio.load_csv(mod.selfcheck_data())
+    return study, x, y
+
+
+def eval_bench(n: int):
+    """The barebones study on bench.py's generator at n points (raw y:
+    evaluate normalises it)."""
+    rng = np.random.default_rng(0)
+    x = np.sort(rng.uniform(0, 100, (n, 1)), axis=0)
+    y = np.sin(x[:, 0] / 3.0) + 0.1 * rng.normal(size=n)
+    return importlib.import_module("gogp_torch.tutorial.barebones").make_study(), x, y
+
+
+def eval_run(study, x, y, dev, dtype=torch.float32, **cfg) -> dict:
+    """``evaluate`` once (batched unless cfg says otherwise), its host wall
+    and the batched value-and-gradient calls it made."""
+    calls = [0]
+    real = tev.batched_value_and_grad
+
+    def counted(*a, **k):
+        vg = real(*a, **k)
+
+        def call(V):
+            calls[0] += 1
+            return vg(V)
+
+        return call
+
+    config = tev.EvalConfig(seed=0, **{"alg": "lbfgs", "iters": EVAL_ITERS, **cfg})
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with unittest.mock.patch.object(tev, "batched_value_and_grad", counted), \
+            contextlib.redirect_stderr(io.StringIO()):
+        res = tev.evaluate(study, x, y, config=config, device=dev, dtype=dtype)
+    torch.cuda.synchronize()
+    return {"result": res, "wall_s": time.perf_counter() - t0, "vg_calls": calls[0]}
+
+
+def eval_rescore(study, res, dev, start: bool = False) -> dict:
+    """The f64 LML and forecast (in the data's units) at a result's own
+    parameters (with start, at its fits' starting points), every row, on
+    the card."""
+    def t(a):
+        return torch.as_tensor(np.asarray(a, dtype=np.float64), dtype=torch.float64, device=dev)
+
+    x, y, V, masks = t(res.x), t(res.y_norm), t(res.v0 if start else res.v_all), t(res.masks)
+    priors = study.make_priors(res.x, res.y_norm) if study.make_priors else None
+    with torch.no_grad():
+        lml = torch.func.vmap(tev.prefix_logp(study, x, y, priors))(V, masks)
+        mu, sigma = torch.func.vmap(tev._forecast_fn(study, x, y))(V, masks, x)
+    return {"lml": lml.cpu().numpy(), "mu": mu.cpu().numpy() * res.std_y + res.mean_y,
+            "sigma": sigma.cpu().numpy() * res.std_y}
+
+
+def _rel_rows(a, b) -> np.ndarray:
+    return np.abs(np.asarray(a) - np.asarray(b)) / np.maximum(np.abs(np.asarray(b)), 1.0)
+
+
+def eval_compare(study, run32: dict, run64: dict, dev) -> dict:
+    """The f32 run against the f64 one: the f32 rows against f64 at the f32
+    parameters, the f32 fit's gap below the f64 fit (both scored in f64),
+    the fits' straight differences, iterations and stalls."""
+    r32, r64 = run32["result"], run64["result"]
+    rows32, rows64 = np.asarray(r32.rows, dtype=np.float64), np.asarray(r64.rows, dtype=np.float64)
+    at32 = eval_rescore(study, r32, dev)
+    start = eval_rescore(study, r32, dev, start=True)["lml"]
+    fitted = r32.iters > 0
+    gap = (rows64[:, 5] - at32["lml"]) / np.maximum(np.abs(rows64[:, 5]), 1.0)
+    below = (start - at32["lml"]) / np.maximum(np.abs(start), 1.0)
+    return {
+        "lml_eval": float(_rel_rows(rows32[:, 5], at32["lml"]).max()),
+        "forecast": float(max(np.abs(rows32[:, 2] - at32["mu"]).max(), np.abs(rows32[:, 3] - at32["sigma"]).max())),
+        "lml_gap": float(gap.max()), "lml_gap_min": float(gap.min()), "rows_lml_gap_over_1e-3": int((gap > 1e-3).sum()),
+        "below_start": float(below.max()), "rows_below_start": int((below > 0).sum()),
+        "fit_to_fit": {"lml": float(_rel_rows(rows32[:, 5], rows64[:, 5]).max()),
+                       "mu": float(np.abs(rows32[:, 2] - rows64[:, 2]).max()),
+                       "sigma": float(np.abs(rows32[:, 3] - rows64[:, 3]).max())},
+        "iters_f32": {"median": float(np.median(r32.iters[fitted])), "max": int(r32.iters.max())},
+        "iters_f64": {"median": float(np.median(r64.iters[fitted])), "max": int(r64.iters.max())},
+        "stalled_f32": int(r32.stalled.sum()), "stalled_f64": int(r64.stalled.sum()),
+        "finite": bool(np.isfinite(rows32[:, 2:6]).all() and (rows32[:, 3] >= 0).all()),
+    }
+
+
+def eval_batch(study, res, dev, dtype=torch.float32):
+    """The batched value and gradient an evaluate run's fits take, and the
+    fitted rows' parameters at the run's end: (vg, V)."""
+    def t(a):
+        return torch.as_tensor(np.asarray(a, dtype=np.float64), dtype=dtype, device=dev)
+
+    priors = study.make_priors(res.x, res.y_norm) if study.make_priors else None
+    vg = tev.batched_value_and_grad(study, t(res.x), t(res.y_norm), t(res.masks[1:]), priors)
+    return vg, t(res.v_all[1:])
+
+
+def eval_vg_ms(study, res, dev) -> dict:
+    """Wall ms (median of 5, each ending in a synchronize) of one batched
+    value and gradient of the run's fitted rows (at their fits' parameters)
+    on the default route (K7 for a theta-only study) and under force_plain,
+    f32."""
+    out = {}
+    x32 = torch.as_tensor(res.x, dtype=torch.float32, device=dev)
+    for label, ctx in (("k7" if tev.takes_k7(study, x32) else "default", contextlib.nullcontext),
+                       ("plain", linalg.force_plain)):
+        with ctx():
+            vg, V = eval_batch(study, res, dev)
+            vg(V)
+            out[label] = wall_ms(lambda: vg(V), reps=5)
+    return out
+
+
+def eval_k7_case(study, res, dev):
+    """K7 on the fitted rows' first covariances (a theta-only study's
+    jittered starting thetas, seed 0, each row under its mask), for
+    check_kernel."""
+    n, nts = res.x.shape[0], study.gp.n_theta_simil
+    V = torch.as_tensor(0.1 * tev.jitter_draws(n, study.gp.n_theta, 0)[1:], dtype=torch.float32, device=dev)
+    x = torch.as_tensor(res.x, dtype=torch.float32, device=dev)
+    masks = torch.as_tensor(res.masks[1:], dtype=torch.float32, device=dev)
+    K = torch.func.vmap(lambda v, m: core.masked_cov(study.gp, torch.exp(v[:nts]), torch.exp(v[nts:]), x, m))(
+        V, masks).contiguous()
+    eye = torch.eye(n, dtype=K.dtype, device=dev)
+    return (lambda: fused_gp.fused_gp_linv(K), lambda: fused_gp.linv_plain(K), K.shape, 50,
+            lambda: torch.linalg.solve_triangular(torch.linalg.cholesky(K), eye, upper=False))
+
+
+def phase_evaluate(dev) -> dict:
+    failures = []
+    # the main path: every run the evaluate path makes on the card's default
+    # route (f32), its launches counted from 0
+    cb.reset_launch_counts()
+    runs32, study_launches = {}, {}
+    for name in EVAL_STUDIES:
+        before = cb.LAUNCHES["fused_gp_linv"]
+        runs32[name] = eval_run(*eval_study(name), dev)
+        study_launches[name] = cb.LAUNCHES["fused_gp_linv"] - before
+    bench = eval_bench(EVAL_N)
+    wide = {alg: eval_run(*bench, dev, alg=alg, iters=EVAL_ADAM_ITERS if alg == "adam" else EVAL_ITERS)
+            for alg in ("adam", "lbfgs")}
+    launches = dict(cb.LAUNCHES)
+    k7_calls = (sum(r["vg_calls"] for name, r in runs32.items() if not eval_study(name)[0].optinp)
+                + sum(r["vg_calls"] for r in wide.values()))
+    if launches["fused_gp_linv"] != k7_calls:
+        failures.append(f"K7 launched {launches['fused_gp_linv']} times in {k7_calls} batched value-and-gradient "
+                        "calls on the K7 route")
+
+    # the references: f64 on the card (the plain route), and the plain route
+    # in f32 (force_plain) at n = EVAL_N
+    for name in EVAL_STUDIES:
+        study, x, y = eval_study(name)
+        run64 = eval_run(study, x, y, dev, dtype=torch.float64)
+        cmp = eval_compare(study, runs32[name], run64, dev)
+        report = {"phase": "evaluate", "study": name, "n": int(x.shape[0]), "rows_fitted": int(x.shape[0] - 1),
+                  "alg": "lbfgs", "iters": EVAL_ITERS, "wall_s": {"f32": runs32[name]["wall_s"], "f64": run64["wall_s"]},
+                  "vg_calls": runs32[name]["vg_calls"], "ms_per_vg": eval_vg_ms(study, runs32[name]["result"], dev),
+                  **cmp, "bounds": EVAL_BOUNDS}
+        emit(report)
+        failures += [f"{name}: {k} {cmp[k]:.3e} > {EVAL_BOUNDS[k]}" for k in ("lml_eval", "forecast", "lml_gap", "below_start")
+                     if not cmp[k] <= EVAL_BOUNDS[k] and not (k == "lml_gap" and name in EVAL_UNBOUNDED_GAP)]
+        if not cmp["finite"]:
+            failures.append(f"{name}: non-finite forecast rows")
+    for alg, run32 in wide.items():
+        iters = EVAL_ADAM_ITERS if alg == "adam" else EVAL_ITERS
+        with linalg.force_plain():
+            plain = eval_run(*bench, dev, alg=alg, iters=iters)
+        run64 = eval_run(*bench, dev, dtype=torch.float64, alg=alg, iters=iters)
+        cmp = eval_compare(bench[0], run32, run64, dev)
+        emit({"phase": "evaluate", "study": "barebones", "data": "bench.py generator", "n": EVAL_N,
+              "rows_fitted": EVAL_N - 1, "alg": alg, "iters": iters,
+              "wall_s": {"k7_f32": run32["wall_s"], "plain_f32": plain["wall_s"], "f64": run64["wall_s"]},
+              "vg_calls": {"k7_f32": run32["vg_calls"], "plain_f32": plain["vg_calls"]},
+              "ms_per_vg": eval_vg_ms(bench[0], run32["result"], dev), **cmp, "bounds": EVAL_BOUNDS})
+        failures += [f"barebones n={EVAL_N} {alg}: {k} {cmp[k]:.3e} > {EVAL_BOUNDS[k]}"
+                     for k in ("lml_eval", "forecast", "lml_gap", "below_start") if not cmp[k] <= EVAL_BOUNDS[k]]
+
+    # sequential against batched: barebones, Adam EVAL_SEQ_ITERS steps, f32
+    study, x, y = eval_study("barebones")
+    seq, bat = (eval_run(study, x, y, dev, alg="adam", iters=EVAL_SEQ_ITERS, batched=b) for b in (False, True))
+    rs, rb = np.asarray(seq["result"].rows), np.asarray(bat["result"].rows)
+    seq_err = float(max(_rel_rows(rs[:, 4:], rb[:, 4:]).max(), np.abs(seq["result"].v_all - bat["result"].v_all).max()))
+
+    # one batched value and gradient: one K7 launch on the K7 route, none
+    # under force_plain
+    study, x, y = bench
+    vg, V = eval_batch(study, wide["lbfgs"]["result"], dev)
+    before = cb.LAUNCHES["fused_gp_linv"]
+    vg(V)
+    one_call = cb.LAUNCHES["fused_gp_linv"] - before
+    with linalg.force_plain():
+        vg_plain, _ = eval_batch(study, wide["lbfgs"]["result"], dev)
+        before = cb.LAUNCHES["fused_gp_linv"]
+        vg_plain(V)
+        plain_call = cb.LAUNCHES["fused_gp_linv"] - before
+    emit({"phase": "evaluate", "check": "launches", "main_path": launches, "k7_vg_calls": k7_calls,
+          "one_batched_vg_k7_launches": {"k7_route": one_call, "force_plain": plain_call},
+          "sequential_vs_batched": {"alg": "adam", "iters": EVAL_SEQ_ITERS, "max_err": seq_err,
+                                    "bound": EVAL_BOUNDS["sequential"],
+                                    "wall_s": {"sequential": seq["wall_s"], "batched": bat["wall_s"]}}})
+    if (one_call, plain_call) != (1, 0):
+        failures.append(f"one batched value-and-gradient launched K7 {one_call} times on the K7 route and "
+                        f"{plain_call} under force_plain (want 1 and 0)")
+    if not seq_err <= EVAL_BOUNDS["sequential"]:
+        failures.append(f"sequential against batched: {seq_err:.3e} > {EVAL_BOUNDS['sequential']}")
+
+    # K7 at the path's shapes: the fits' first covariances
+    rows = {("evaluate", "fused_gp_linv"): check_kernel(
+                "evaluate", "fused_gp_linv", *eval_k7_case(study, wide["lbfgs"]["result"], dev),
+                rtol=BAYES_BOUNDS["k7_rtol"]),
+            ("evaluate_hyperpriors", "fused_gp_linv"): check_kernel(
+                "evaluate_hyperpriors", "fused_gp_linv",
+                *eval_k7_case(eval_study("hyperpriors")[0], runs32["hyperpriors"]["result"], dev),
+                rtol=BAYES_BOUNDS["k7_rtol"])}
+    if failures:
+        raise AssertionError(f"evaluate path: {failures}")
+    return {"launches": launches, "hyperpriors_launches": {"fused_gp_linv": study_launches["hyperpriors"]}, "rows": rows,
+            "batch": lambda: eval_batch(study, wide["lbfgs"]["result"], dev)}
+
+
 def _device_busy_us(events) -> float:
     """Length of the union of the device events' time intervals."""
     spans = sorted((e.time_range.start, e.time_range.end) for e in events)
@@ -1275,13 +1555,17 @@ def _device_busy_us(events) -> float:
     return busy + (0.0 if end is None else end - start)
 
 
-def phase_profile(slice_args32, train_args32, large_args32, bayes_logps) -> None:
+def phase_profile(slice_args32, train_args32, large_args32, bayes_logps, evaluate_batch) -> None:
     from torch.profiler import ProfilerActivity, profile
 
     report = {"phase": "profile"}
     V = bayes_positions(BAYES_CHAINS, slice_args32[1].device, seed=4)
+    vg, V = evaluate_batch()
+    with linalg.force_plain():
+        vg_plain, _ = evaluate_batch()
     runs = {"slice": (run_slice, slice_args32), "train_step": (value_and_grad_step, train_args32),
-            "large_step": (value_and_grad_step, large_args32), "bayes_vg": (bayes_step, (*bayes_logps, V))}
+            "large_step": (value_and_grad_step, large_args32), "bayes_vg": (bayes_step, (*bayes_logps, V)),
+            "evaluate_vg": (lambda: (vg_plain if linalg._FORCE_PLAIN else vg)(V), ())}
     for run, (fn, args) in runs.items():
         for label, ctx in (("kernels", contextlib.nullcontext), ("plain", linalg.force_plain)):
             with ctx():
@@ -1462,7 +1746,8 @@ def _partial_slice(dev) -> None:
 # no whole run) the tile body's stage cycles and K4's chain step.
 PARTIAL_PHASES = {"kernels": phase_kernels, "k5": phase_k5, "k7": phase_k7, "gate": phase_gate,
                   "slice": _partial_slice,
-                  "train": phase_train, "large": phase_large, "bayes": phase_bayes, "stamps": phase_stamps}
+                  "train": phase_train, "large": phase_large, "bayes": phase_bayes, "evaluate": phase_evaluate,
+                  "stamps": phase_stamps}
 
 
 def main() -> int:
@@ -1506,13 +1791,17 @@ def main() -> int:
     large = measured("large", phase_large, dev)
     bayes_out = measured("bayes", phase_bayes, dev)
     kernels.update(bayes_out["rows"])
+    evaluate_out = measured("evaluate", phase_evaluate, dev)
+    kernels.update(evaluate_out["rows"])
     if args.profile:
-        measured("profile", phase_profile, slice_args32, train["args32"], large["args32"], bayes_out["logps"])
+        measured("profile", phase_profile, slice_args32, train["args32"], large["args32"], bayes_out["logps"],
+                 evaluate_out["batch"])
     emit({"phase": "memory", "peak_gib": peak_gib})
     # one entry per kernel and path that launches it: the path's launch
     # count beside the error and times at the shapes that path gives it
     launches = {"serve": serve_launches, "train": train["launches"], "large": large["launches"],
-                "bayes": bayes_out["launches"], "kernels": kernels_launches}
+                "bayes": bayes_out["launches"], "evaluate": evaluate_out["launches"],
+                "evaluate_hyperpriors": evaluate_out["hyperpriors_launches"], "kernels": kernels_launches}
     emit({"kernels": [
         {"name": f"{name} ({path}, {'x'.join(map(str, row['shape']))})", "route": "cuda",
          "source": source, "replaces": replaces, "launches": launches[path][key],

@@ -9,14 +9,17 @@ twin, against which the tests hold it.
   composition and gradient masks.
 - ``gogp_torch.dists``   - prior log-densities.
 - ``gogp_torch.infer``   - maximum-likelihood fits (``mle.adam``,
-  ``mle.lbfgs``); ChEES-HMC (``chees``) with its warmup adaptation
+  ``mle.lbfgs``, and batched over rows ``mle.adam_batched``,
+  ``mle.lbfgs_batched``); ChEES-HMC (``chees``) with its warmup adaptation
   (``adapt``), integrator (``hmc``) and diagnostics (``diagnostics``).
 - ``gogp_torch.ops``     - the linear-algebra front door (``linalg``), the
   blocked driver with its hand-written CUDA kernels (``cholesky_blocked``),
   and a chain population's small-GP value and gradient (``fused_gp``, K7);
   sources in ``gogp_torch/csrc/``.
-- ``gogp_torch.tutorial`` - the hyperpriors study and the Bayesian forecast
-  command line (``python -m gogp_torch.tutorial.bayes``).
+- ``gogp_torch.tutorial`` - the rolling forecast (``evaluate``, the
+  reference's entry point) with its five studies
+  (``python -m gogp_torch.tutorial.<study> selfcheck``) and the Bayesian
+  forecast command line (``python -m gogp_torch.tutorial.bayes``).
 - ``gogp_torch.convert`` - state carried across from the JAX package.
 
 The package never imports JAX.

@@ -21,7 +21,9 @@ theta-only model (x, y fixed) that evaluation is
 ``make_fused_value_and_grad`` and ``make_reference_value_and_grad`` return
 ``vg(V) -> (logp, grad)`` for V of shape (chains, p) or (p,).  The fused one
 sends L^-1 through the dispatch rule below; the reference takes the plain
-version every time.
+version every time.  The mask is one (n,) mask for every row, or one mask
+per row, (rows, n), with V (rows, p): the rolling forecast's prefix fits
+(``tutorial.evaluate``), every prefix of a series in one batch.
 
 Dispatch (:func:`linv`): a CUDA float32 batch with n <= ``K7_MAX_N`` goes to
 K7, outside :func:`gogp_torch.ops.linalg.force_plain`; everything else takes
@@ -35,7 +37,8 @@ time; K7 takes any n up to its limit.  The mask convention is kept exactly: a
 and its gradient are those of the unpadded problem.
 
 Priors see V with the chain axis leading and index ``v[..., k]``, so they
-return one value per chain.
+return one value per chain.  A prior that reads the mask closes over it:
+``lambda V: priors(V, masks)`` pairs each row of V with its own mask.
 """
 
 from __future__ import annotations
@@ -111,7 +114,7 @@ def _lml_and_w_from_linv(Linv: Tensor, yv: Tensor, n_eff: Tensor) -> tuple[Tenso
     """
     diag_linv = torch.diagonal(Linv, dim1=-2, dim2=-1)
     logdet = -2.0 * torch.log(diag_linv.abs() + 1e-30).sum(-1)
-    z = torch.einsum("...ij,j->...i", Linv, yv)
+    z = torch.einsum("...ij,...j->...i", Linv, yv)
     quad = (z * z).sum(-1)
     alpha = torch.einsum("...ki,...k->...i", Linv, z)
     Kinv = Linv.mT @ Linv
@@ -129,21 +132,23 @@ def _make_vg(gp, x, y, mask, priors_fn, linv_fn):
     mask = (torch.ones(n, dtype=x.dtype, device=x.device) if mask is None
             else torch.as_tensor(mask, dtype=x.dtype, device=x.device))
     yv = y * mask
-    n_eff = mask.sum()
+    n_eff = mask.sum(-1)
     nts = gp.n_theta_simil
 
-    def cov_from_v(v):
+    def cov_from_v(v, m):
         theta = torch.exp(v)
-        return masked_cov(gp, theta[:nts], theta[nts:], x, mask)
+        return masked_cov(gp, theta[:nts], theta[nts:], x, m)
 
-    batched_cov = torch.func.vmap(cov_from_v)
+    batched_cov = torch.func.vmap(cov_from_v, in_dims=(0, 0 if mask.dim() == 2 else None))
 
     def vg(V):
         V = torch.as_tensor(V, dtype=x.dtype, device=x.device)
         single = V.dim() == 1
+        if mask.dim() == 2 and (single or V.shape[0] != mask.shape[0]):
+            raise ValueError(f"{mask.shape[0]} per-row masks need V of shape ({mask.shape[0]}, p), got {tuple(V.shape)}")
         V = (V[None] if single else V).detach().requires_grad_(True)
         with torch.enable_grad():
-            K = batched_cov(V)
+            K = batched_cov(V, mask)
             lml, W = _lml_and_w_from_linv(linv_fn(K.detach()), yv, n_eff)
             outputs, cotangents = [K], [0.5 * W]
             if priors_fn is not None:
@@ -162,8 +167,9 @@ def make_fused_value_and_grad(gp, x, y, mask=None, priors_fn=None):
     says so.
 
     ``gp``: the GP spec (theta-only: x, y fixed here, on the device and in
-    the dtype ``x`` has); ``priors_fn``: optional ``priors(V) -> (chains,)``
-    on log-thetas.  V is (chains, p) or (p,).
+    the dtype ``x`` has); ``mask``: None, (n,), or (rows, n), one per row of
+    V; ``priors_fn``: optional ``priors(V) -> (chains,)`` on log-thetas.  V
+    is (chains, p) or (p,); with per-row masks, (rows, p).
     """
     return _make_vg(gp, x, y, mask, priors_fn, linv)
 

@@ -9,8 +9,9 @@ Output CSV rows: ``z, nan, mu, sigma`` (the reference's out-of-sample schema,
 tutorial/tutorial.go:200-225) on a grid reaching one span past the data,
 then a comment line with the posterior means of the hyperparameters.
 
-Ported so far: the hyperpriors study and the ChEES-HMC engine.  The other
-studies and engines (NUTS, the JAX default, HMC, PT-ChEES, GHMC, ADVI, SMC;
+Ported so far: the theta-only studies (barebones, hyperpriors, events) and
+the ChEES-HMC engine.  The latent-input studies (warpedtime, anynoise) and
+the other engines (NUTS, the JAX default, HMC, PT-ChEES, GHMC, ADVI, SMC;
 ``--pops`` and ``--race``) stop with a message naming ROADMAP.md.
 
 The log-joint of a theta-only study runs on the K7 route: its forward is
@@ -43,7 +44,7 @@ from gogp_torch.tutorial import io as tio
 
 STUDIES = ("barebones", "hyperpriors", "warpedtime", "anynoise", "events")
 ENGINES = ("nuts", "hmc", "chees", "pt-chees", "ghmc", "advi", "advi-full", "smc")
-_PORTED_STUDIES = ("hyperpriors",)
+_PORTED_STUDIES = ("barebones", "hyperpriors", "events")
 
 
 def get_study(name: str):
@@ -168,12 +169,7 @@ def main(argv=None):
     # every Python 3 release (plain parse_args loses it on some)
     args = ap.parse_intermixed_args(argv)
 
-    if args.platform == "cpu":
-        device = torch.device("cpu")
-    elif torch.cuda.is_available():
-        device = torch.device("cuda", torch.cuda.current_device())
-    else:
-        raise SystemExit("no CUDA device: pass --platform cpu")
+    device = tio.device_for(args.platform or "cuda")
     _, study, data = get_study(args.study)
     x, y = tio.load_csv(data if args.mode == "selfcheck" else sys.stdin)
     if args.n:

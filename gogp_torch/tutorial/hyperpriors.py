@@ -8,10 +8,9 @@ priors on the log-scale thetas, among them "the season weight lies below the
 trend weight".  The priors index ``v[..., k]``, so a (chains, p) batch gets
 one log-prior per chain.
 
-The study's MLE command line (``main``, through ``evaluate.run_cli``) waits
-for the ``evaluate`` driver (ROADMAP.md); ``python -m
-gogp_torch.tutorial.bayes hyperpriors --engine chees selfcheck`` runs the
-Bayesian one.
+Run:  python -m gogp_torch.tutorial.hyperpriors [flags] selfcheck (the MLE
+rolling forecast); ``python -m gogp_torch.tutorial.bayes hyperpriors
+--engine chees selfcheck`` runs the Bayesian one.
 """
 
 from __future__ import annotations
@@ -24,7 +23,7 @@ import torch
 from gogp_torch import dists
 from gogp_torch.gp.core import GP
 from gogp_torch.kernels import Kernel, matern52_ref, periodic, uniform_noise
-from gogp_torch.tutorial.evaluate import Study
+from gogp_torch.tutorial.evaluate import Study, run_cli
 
 _LOG2 = math.log(2.0)
 
@@ -66,3 +65,16 @@ def selfcheck_data() -> str:
     """The study's embedded series (44 points), the JAX package's
     ``trend_season.csv``, copied into this package."""
     return resources.files("gogp_torch.tutorial").joinpath("data/trend_season.csv").read_text()
+
+
+def main(argv=None):
+    return run_cli(
+        make_study,
+        selfcheck_data(),
+        "GP with hyperparameter priors: Matern52 trend + periodic seasonality.",
+        argv=argv,
+    )
+
+
+if __name__ == "__main__":
+    main()

@@ -2,8 +2,9 @@
 
 PyTorch-package twin of ``gogp_tpu/tutorial/io.py`` (the reference's
 ``load``, tutorial/tutorial.go:234-272, and its per-row forecast output,
-:185-197).  Host code on numpy.  Only the pure-Python parser is here; the
-native C++ parser of the JAX package waits in ROADMAP.md.
+:185-197).  Host code on numpy, and the command lines' ``--platform``
+device.  Only the pure-Python parser is here; the native C++ parser of the
+JAX package waits in ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ import sys
 from typing import IO, Iterable
 
 import numpy as np
+import torch
 
 
 def load_csv(rdr: IO[str] | str) -> tuple[np.ndarray, np.ndarray]:
@@ -49,3 +51,13 @@ def _fmt(v) -> str:
 
 def progress(msg: str, end: str = "\n") -> None:
     print(msg, file=sys.stderr, end=end, flush=True)
+
+
+def device_for(platform: str) -> torch.device:
+    """``--platform``'s device: the CPU, or the current CUDA card; without
+    one, exit with a message (there is no quiet fallback)."""
+    if platform == "cpu":
+        return torch.device("cpu")
+    if not torch.cuda.is_available():
+        raise SystemExit("no CUDA device: pass --platform cpu")
+    return torch.device("cuda", torch.cuda.current_device())

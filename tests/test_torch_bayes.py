@@ -157,6 +157,21 @@ def test_logjoint_matches_jax(plain):
     np.testing.assert_allclose(grad.numpy(), np.asarray(want_g), rtol=0, atol=1e-8 * np.abs(want_g).max())
 
 
+def test_barebones_logjoint_matches_jax():
+    """The barebones study (no priors) on the plain route: the log-joint at
+    three points against JAX's ``build_logjoint``."""
+    _, study, data = bayes.get_study("barebones")
+    x, y = tio.load_csv(data)
+    y = tio.normalize(y)[0]
+    with linalg.force_plain():
+        logp, _, v0, free = bayes.build_logjoint(study, x, y, "cpu", torch.float64)
+    jlogp, _, jv0, jfree = jbayes.build_logjoint(jbayes.get_study("barebones")[1], x, y)
+    np.testing.assert_array_equal(v0.numpy(), np.asarray(jv0))
+    np.testing.assert_array_equal(free.numpy(), np.asarray(jfree))
+    V = 0.3 * np.random.default_rng(4).normal(size=(3, 3))
+    np.testing.assert_allclose(logp(T(V)).numpy(), np.asarray(jax.vmap(jlogp)(jnp.asarray(V))), **VALUE)
+
+
 # --- the slice as a whole -----------------------------------------------------
 
 
@@ -256,7 +271,7 @@ def test_main_selfcheck_on_cpu():
     assert np.isnan(rows[:, 1]).all() and np.isfinite(rows[:, [0, 2, 3]]).all() and (rows[:, 3] > 0).all()
     assert lines[-1].startswith("# posterior theta mean: ") and len(lines[-1].split(",")) == 6
     for argv in (["hyperpriors", "--platform", "cpu", "selfcheck"],
-                 ["barebones", "--engine", "chees", "--platform", "cpu", "selfcheck"],
+                 ["warpedtime", "--engine", "chees", "--platform", "cpu", "selfcheck"],
                  ["hyperpriors", "--engine", "chees", "--pops", "2", "--platform", "cpu", "selfcheck"]):
         with pytest.raises(SystemExit, match="ROADMAP"):
             bayes.main(argv)

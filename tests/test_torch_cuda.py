@@ -693,3 +693,54 @@ def test_fused_value_and_grad_route_matches_f64_plain(cuda):
     with linalg.force_plain():
         vg(t(V, torch.float32))
     assert cb.LAUNCHES["fused_gp_linv"] == before + 1
+
+
+def _prefix_batch(study, x, y, device, dtype):
+    """The rolling forecast's fitted prefixes of a series of n points: one
+    mask a row for ends 1..n-1, and starting log-thetas 0.1 N(0, 1)."""
+    n = x.shape[0]
+    masks = (np.arange(n)[None, :] < np.arange(1, n)[:, None]).astype(float)
+    V = 0.1 * np.random.default_rng(3).normal(size=(n - 1, study.gp.n_theta))
+    priors = study.make_priors(x, y) if study.make_priors else None
+
+    def t(a):
+        return torch.as_tensor(a, dtype=dtype, device=device)
+
+    tm = t(masks)
+    return (t(x), t(y), tm, None if priors is None else (lambda Vt: priors(Vt, tm))), t(V)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("study_name", ["barebones", "hyperpriors"])
+def test_per_row_mask_k7_route_matches_f64_reference(cuda, study_name):
+    """The evaluate path's batch on the K7 route in f32, one mask a prefix:
+    barebones at n = 128 (bench.py's generator, 127 x 128 x 128, the widest
+    K7 takes) and hyperpriors' 44 points (43 x 44 x 44), against the
+    reference route in f64: value 1e-5 relative (to at least 1: a short
+    prefix's LML can be near 0), gradient 1e-3 of its largest entry; one K7
+    launch a call, none under force_plain."""
+    from gogp_torch.tutorial import barebones, hyperpriors
+    from gogp_torch.tutorial import io as tio
+
+    if study_name == "barebones":
+        study = barebones.make_study()
+        rng = np.random.default_rng(0)
+        x = np.sort(rng.uniform(0, 100, (128, 1)), axis=0)
+        y = tio.normalize(np.sin(x[:, 0] / 3.0) + 0.1 * rng.normal(size=128))[0]
+    else:
+        study = hyperpriors.make_study()
+        x, y = tio.load_csv(hyperpriors.selfcheck_data())
+        y = tio.normalize(y)[0]
+    args32, V32 = _prefix_batch(study, x, y, cuda, torch.float32)
+    args64, V64 = _prefix_batch(study, x, y, cuda, torch.float64)
+    vg = fused_gp.make_fused_value_and_grad(study.gp, *args32)
+    ref = fused_gp.make_reference_value_and_grad(study.gp, *args64)
+    before = cb.LAUNCHES["fused_gp_linv"]
+    val, grad = vg(V32)
+    assert cb.LAUNCHES["fused_gp_linv"] == before + 1
+    want_val, want_grad = ref(V64)
+    assert float(((val.double() - want_val).abs() / want_val.abs().clamp(min=1.0)).max()) <= 1e-5
+    assert _rel(grad, want_grad) <= 1e-3
+    with linalg.force_plain():
+        vg(V32)
+    assert cb.LAUNCHES["fused_gp_linv"] == before + 1

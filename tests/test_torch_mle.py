@@ -4,12 +4,12 @@ slice against the JAX package, in float64 on the CPU.
 Adam is held to the JAX ``adam`` step for step (optax's arithmetic: the same
 x, value and iteration count to rtol 1e-10 on the quadratic and 1e-8 on the
 GP, where 50 steps compound the different summation orders of the LML
-gradient).  LBFGS takes another line search than optax's (torch's strong
-Wolfe against optax's zoom), so it is held to the same optimum, not the same
-trajectory: x to atol 1e-5 and the LML to rtol 1e-9 at gradient threshold
-1e-6.  The slice runs the port's blocked path under ``force_blocked(64)``
-(K1's plain version, the K3 and K5 plain versions) and JAX's Pallas kernels
-in interpret mode.
+gradient).  LBFGS is optax's algorithm with its zoom line search on both
+sides, but for a failed search, where the port takes no step: the same
+iteration count, x to atol 1e-5 (1e-6 on the quadratic) and the LML to rtol
+1e-9 at gradient threshold 1e-6.  The slice runs the port's blocked path
+under ``force_blocked(64)`` (K1's plain version, the K3 and K5 plain
+versions) and JAX's Pallas kernels in interpret mode.
 """
 
 import jax
@@ -124,6 +124,7 @@ def test_lbfgs_quadratic_reaches_jax_optimum():
     want = jmle.lbfgs(j_quadratic, jnp.zeros(3), iters=100)
     got = mle.lbfgs(t_quadratic, torch.zeros(3, dtype=torch.float64), iters=100)
     assert got.converged and bool(want.converged) and not got.stalled and got.iters < 100
+    assert got.iters == int(want.iters)
     np.testing.assert_allclose(got.x.numpy(), np.asarray(want.x), atol=1e-6)
     np.testing.assert_allclose(got.x.numpy(), TARGET, atol=1e-6)
 
@@ -132,7 +133,7 @@ def test_lbfgs_barebones_gp_reaches_jax_optimum():
     jgp, tgp, x, y = problem(64)
     want = jmle.lbfgs(j_make_gp_logp(jgp, x=x, y=y), jnp.zeros(3), iters=200)
     got = mle.lbfgs(make_gp_logp(tgp, x=T(x), y=T(y)), torch.zeros(3, dtype=torch.float64), iters=200)
-    assert got.converged and bool(want.converged)
+    assert got.converged and bool(want.converged) and got.iters == int(want.iters)
     np.testing.assert_allclose(got.x.numpy(), np.asarray(want.x), atol=1e-5)
     np.testing.assert_allclose(float(got.value), float(want.value), rtol=1e-9)
 
@@ -141,14 +142,15 @@ def test_lbfgs_free_mask_reaches_jax_optimum():
     free = [1.0, 0.0, 1.0]
     want = jmle.lbfgs(j_quadratic, jnp.zeros(3), iters=100, free=jnp.asarray(free))
     got = mle.lbfgs(t_quadratic, torch.zeros(3, dtype=torch.float64), iters=100, free=T(free))
-    assert float(got.x[1]) == 0.0 and got.converged
+    assert float(got.x[1]) == 0.0 and got.converged and got.iters == int(want.iters)
     np.testing.assert_allclose(got.x.numpy(), np.asarray(want.x), atol=1e-6)
 
 
 def test_lbfgs_stall_flag():
     """A gradient of the wrong sign: every trial point of the line search
     is worse than the start, so the step is exactly zero while the gradient
-    is above the threshold.  The run stops at once, stalled, at x0."""
+    is above the threshold.  The run restarts its memory once, fails again
+    and stops, stalled, at x0: it never ends below its start."""
 
     class WrongSign(torch.autograd.Function):
         @staticmethod
@@ -161,9 +163,31 @@ def test_lbfgs_stall_flag():
             (v,) = ctx.saved_tensors
             return g * 2 * v
 
-    got = mle.lbfgs(WrongSign.apply, torch.ones(2, dtype=torch.float64), iters=20)
-    assert got.stalled and not got.converged and got.iters == 1
+    x0 = torch.ones(2, dtype=torch.float64)
+    got = mle.lbfgs(WrongSign.apply, x0, iters=20)
+    assert got.stalled and not got.converged and got.iters == 2
     np.testing.assert_array_equal(got.x.numpy(), [1.0, 1.0])
+    assert float(got.value) >= float(WrongSign.apply(x0))
+
+
+def test_lbfgs_stall_outside_domain_matches_jax():
+    """A log-density that is NaN wherever x leaves x0: every trial of the
+    line search is outside the domain.  JAX (optax) takes no step and stops
+    after one iteration; the port restarts its memory once and stops after
+    two, at the same x and value, stalled."""
+
+    def j_logp(v):
+        return jnp.where(jnp.abs(v - 1.0).max() > 0, jnp.nan, -jnp.sum(v * v))
+
+    def t_logp(v):
+        return torch.where((v - 1.0).abs().max() > 0, float("nan"), -(v * v).sum())
+
+    want = convert.opt_result(jmle.lbfgs(j_logp, jnp.ones(2), iters=20), "cpu")
+    got = mle.lbfgs(t_logp, torch.ones(2, dtype=torch.float64), iters=20)
+    assert got.stalled and bool(want.stalled) and not got.converged
+    assert (want.iters, got.iters) == (1, 2)
+    np.testing.assert_array_equal(got.x.numpy(), want.x.numpy())
+    assert float(got.value) == float(want.value) == -2.0
 
 
 def test_lbfgs_starting_at_optimum_stops_at_once():
