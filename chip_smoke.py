@@ -74,8 +74,8 @@ process per source) and then runs these phases, each printing JSON lines:
 8. bayes    - Bayesian hyperparameter inference: the hyperpriors study
               (gogp_tpu/tutorial/hyperpriors.py, n = 44 points, 6
               log-thetas) under ChEES-HMC at the protocol of
-              benchmarks/ess_nuts.py:729 (64 chains, 512 warmup and 512
-              sampling transitions, seed 0).  K7 against its plain version
+              benchmarks/ess_nuts.py:729 (64 chains, seed 0) cut to 128
+              warmup and 128 sampling transitions.  K7 against its plain version
               at the study's covariances of 16, 64 and 256 positions and, 64
               matrices each, at n = 32, 64, 96 and K7's n limit, with a
               "gates" line of the limit beside K7's and the library's
@@ -83,8 +83,8 @@ process per source) and then runs these phases, each printing JSON lines:
               ``bayes.build_logjoint`` gives the sampler (K7 route, f32)
               against the plain route's in f64 at 256 positions; the main
               path, ``bayes.main(["hyperpriors", "--engine", "chees",
-              "--chains", "64", "--seed", "0", "--warmup", "512",
-              "--samples", "32768", "selfcheck"])`` in process on the K7
+              "--chains", "64", "--seed", "0", "--warmup", "128",
+              "--samples", "8192", "selfcheck"])`` in process on the K7
               route, whose K7 launches must equal its log-joint's calls
               (counted by wrapping ``chees.run_chees``), with 50 finite
               forecast rows; one transition from its sampler's final state
@@ -92,22 +92,52 @@ process per source) and then runs these phases, each printing JSON lines:
               under force_plain at 128 + 128 transitions (none of its calls
               may launch K7).
 
-9. evaluate - the reference's main entry point, the rolling forecast
+9. samplers - the other engines of the command line, each through
+              ``bayes.main`` in process on the card's default route with
+              its run function wrapped to count the log-joint's calls and
+              its launch counts set to 0 just before: NUTS (the JAX
+              package's default command) and HMC on hyperpriors at the
+              JAX command line's defaults (4 chains, 400 + 512
+              transitions, trees up to depth 10, trajectories up to 1024
+              steps; NUTS at 200 warmup transitions), each in a worker
+              process of its own, started before the bayes phase's runs and
+              running beside them, the other samplers runs and the
+              evaluate phase, ADVI on hyperpriors
+              (1600 steps of 8 draws), HMC
+              (cut to 20 + 32 transitions) beside ADVI on anynoise,
+              full-rank ADVI and SMC (512 particles) on barebones.  NUTS's
+              trees (leapfrog steps per transition, depths and their
+              spread across chains, divergences), ms per transition and
+              per value and gradient, ESS, ESS/s and R-hat, and for NUTS
+              and HMC each chain's step size and mean; one NUTS (its state
+              on the host, as bayes keeps it) and one HMC transition of 64
+              chains from one state with the same draws on the K7 route
+              and under force_plain; NUTS with its tree state on the card
+              and on the host, in pairs of alternating order; K7 once
+              per log-joint call on the theta-only studies (none on
+              anynoise); 50 finite forecast rows and the theta-mean line
+              from each run; K7 against its plain version at each run's
+              batch (4, 8 x 44 x 44; 8, 512 x 20 x 20).  The checks that
+              read the workers' runs or time the card (the transitions,
+              the placement, K7) wait for the workers, after evaluate.
+
+10. evaluate - the reference's main entry point, the rolling forecast
               (``tutorial.evaluate``): the five studies' selfcheck data,
-              LBFGS 50 iterations (the fixtures' 200 cut, PERF.md), seed 0,
+              LBFGS 200 iterations (the fixtures' configuration), seed 0,
               batched in f32 on the card's default route (K7 with one mask
               per prefix for barebones, hyperpriors and events) against
               float64 on the card; barebones on bench.py's generator at n =
               128, K7's widest, 127 prefix fits in one (127, 128, 128) K7
-              batch a step, Adam 200 and LBFGS 50 on the K7 route and
+              batch a step, Adam 200 and LBFGS 200 on the K7 route and
               under force_plain; a sequential run against the batched one;
               walls, ms per batched value and gradient on both routes,
               iterations, stalls; K7 once per batched value and gradient
               (none under force_plain); K7 at 127 x 128 x 128 and 43 x 44 x
-              44 against its plain version.
+              44 against its plain version, once the samplers' workers are
+              done.
 
 With ``--phases a,b,...`` (of kernels, k5, k7, gate, stamps, slice, train,
-large, bayes, evaluate; k7 is the bayes phase's kernel checks without its sampler runs,
+large, bayes, samplers, evaluate; k7 is the bayes phase's kernel checks without its sampler runs,
 gate times K3 against K4 at n = 24576 to 65536 and stamps records the stages
 of K2, K5 and K4's chain step, both in no whole run) only those phases
 run, after device and build, and the script ends with ``{"ok": false,
@@ -115,7 +145,7 @@ run, after device and build, and the script ends with ``{"ok": false,
 
 With ``--profile``, one more phase follows:
 
-10. profile - one serving slice run, one train and one large value-and-gradient
+11. profile - one serving slice run, one train and one large value-and-gradient
               step, one 64-chain value and gradient of the bayes path and one
               127-prefix value and gradient of the evaluate path, on each
               path under torch.profiler: the device's busy time and idle
@@ -133,6 +163,7 @@ import contextlib
 import importlib
 import io
 import json
+import multiprocessing
 import statistics
 import subprocess
 import sys
@@ -145,7 +176,7 @@ import torch
 from gogp_torch import GP, make_gp_logp, masked_value_and_grad, matern32, mle, rbf, uniform_noise
 from gogp_torch.gp import core
 from gogp_torch.models.params import gp_observe, gp_posterior
-from gogp_torch.infer import chees, diagnostics
+from gogp_torch.infer import chees, diagnostics, hmc, nuts
 from gogp_torch.ops import _build, fused_gp, linalg
 from gogp_torch.ops import cholesky_blocked as cb
 from gogp_torch.tutorial import bayes
@@ -210,11 +241,12 @@ GATE_SIZES = (1024, 1536, 2048, 4096, 8192, N_LARGE)
 
 # The bayes path: the hyperpriors study under ChEES-HMC at the protocol of
 # benchmarks/ess_nuts.py:729 (run_chees_bench: 64 chains, 512 warmup and 512
-# sampling transitions, seed 0), through the command line on the K7 route.
-# The plain route's run, reported only, is cut to 128 + 128: a transition
-# took 0.31-0.48 s on an H100 host (PERF.md), so the protocol's 1024
-# transitions on both routes took 961 s of the script's 1200.
-BAYES_CHAINS, BAYES_WARMUP, BAYES_SAMPLES, BAYES_SEED = 64, 512, 512, 0
+# sampling transitions, seed 0) but cut to 128 + 128 transitions, through the
+# command line on the K7 route; the plain route's run, reported only, at 128
+# + 128 too.  A transition took 0.31-0.48 s on an H100 host (PERF.md): the
+# protocol's 1024 transitions took about 450 s, which the samplers phase
+# needs now.
+BAYES_CHAINS, BAYES_WARMUP, BAYES_SAMPLES, BAYES_SEED = 64, 128, 128, 0
 PLAIN_WARMUP, PLAIN_SAMPLES = 128, 128
 K7_BATCHES = (16, BAYES_CHAINS, 256)
 # K7 against the library pair at these n, 64 matrices each: the measurements
@@ -425,12 +457,18 @@ def value_and_grad_step(gp, x, y, v0, z):
     return masked_value_and_grad(make_gp_logp(gp, x=x, y=y))(v0)
 
 
-def fit(gp, x, y, v0, z):
+def fit(gp, x, y, v0, z, lbfgs_calls: list | None = None):
     """Adam from v0, LBFGS from v0 (the reference's default), both through
-    the front door."""
+    the front door; ``lbfgs_calls[0]`` counts LBFGS's objective calls."""
     logp = make_gp_logp(gp, x=x, y=y)
     adam = mle.adam(masked_value_and_grad(logp), v0, iters=ADAM_STEPS, threshold=0.0)
-    lbfgs = mle.lbfgs(logp, v0, iters=LBFGS_ITERS, threshold=LBFGS_THRESHOLD)
+
+    def counted(v):
+        if lbfgs_calls is not None:
+            lbfgs_calls[0] += 1
+        return logp(v)
+
+    lbfgs = mle.lbfgs(counted, v0, iters=LBFGS_ITERS, threshold=LBFGS_THRESHOLD)
     return adam, lbfgs
 
 
@@ -851,8 +889,12 @@ OFF_PATH_SOLVES = tuple(k for k in ("trsv_lower", "trsv_lower_t", "trsv2d_lower"
 # prefix fits, at 127 x 128 x 128 (barebones at EVAL_N) and 43 x 44 x 44
 # (hyperpriors).
 EVALUATE_KERNELS = ("fused_gp_linv",)
+# The samplers path's: K7, once per batched value-and-gradient of each
+# engine's run on a theta-only study, at that run's batch.
+SAMPLER_PATHS = ("samplers_nuts", "samplers_hmc", "samplers_advi", "samplers_advi_full", "samplers_smc")
 PATH_KERNELS = {"serve": SERVE_KERNELS, "train": TRAIN_KERNELS, "large": LARGE_KERNELS, "bayes": BAYES_KERNELS,
                 "evaluate": EVALUATE_KERNELS, "evaluate_hyperpriors": EVALUATE_KERNELS,
+                **{path: ("fused_gp_linv",) for path in SAMPLER_PATHS},
                 "kernels": ("chol_tile", *OFF_PATH_SOLVES)}
 
 
@@ -945,11 +987,12 @@ def phase_train(dev) -> dict:
         with ctx():
             step_ms[label] = wall_ms(lambda: value_and_grad_step(*args32))
             torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            adam, lbfgs = fit(*args32)
+            t0, calls = time.perf_counter(), [0]
+            adam, lbfgs = fit(*args32, lbfgs_calls=calls)
             torch.cuda.synchronize()
             fit_ms[label] = {"adam_and_lbfgs": (time.perf_counter() - t0) * 1e3,
-                             "lbfgs_iters": lbfgs.iters, "lbfgs_converged": lbfgs.converged}
+                             "lbfgs_iters": lbfgs.iters, "lbfgs_objective_calls": calls[0],
+                             "lbfgs_converged": lbfgs.converged, "lbfgs_stalled": lbfgs.stalled}
 
     emit({"phase": "train", "n": N_TRAIN, "m": M_TRAIN, "block": BLOCK,
           "bounds": TRAIN_BOUNDS, "errors": errors,
@@ -1125,8 +1168,7 @@ def phase_k7(dev) -> dict:
     """K7 against its plain version and the library pair at the bayes path's
     shapes and at K7_SIZES; returns {(path, key): row}.  Prints K7's dispatch
     limit beside the times that set it."""
-    rows = {(path, "fused_gp_linv"): check_kernel(path, "fused_gp_linv", *case, rtol=BAYES_BOUNDS["k7_rtol"])
-            for path, case in k7_cases(dev).items()}
+    rows = check_k7(k7_cases(dev))
     sizes = {rows[path, key]["shape"][-1]: {"k7_ms": rows[path, key]["ms"], "library_ms": rows[path, key]["library_ms"]}
              for path, key in rows if path == "bayes" or path.startswith("n=")}
     emit({"phase": "gates", "gate": "K7_MAX_N", "value": fused_gp.K7_MAX_N, "batch": BAYES_CHAINS,
@@ -1188,9 +1230,10 @@ def _posterior_summary(pos: torch.Tensor) -> dict:
             "max_bulk_rhat": max_rhat, "converged_rhat_1.01": converged, **diagnostics.diagnose(by_chain)}
 
 
-def phase_bayes(dev) -> dict:
-    # 1. K7 against its plain version at the path's shapes
-    rows = phase_k7(dev)
+def phase_bayes(dev, rows: dict | None = None) -> dict:
+    # 1. K7 against its plain version at the path's shapes (``rows``, where
+    # phase_k7 ran already)
+    rows = phase_k7(dev) if rows is None else rows
 
     # 2. the value and gradient of the log-joint the sampler runs, K7 route
     # (f32), against the plain route's in f64, at 256 positions
@@ -1214,10 +1257,10 @@ def phase_bayes(dev) -> dict:
     k7 = _posterior_summary(pos)
 
     # 3. one transition on both routes from one state, the same draws: the
-    # final state one transition on (its halton index, 2^10 + 1, gives a
-    # trajectory of about half the adapted length; the final state's own
-    # index 2^10 gives a single leapfrog step, whose positions the
-    # log-joint cannot change)
+    # final state one transition on (after 128 + 128 transitions its halton
+    # index, 2^8 + 1, gives a trajectory of about half the adapted length;
+    # the final state's own index 2^8 gives a single leapfrog step, whose
+    # positions the log-joint cannot change)
     gen = torch.Generator(device=dev).manual_seed(3)
     start = chees.chees_transition(logp, final._replace(rng=gen), free=free)
     fixed = chees.generator_draws(start)
@@ -1282,6 +1325,355 @@ def phase_bayes(dev) -> dict:
     if failures:
         raise AssertionError(f"bayes path: {failures}")
     return {"launches": launches, "rows": rows, "logps": (logp, plain_logp)}
+
+
+# The samplers path: every engine of the command line but ChEES, each through
+# ``bayes.main`` in process on the card's default route: K7 on the
+# theta-only studies (hyperpriors, barebones), the plain route on anynoise,
+# whose inputs and outputs are sampled too.  NUTS is the JAX package's
+# default command; anynoise under HMC beside ADVI is BASELINE.json's "HMC +
+# ADVI comparison".  Sizes: the JAX command line's defaults
+# (gogp_tpu/tutorial/bayes.py: 4 chains, 400 warmup transitions, 512
+# samples, NUTS's trees up to depth 10, HMC's trajectories up to 1024
+# leapfrog steps; ADVI 4 x 400 steps of 8 draws; SMC 512 particles), but
+# for two runs.  NUTS alone took 612 s at the defaults on an H100 (max bulk
+# R-hat 1.29), so it runs at NUTS_WARMUP warmup transitions, its trees
+# whole.  HMC on anynoise, whose f32 steps adapt to about 0.003 (about 300
+# leapfrog steps, 2.6 s, a transition there: its 528 transitions would take
+# 23 minutes), runs ANYNOISE_HMC transitions, its trajectories whole.  The
+# hyperpriors posterior has more than one mode in the seasonal period, 1-2
+# of 4 chains adapt a small step, and the lockstep pays their trees
+# (PERF.md).  So NUTS and HMC on hyperpriors each run in a worker
+# process of their own (SAMPLER_WORKERS), which a whole run starts before
+# the bayes phase's runs and waits for after the evaluate phase, while this
+# process takes those phases and the other runs: the runs are host-bound
+# (K7 0.019 ms of a 5-9 ms value and gradient) and the host has cores to
+# spare.  Nothing that times the card runs beside them.
+NUTS_WARMUP = ("--warmup", "200")
+ANYNOISE_HMC = ("--warmup", "20", "--samples", "32")
+SAMPLER_RUNS = (
+    ("nuts", ["hyperpriors", "--engine", "nuts", *NUTS_WARMUP, "selfcheck"]),
+    ("hmc", ["hyperpriors", "--engine", "hmc", "selfcheck"]),
+    ("advi", ["hyperpriors", "--engine", "advi", "selfcheck"]),
+    ("anynoise_hmc", ["anynoise", "--engine", "hmc", *ANYNOISE_HMC, "selfcheck"]),
+    ("anynoise_advi", ["anynoise", "--engine", "advi", "selfcheck"]),
+    ("advi_full", ["barebones", "--engine", "advi-full", "selfcheck"]),
+    ("smc", ["barebones", "--engine", "smc", "selfcheck"]),
+)
+SAMPLER_WORKERS = ("nuts", "hmc")
+# The function each engine runs, wrapped to count its log-joint's calls.
+SAMPLER_FNS = {"nuts": ("nuts", "run_nuts"), "hmc": ("hmc", "run_hmc"), "advi": ("advi", "run_advi"),
+               "advi-full": ("advi", "run_advi_fullrank"), "smc": ("smc", "run_smc")}
+# The one-transition check: NUTS and HMC at this many chains from one state
+# with the same draws, on the K7 route and under force_plain (f32 both).
+SAMPLER_CHECK_CHAINS = 64
+# Bounds of the one-transition check, per chain, about 10 times the largest
+# an H100 showed on either engine (PERF.md): positions absolute (1.3e-4),
+# log-joints relative (4.1e-5), acceptance probabilities absolute (2.6e-3).
+# Every HMC chain must agree and take the same accept decision.  A NUTS
+# chain can build another tree or take another leaf where f32 rounding tips
+# a U-turn or a multinomial draw (2 of 64 did there), so at least
+# nuts_agree of the chains must agree.
+SAMPLER_BOUNDS = {"position_atol": 1.5e-3, "logp_rtol": 4e-4, "accept_atol": 2.5e-2,
+                  "nuts_agree": SAMPLER_CHECK_CHAINS - 4}
+# The K7 shapes of the samplers path, by run: the chains, draws or
+# particles of one batched value and gradient.
+SAMPLER_K7 = {"nuts": ("hyperpriors", 4), "hmc": ("hyperpriors", 4), "advi": ("hyperpriors", 8),
+              "advi_full": ("barebones", 8), "smc": ("barebones", 512)}
+
+
+def run_engine(argv: list[str]) -> dict:
+    """``bayes.main(argv)`` in process, its output captured, with the
+    engine's run function wrapped to count its log-joint's calls and keep
+    its result (and, for NUTS, to record each transition's trees and read
+    the host clock, after a synchronize, where sampling begins).  The launch
+    counts are set to 0 just before ``bayes.main`` and read just after."""
+    engine = argv[argv.index("--engine") + 1]
+    module, name = SAMPLER_FNS[engine]
+    module = importlib.import_module(f"gogp_torch.infer.{module}")
+    real, calls, mark, trace, shapes, results = getattr(module, name), [0], {}, [], set(), []
+
+    def wrapped(logp, *args, **kwargs):
+        def counted(V):
+            calls[0] += 1
+            shapes.add(tuple(V.shape))
+            return logp(V)
+
+        if engine == "nuts":
+            kwargs["trace"] = trace
+            transitions = [0]
+
+            def draws(state):
+                if transitions[0] == kwargs["num_warmup"]:  # the first sampling transition
+                    torch.cuda.synchronize()
+                    mark.update(t=time.perf_counter(), calls=calls[0])
+                transitions[0] += 1
+                return nuts.generator_draws(state)
+
+            kwargs["draws"] = draws
+        torch.cuda.synchronize()
+        mark.update(t0=time.perf_counter())
+        results.append(real(counted, *args, **kwargs))
+        torch.cuda.synchronize()
+        mark.update(t1=time.perf_counter())
+        return results[-1]
+
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    with contextlib.redirect_stdout(out), unittest.mock.patch.object(module, name, wrapped):
+        cb.reset_launch_counts()
+        t0 = time.perf_counter()
+        bayes.main(argv)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = cb.LAUNCHES["fused_gp_linv"]
+    lines = out.getvalue().strip().splitlines()
+    rows = np.array([[float(v) for v in line.split(",")] for line in lines[:-1]])
+    return {"argv": argv, "wall_s": wall_s, "sampler_wall_s": mark["t1"] - mark["t0"], "k7_launches": launches,
+            "vg_calls": calls[0], "batch_shapes": sorted(shapes), "trace": trace, "mark": mark,
+            "result": results[0], "theta_mean_line": lines[-1], "forecast_rows": list(rows.shape),
+            "forecast_ok": bool(rows.shape == (50, 4) and np.isfinite(rows[:, [0, 2, 3]]).all()
+                                and (rows[:, 3] > 0).all() and lines[-1].startswith("# posterior theta mean: "))}
+
+
+def chains_report(samples) -> dict:
+    """Each chain's adapted step size and posterior mean, and the
+    diagnostics over the chains, of an HMC or NUTS run."""
+    summ = _posterior_summary(samples.positions)
+    return {"step_size": samples.state.step_size.tolist(),
+            "chain_mean": samples.positions.double().mean(0).tolist(),
+            "mean_accept_sampling": float(samples.accept_probs.mean()),
+            "min_bulk_ess": summ["min_bulk_ess"], "max_bulk_rhat": summ["max_bulk_rhat"],
+            "posterior_mean": summ["mean"].tolist()}
+
+
+def nuts_report(run: dict) -> dict:
+    """The NUTS run's trees, times and diagnostics."""
+    trace, mark, samples = run["trace"], run["mark"], run["result"]
+    warmup = len(trace) - samples.positions.shape[0]
+    sampling = trace[warmup:]
+    leap = [t.leapfrogs for t in trace]
+    depths = torch.stack([t.depth for t in trace]).cpu()
+    spread = (depths.max(1).values - depths.min(1).values).double()
+    walls = {"init_and_warmup": mark["t"] - mark["t0"], "sampling": mark["t1"] - mark["t"]}
+    chains = chains_report(samples)
+    return {"chains": samples.positions.shape[1], "warmup": warmup, "samples_per_chain": len(sampling),
+            "leapfrogs_per_transition": {"median": statistics.median(leap), "max": max(leap),
+                                         "sampling_median": statistics.median([t.leapfrogs for t in sampling])},
+            "tree_depth": {"median": float(depths.double().median()), "max": int(depths.max()),
+                           "spread_mean": float(spread.mean()), "spread_max": int(spread.max())},
+            # the share of the batch's leapfrog steps that a chain spent frozen
+            "lockstep_idle_share": 1.0 - float(torch.stack([t.num_leaves for t in trace]).double().mean())
+                                   / statistics.mean(leap),
+            "divergences_sampling": int(sum(int(t.diverging.sum()) for t in sampling)),
+            "wall_s": walls,
+            "vg_calls_by_stage": {"init_and_warmup": mark["calls"], "sampling": run["vg_calls"] - mark["calls"]},
+            "ms_per_transition": 1e3 * sum(walls.values()) / len(trace),
+            "ms_per_transition_sampling": 1e3 * walls["sampling"] / len(sampling),
+            "ms_per_vg": 1e3 * sum(walls.values()) / run["vg_calls"],
+            **chains,
+            "ess_per_s_sampling": chains["min_bulk_ess"] / walls["sampling"],
+            "ess_per_s_total": chains["min_bulk_ess"] / sum(walls.values())}
+
+
+def sampler_run(label: str, argv: list[str]) -> dict:
+    """One run of the samplers path in this process, reduced to what the
+    phase reports and checks (plain values, so that a worker process can
+    hand it back): K7's launches in the run, and for NUTS and HMC each
+    chain's adapted step size and inverse mass."""
+    run = run_engine(argv)
+    report = {"phase": "samplers", "run": label, "argv": run["argv"], "main_wall_s": run["wall_s"],
+              "sampler_wall_s": run["sampler_wall_s"], "vg_calls": run["vg_calls"],
+              "batch_shapes": run["batch_shapes"], "k7_launches": run["k7_launches"],
+              "ms_per_vg": 1e3 * run["sampler_wall_s"] / max(run["vg_calls"], 1),
+              "forecast_ok": run["forecast_ok"], "forecast_rows": run["forecast_rows"],
+              "theta_mean_line": run["theta_mean_line"]}
+    samples = run["result"]
+    if argv[argv.index("--engine") + 1] in ("nuts", "hmc"):
+        report.update(nuts_report(run) if label == "nuts" else chains_report(samples),
+                      draws_finite=bool(torch.isfinite(samples.positions).all()),
+                      inv_mass=samples.state.inv_mass.tolist())
+    return report
+
+
+def sampler_worker(label: str, argv: list[str]) -> dict:
+    """:func:`sampler_run` in a worker process (spawned: it sets up the card
+    as the main process does and loads the kernels the main process built)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.library()
+    report = sampler_run(label, argv)
+    torch.cuda.synchronize()
+    return report
+
+
+def fixed_nuts_draws(seed: int):
+    """NUTS draws that depend only on (seed, depth, leaf) and the device:
+    the same on both routes and in every call."""
+
+    def draws(state):
+        chains, dim = state.position.shape
+        like = dict(dtype=state.position.dtype, device=state.position.device)
+
+        def gen(*key):
+            return torch.Generator(device=like["device"]).manual_seed(hash((seed, *key)) % 2**31)
+
+        return nuts.NUTSDraws(torch.randn((chains, dim), generator=gen(-1), **like),
+                              lambda d: torch.rand((chains,), generator=gen(-2, d), **like) < 0.5,
+                              lambda d: torch.rand((chains,), generator=gen(-3, d), **like),
+                              lambda d, n: torch.rand((chains,), generator=gen(d, n), **like))
+
+    return draws
+
+
+def state_to(state: hmc.HMCState, device) -> hmc.HMCState:
+    """An HMCState on ``device`` (a new generator there)."""
+    moved = [v.to(device) if isinstance(v, torch.Tensor) else type(v)(*(t.to(device) for t in v))
+             for v in state[:-1]]
+    return hmc.HMCState(*moved, torch.Generator(device=device).manual_seed(0))
+
+
+def nuts_placement(logp, free, start: hmc.HMCState, dev, pairs: int = 4, transitions: int = 4) -> dict:
+    """ms per leapfrog step of NUTS transitions from ``start`` with the
+    sampler's state on the card, and on the host as ``bayes`` keeps it
+    (``bayes.on_host``: each batch copied to the card, its value and
+    gradient back in one copy), in ``pairs`` pairs whose order alternates;
+    beside one batched value and gradient alone."""
+    ms = {"card": [], "host": []}
+    for i in range(pairs):
+        for where in ("card", "host") if i % 2 == 0 else ("host", "card"):
+            device = dev if where == "card" else torch.device("cpu")
+            lp = logp if where == "card" else bayes.on_host(logp, dev)
+            state, fr, trace = state_to(start, device), free.to(device), []
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for k in range(transitions):
+                state = nuts.nuts_transition(lp, state, 10, fr, fixed_nuts_draws(10 + k), trace)
+            torch.cuda.synchronize()
+            ms[where].append(1e3 * (time.perf_counter() - t0) / sum(t.leapfrogs for t in trace))
+    vg = hmc.value_and_grad(logp, free)
+    return {"chains": start.position.shape[0], "pairs": pairs, "transitions": transitions,
+            "ms_per_leapfrog": ms, "host_over_card": [h / c for h, c in zip(ms["host"], ms["card"])],
+            "vg_alone_ms": wall_ms(lambda: vg(start.position), reps=20)}
+
+
+def transition_agreement(k7: hmc.HMCState, plain: hmc.HMCState) -> tuple[dict, int]:
+    """Per chain, the two routes' positions, log-joints and acceptance
+    probabilities against SAMPLER_BOUNDS: the largest errors over the
+    chains that agree and over all, and how many agree."""
+    errs = {"position": (k7.position - plain.position).abs().amax(1),
+            "logp_rel": (k7.logp - plain.logp).abs() / plain.logp.abs(),
+            "accept": (k7.accept_prob - plain.accept_prob).abs()}
+    ok = ((errs["position"] <= SAMPLER_BOUNDS["position_atol"]) & (errs["logp_rel"] <= SAMPLER_BOUNDS["logp_rtol"])
+          & (errs["accept"] <= SAMPLER_BOUNDS["accept_atol"]))
+    report = {"chains_agreeing": int(ok.sum()), "chains": int(ok.numel()), "bounds": SAMPLER_BOUNDS,
+              "max_err_agreeing": {k: float(v[ok].max()) if ok.any() else None for k, v in errs.items()},
+              "max_err_all": {k: float(v.max()) for k, v in errs.items()},
+              "mean_accept": float(k7.accept_prob.mean())}
+    return report, int(ok.sum())
+
+
+def check_start(logp, free, chains: int, step: float, inv_mass: torch.Tensor, dev) -> hmc.HMCState:
+    """``chains`` chains around v0 at one step size and inverse mass."""
+    start = hmc.init_state(logp, bayes_positions(chains, dev, seed=4), torch.Generator(device=dev).manual_seed(0),
+                           free=free)
+    return start._replace(step_size=torch.full_like(start.step_size, step),
+                          inv_mass=inv_mass.to(start.inv_mass).expand_as(start.inv_mass).clone())
+
+
+def start_sampler_workers():
+    """The SAMPLER_WORKERS runs of the samplers path, each started in a
+    worker process of its own: (the pool, {label: its pending report})."""
+    pool = multiprocessing.get_context("spawn").Pool(len(SAMPLER_WORKERS))
+    return pool, {label: pool.apply_async(sampler_worker, (label, argv))
+                  for label, argv in SAMPLER_RUNS if label in SAMPLER_WORKERS}
+
+
+def sampler_runs_here() -> dict:
+    """The samplers path's other runs, in this process: {label: report}."""
+    return {label: sampler_run(label, argv) for label, argv in SAMPLER_RUNS if label not in SAMPLER_WORKERS}
+
+
+def phase_samplers(dev) -> dict:
+    pool, pending = start_sampler_workers()
+    with pool:
+        return finish_samplers(dev, sampler_runs_here(), pending)
+
+
+def finish_samplers(dev, here: dict, pending: dict) -> dict:
+    """The samplers path once its runs in this process (``here``) are done:
+    waits for the workers' runs (``pending``), checks and reports every
+    run, then the one-transition check, NUTS's placement and K7 at each
+    run's batch, which time the card with no worker running."""
+    failures = []
+    # the main path: each engine's command line, NUTS and HMC in worker
+    # processes beside the others, each run's launches counted from 0
+    reports = {**here, **{label: result.get() for label, result in pending.items()}}
+    for label, argv in SAMPLER_RUNS:
+        report = reports[label]
+        want = 0 if bayes.get_study(argv[0])[1].optinp else report["vg_calls"]
+        if report["k7_launches"] != want:
+            failures.append(f"{label}: K7 launched {report['k7_launches']} times in {report['vg_calls']} log-joint "
+                            f"calls (want {want})")
+        if not report["forecast_ok"]:
+            failures.append(f"{label}: not 50 finite forecast rows with sigma > 0 and the theta-mean line")
+        if not report.get("draws_finite", True):
+            failures.append(f"{label}: non-finite draws")
+        emit({**{k: v for k, v in report.items() if k != "inv_mass"}, "in_worker": label in SAMPLER_WORKERS})
+
+    # the one-transition check: NUTS and HMC at SAMPLER_CHECK_CHAINS chains
+    # from one state (around v0, at the NUTS run's median step size and mean
+    # inverse mass), the same draws, on the K7 route and under force_plain;
+    # NUTS with its state on the host, as bayes.main keeps it
+    _, _, _, logp, _, _, free = bayes_problem(dev)
+    plain_logp = bayes_problem(dev, plain=True)[3]
+    nuts_step = statistics.median(reports["nuts"]["step_size"])
+    nuts_mass = torch.tensor(reports["nuts"]["inv_mass"]).mean(0)
+    start = check_start(logp, free, SAMPLER_CHECK_CHAINS, nuts_step, nuts_mass, dev)
+    hmc_draws = hmc.generator_draws(start._replace(rng=torch.Generator(device=dev).manual_seed(8)))
+    host = torch.device("cpu")
+    checks = {}
+    for engine in ("nuts", "hmc"):
+        out, traces = {}, {}
+        for label, lp in (("k7", logp), ("plain", plain_logp)):
+            traces[label] = []
+            out[label] = (nuts.nuts_transition(bayes.on_host(lp, dev), state_to(start, host), free=free.to(host),
+                                               draws=fixed_nuts_draws(7), trace=traces[label])
+                          if engine == "nuts" else hmc.hmc_transition(lp, start, free=free, draws=lambda s: hmc_draws))
+        checks[engine], agree = transition_agreement(out["k7"], out["plain"])
+        if engine == "nuts":
+            checks[engine]["leapfrogs"] = {label: t[0].leapfrogs for label, t in traces.items()}
+            checks[engine]["chains_of_another_depth"] = int((traces["k7"][0].depth != traces["plain"][0].depth).sum())
+            if not agree >= SAMPLER_BOUNDS["nuts_agree"]:
+                failures.append(f"nuts transition: {agree} chains agree on the two routes, "
+                                f"fewer than {SAMPLER_BOUNDS['nuts_agree']}")
+        else:
+            same = bool(torch.equal(hmc_draws[1] < out["k7"].accept_prob, hmc_draws[1] < out["plain"].accept_prob))
+            checks[engine]["same_accept_decisions"] = same
+            if agree < SAMPLER_CHECK_CHAINS or not same:
+                failures.append(f"hmc transition: {agree} chains agree on the two routes (want all), "
+                                f"same accept decisions: {same}")
+    chains = reports["nuts"]["chains"]
+    emit({"phase": "samplers", "check": f"one transition of {SAMPLER_CHECK_CHAINS} chains on both routes", **checks,
+          "nuts_placement": nuts_placement(logp, free, check_start(logp, free, chains, nuts_step, nuts_mass, dev),
+                                           dev)})
+    emit({"phase": "samplers", "comparison": "anynoise: HMC beside ADVI, posterior theta means",
+          "hmc": reports["anynoise_hmc"]["theta_mean_line"], "advi": reports["anynoise_advi"]["theta_mean_line"]})
+
+    # K7 against its plain version at the path's shapes
+    cases = {}
+    for label, (study_name, count) in SAMPLER_K7.items():
+        _, study, data = bayes.get_study(study_name)
+        K = bayes_covs(study, tio.load_csv(data)[0], bayes_positions(count, dev, seed=9)[:, :study.gp.n_theta])
+        eye = torch.eye(K.shape[-1], dtype=K.dtype, device=dev)
+        cases[f"samplers_{label}"] = (
+            lambda K=K: fused_gp.fused_gp_linv(K), lambda K=K: fused_gp.linv_plain(K), K.shape, 50,
+            lambda K=K, eye=eye: torch.linalg.solve_triangular(torch.linalg.cholesky(K), eye, upper=False))
+    rows = check_k7(cases)
+    if failures:
+        raise AssertionError(f"samplers path: {failures}")
+    return {"launches": {f"samplers_{label}": {"fused_gp_linv": reports[label]["k7_launches"]} for label in SAMPLER_K7},
+            "rows": rows}
 
 
 # The evaluate path: the reference's main entry point (tutorial.evaluate, the
@@ -1528,18 +1920,20 @@ def phase_evaluate(dev) -> dict:
     if not seq_err <= EVAL_BOUNDS["sequential"]:
         failures.append(f"sequential against batched: {seq_err:.3e} > {EVAL_BOUNDS['sequential']}")
 
-    # K7 at the path's shapes: the fits' first covariances
-    rows = {("evaluate", "fused_gp_linv"): check_kernel(
-                "evaluate", "fused_gp_linv", *eval_k7_case(study, wide["lbfgs"]["result"], dev),
-                rtol=BAYES_BOUNDS["k7_rtol"]),
-            ("evaluate_hyperpriors", "fused_gp_linv"): check_kernel(
-                "evaluate_hyperpriors", "fused_gp_linv",
-                *eval_k7_case(eval_study("hyperpriors")[0], runs32["hyperpriors"]["result"], dev),
-                rtol=BAYES_BOUNDS["k7_rtol"])}
     if failures:
         raise AssertionError(f"evaluate path: {failures}")
-    return {"launches": launches, "hyperpriors_launches": {"fused_gp_linv": study_launches["hyperpriors"]}, "rows": rows,
-            "batch": lambda: eval_batch(study, wide["lbfgs"]["result"], dev)}
+    # K7 at the path's shapes, the fits' first covariances: for check_k7
+    k7_cases = {"evaluate": eval_k7_case(study, wide["lbfgs"]["result"], dev),
+                "evaluate_hyperpriors": eval_k7_case(eval_study("hyperpriors")[0], runs32["hyperpriors"]["result"],
+                                                     dev)}
+    return {"launches": launches, "hyperpriors_launches": {"fused_gp_linv": study_launches["hyperpriors"]},
+            "k7_cases": k7_cases, "batch": lambda: eval_batch(study, wide["lbfgs"]["result"], dev)}
+
+
+def check_k7(cases: dict) -> dict:
+    """K7 against its plain version on each path's case: {(path, key): row}."""
+    return {(path, "fused_gp_linv"): check_kernel(path, "fused_gp_linv", *case, rtol=BAYES_BOUNDS["k7_rtol"])
+            for path, case in cases.items()}
 
 
 def _device_busy_us(events) -> float:
@@ -1746,13 +2140,14 @@ def _partial_slice(dev) -> None:
 # no whole run) the tile body's stage cycles and K4's chain step.
 PARTIAL_PHASES = {"kernels": phase_kernels, "k5": phase_k5, "k7": phase_k7, "gate": phase_gate,
                   "slice": _partial_slice,
-                  "train": phase_train, "large": phase_large, "bayes": phase_bayes, "evaluate": phase_evaluate,
+                  "train": phase_train, "large": phase_large, "bayes": phase_bayes, "samplers": phase_samplers,
+                  "evaluate": lambda dev: check_k7(phase_evaluate(dev)["k7_cases"]),
                   "stamps": phase_stamps}
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--profile", action="store_true", help="also run phase 9 (torch.profiler)")
+    parser.add_argument("--profile", action="store_true", help="also run the profile phase (torch.profiler)")
     parser.add_argument("--phases", type=lambda v: v.split(","), metavar="a,b,...",
                         help=f"run only these phases ({', '.join(PARTIAL_PHASES)}), for work on one kernel or "
                              "path; such a run ends with {\"ok\": false, \"partial\": [...]} and exit code 2")
@@ -1773,11 +2168,15 @@ def main() -> int:
         return 2
     peak_gib = {}
 
+    seconds = {}
+
     def measured(name, fn, *a):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
         out = fn(*a)
         torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
         peak_gib[name] = torch.cuda.max_memory_allocated() / 2**30
         return out
 
@@ -1789,19 +2188,30 @@ def main() -> int:
     measured("launches", phase_launches, serve_launches, slice_args32)
     train = measured("train", phase_train, dev)
     large = measured("large", phase_large, dev)
-    bayes_out = measured("bayes", phase_bayes, dev)
+    bayes_rows = measured("k7", phase_k7, dev)
+    # NUTS and HMC on hyperpriors, the longest runs, in worker processes from
+    # here on, beside the bayes, samplers and evaluate phases in this process
+    # (every run is host-bound); the phases that time kernels run with no
+    # worker beside them
+    pool, pending = start_sampler_workers()
+    with pool:
+        bayes_out = measured("bayes", phase_bayes, dev, bayes_rows)
+        here = measured("samplers", sampler_runs_here)
+        evaluate_out = measured("evaluate", phase_evaluate, dev)
+        samplers_out = measured("samplers_workers", finish_samplers, dev, here, pending)
     kernels.update(bayes_out["rows"])
-    evaluate_out = measured("evaluate", phase_evaluate, dev)
-    kernels.update(evaluate_out["rows"])
+    kernels.update(samplers_out["rows"])
+    kernels.update(measured("evaluate_k7", check_k7, evaluate_out["k7_cases"]))
     if args.profile:
         measured("profile", phase_profile, slice_args32, train["args32"], large["args32"], bayes_out["logps"],
                  evaluate_out["batch"])
-    emit({"phase": "memory", "peak_gib": peak_gib})
+    emit({"phase": "memory", "peak_gib": peak_gib, "seconds": seconds})
     # one entry per kernel and path that launches it: the path's launch
     # count beside the error and times at the shapes that path gives it
     launches = {"serve": serve_launches, "train": train["launches"], "large": large["launches"],
                 "bayes": bayes_out["launches"], "evaluate": evaluate_out["launches"],
-                "evaluate_hyperpriors": evaluate_out["hyperpriors_launches"], "kernels": kernels_launches}
+                "evaluate_hyperpriors": evaluate_out["hyperpriors_launches"], **samplers_out["launches"],
+                "kernels": kernels_launches}
     emit({"kernels": [
         {"name": f"{name} ({path}, {'x'.join(map(str, row['shape']))})", "route": "cuda",
          "source": source, "replaces": replaces, "launches": launches[path][key],

@@ -2,7 +2,9 @@
 
 The JAX package's state is a handful of arrays: theta vectors, flat parameter
 vectors, the fields of a ``gogp_tpu.gp.core.Posterior``, of a
-``gogp_tpu.infer.mle.OptResult`` and of a ``gogp_tpu.infer.chees.ChEESState``.
+``gogp_tpu.infer.mle.OptResult``, of a ``gogp_tpu.infer.chees.ChEESState``
+and of a chain batch of ``gogp_tpu.infer.hmc.HMCState`` (the NUTS and HMC
+state under ``jax.vmap``).
 The caller turns them into numpy arrays (``np.asarray``) and these functions
 put them on the device the caller names.  This module does not import JAX.
 """
@@ -17,6 +19,7 @@ import torch
 from gogp_torch.gp.core import Posterior
 from gogp_torch.infer import adapt
 from gogp_torch.infer.chees import AdamState, ChEESState
+from gogp_torch.infer.hmc import HMCState
 from gogp_torch.infer.mle import OptResult
 
 
@@ -86,5 +89,36 @@ def chees_state_from_numpy(state: Mapping[str, Any] | Any, device, dtype: torch.
         adam=AdamState(t(adam["m"]), t(adam["v"]), count(adam["t"])),
         welford=adapt.WelfordState(t(welford["count"]), t(welford["mean"]), t(welford["m2"])),
         step=int(np.asarray(f["step"])),
+        rng=rng,
+    )
+
+
+def hmc_state_from_numpy(state: Mapping[str, Any] | Any, device, dtype: torch.dtype | None = None,
+                         rng: torch.Generator | None = None) -> HMCState:
+    """An :class:`HMCState` from the leaves of a ``jax.vmap``-ed JAX one (the
+    chain axis first on every leaf).  The iteration counter of dual
+    averaging and the Welford count, equal on every chain, become the port's
+    one shared value.  ``rng`` as in :func:`chees_state_from_numpy`."""
+    f = _fields(state)
+
+    def t(a):
+        return array_from_numpy(a, device, dtype)
+
+    def shared(a, dt=dtype):
+        a = np.asarray(a)
+        if not (a == a.reshape(-1)[0]).all():
+            raise ValueError("a counter that differs between chains cannot be shared")
+        return array_from_numpy(a.reshape(-1)[0], device, dt)
+
+    da, welford = _fields(f["da"]), _fields(f["welford"])
+    if rng is None:
+        rng = torch.Generator(device=device).manual_seed(0)
+    return HMCState(
+        position=t(f["position"]), logp=t(f["logp"]), grad=t(f["grad"]), step_size=t(f["step_size"]),
+        inv_mass=t(f["inv_mass"]),
+        da=adapt.DualAveragingState(t(da["log_step"]), t(da["log_step_avg"]), t(da["gradient_avg"]),
+                                    shared(da["t"], torch.int32), t(da["mu"])),
+        welford=adapt.WelfordState(shared(welford["count"]), t(welford["mean"]), t(welford["m2"])),
+        accept_prob=t(f["accept_prob"]),
         rng=rng,
     )

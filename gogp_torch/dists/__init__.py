@@ -4,11 +4,15 @@ PyTorch twin of ``gogp_tpu/dists/__init__.py`` (Infergo's ``dist`` package as
 the tutorials use it).  Every function broadcasts and differentiates under
 autograd.  Arguments may mix tensors and Python numbers; numbers take the
 dtype and device of the first tensor argument (torch's default dtype if
-there is none).
+there is none); a tuple of numbers is a vector.  A number or tuple becomes
+a tensor once per dtype and device: on a card each new one is a copy from
+the host that waits for the card, and a sampler calls its priors once per
+leapfrog step.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -22,7 +26,13 @@ def _tensors(*args) -> list[Tensor]:
     ref = next((a for a in args if isinstance(a, Tensor)), None)
     dtype = torch.get_default_dtype() if ref is None else ref.dtype
     device = None if ref is None else ref.device
-    return [torch.as_tensor(a, dtype=dtype, device=device) for a in args]
+    return [_constant(a, dtype, device) if isinstance(a, (int, float, tuple))
+            else torch.as_tensor(a, dtype=dtype, device=device) for a in args]
+
+
+@functools.lru_cache(maxsize=256)
+def _constant(value, dtype: torch.dtype, device) -> Tensor:
+    return torch.as_tensor(value, dtype=dtype, device=device)
 
 
 def normal_logp(mu, sigma, x):

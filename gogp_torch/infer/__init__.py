@@ -1,4 +1,14 @@
 from gogp_torch.infer import adapt, diagnostics, mle  # noqa: F401
+from gogp_torch.infer.advi import (  # noqa: F401
+    ADVIResult,
+    FullRankADVIResult,
+    elbo,
+    elbo_fullrank,
+    run_advi,
+    run_advi_fullrank,
+    sample_posterior,
+    sample_posterior_fullrank,
+)
 from gogp_torch.infer.chees import (  # noqa: F401
     ChEESState,
     chees_init,
@@ -9,3 +19,15 @@ from gogp_torch.infer.chees import (  # noqa: F401
     run_chees,
 )
 from gogp_torch.infer.diagnostics import ess, split_rhat  # noqa: F401
+from gogp_torch.infer.hmc import (  # noqa: F401
+    HMCState,
+    IntegratorState,
+    Samples,
+    hmc_transition,
+    init_state,
+    leapfrog,
+    run_hmc,
+)
+from gogp_torch.infer.mle import OptResult, adam, lbfgs  # noqa: F401
+from gogp_torch.infer.nuts import nuts_transition, run_nuts  # noqa: F401
+from gogp_torch.infer.smc import SMCResult, run_smc  # noqa: F401

@@ -35,7 +35,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from gogp_torch.infer import adapt
-from gogp_torch.infer.hmc import IntegratorState, Samples, kinetic, leapfrog
+from gogp_torch.infer.hmc import IntegratorState, Samples, as_free, kinetic, leapfrog, value_and_grad
 
 Tensor = torch.Tensor
 LogDensity = Callable[[Tensor], Tensor]
@@ -109,26 +109,6 @@ def _halton2(i: int | Tensor) -> Tensor:
     return val
 
 
-def _value_and_grad(logp: LogDensity, free: Tensor | None) -> Callable[[Tensor], tuple[Tensor, Tensor]]:
-    """``q -> (logp(q), d logp / dq)`` for a (chains, dim) batch, by
-    autograd; the gradient masked by ``free``."""
-
-    def vg(q: Tensor) -> tuple[Tensor, Tensor]:
-        q = q.detach().requires_grad_(True)
-        with torch.enable_grad():
-            lp = logp(q)
-            (g,) = torch.autograd.grad(lp.sum(), q)
-        if free is not None:
-            g = g * free
-        return lp.detach(), g
-
-    return vg
-
-
-def _free(free, like: Tensor) -> Tensor | None:
-    return None if free is None else torch.as_tensor(free, dtype=like.dtype, device=like.device)
-
-
 def chees_init(
     logp: LogDensity,
     positions: Tensor,
@@ -138,7 +118,7 @@ def chees_init(
     free: Tensor | None = None,
 ) -> ChEESState:
     positions = torch.atleast_2d(torch.as_tensor(positions))
-    vals, grads = _value_and_grad(logp, _free(free, positions))(positions)
+    vals, grads = value_and_grad(logp, as_free(free, positions))(positions)
     chains, dim = positions.shape
     like = dict(dtype=positions.dtype, device=positions.device)
     return ChEESState(
@@ -179,8 +159,8 @@ def chees_transition(
     """One population transition: shared jittered trajectory, batched
     leapfrog, per-chain Metropolis, and with ``adapt_traj`` one ChEES
     gradient step on log T."""
-    freea = _free(free, state.positions)
-    vg = _value_and_grad(logp, freea)
+    freea = as_free(free, state.positions)
+    vg = value_and_grad(logp, freea)
     r0_raw, u_acc = draws(state)
 
     n_steps, t_real = n_leapfrog_steps(state, max_num_steps)

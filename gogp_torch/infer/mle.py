@@ -79,6 +79,29 @@ def adam(
     return OptResult(res.x[0], res.value[0], int(res.iters[0]), bool(res.converged[0]), bool(res.stalled[0]))
 
 
+class AdamState(NamedTuple):
+    """``optax.adam``'s state: the moments of each parameter and the count."""
+
+    mu: tuple[Tensor, ...]
+    nu: tuple[Tensor, ...]
+    count: int
+
+
+def adam_init(params) -> AdamState:
+    return AdamState(tuple(torch.zeros_like(p) for p in params), tuple(torch.zeros_like(p) for p in params), 0)
+
+
+def adam_update(grads, state: AdamState, rate: float, b1: float = 0.9, b2: float = 0.999,
+                eps: float = 1e-8) -> tuple[tuple[Tensor, ...], AdamState]:
+    """``optax.adam(rate).update``: the updates (to add to the parameters,
+    which descends) and the new state, in optax's arithmetic."""
+    count = state.count + 1
+    mu = tuple((1 - b1) * g + b1 * m for g, m in zip(grads, state.mu))
+    nu = tuple((1 - b2) * (g * g) + b2 * v for g, v in zip(grads, state.nu))
+    updates = tuple(-rate * ((m / (1 - b1**count)) / (torch.sqrt(v / (1 - b2**count)) + eps)) for m, v in zip(mu, nu))
+    return updates, AdamState(mu, nu, count)
+
+
 def _row_gmax(g: Tensor) -> Tensor:
     """The largest |g| of each row; 0 for rows of no coordinates."""
     return g.abs().amax(-1) if g.shape[-1] else g.new_zeros(g.shape[:-1])
@@ -96,31 +119,27 @@ def adam_batched(
     threshold or non-finite value, its x and moments frozen from then on.
     Rows only ever stop, so every running row has taken the same number of
     steps: the bias correction is the batch's step count."""
-    b1, b2, eps = 0.9, 0.999, 1e-8
     x = torch.as_tensor(x0).detach().clone()
     rows = x.shape[0]
-    mu, nu = torch.zeros_like(x), torch.zeros_like(x)
+    moments = adam_init((x,))
     value = x.new_zeros(rows)  # -logp, last finite
     bad = torch.zeros(rows, dtype=torch.bool, device=x.device)
     steps = torch.zeros(rows, dtype=torch.int64, device=x.device)
     gmax = torch.full((rows,), math.inf, dtype=x.dtype, device=x.device)
     active = torch.full((rows,), iters > 0, dtype=torch.bool, device=x.device)
-    step = 0
     while bool(active.any()):
         v, g = value_and_grad_logp(x)
         v, g = -v, -g  # minimize -logp
         finite = torch.isfinite(v) & torch.isfinite(g).all(-1)
         g = torch.where(finite[:, None], g, 0.0)
         value = torch.where(active & finite, v, value)
-        step += 1
         steps = steps + active
-        mu_new = (1 - b1) * g + b1 * mu
-        nu_new = (1 - b2) * (g * g) + b2 * nu
-        mu_hat, nu_hat = mu_new / (1 - b1**step), nu_new / (1 - b2**step)
-        update = -rate * (mu_hat / (torch.sqrt(nu_hat) + eps))
+        (update,), new = adam_update((g,), moments, rate)
         x_new = x + torch.where(finite[:, None], update, 0.0)
         on = active[:, None]
-        x, mu, nu = torch.where(on, x_new, x), torch.where(on, mu_new, mu), torch.where(on, nu_new, nu)
+        x = torch.where(on, x_new, x)
+        moments = AdamState((torch.where(on, new.mu[0], moments.mu[0]),), (torch.where(on, new.nu[0], moments.nu[0]),),
+                            new.count)
         bad = bad | (active & ~finite)
         gmax = torch.where(active, torch.where(finite, _row_gmax(g), 0.0), gmax)
         active = active & (steps < iters) & (gmax >= threshold)
@@ -137,9 +156,9 @@ def lbfgs(
 ) -> OptResult:
     """LBFGS ascent on ``logp`` (gradients by autograd): :func:`lbfgs_batched`
     on one row, the JAX twin's algorithm (optax's LBFGS with its zoom line
-    search) but for a failed search, which takes no step.  ``free`` is an
-    optional 0/1 mask applied to the gradient, so pinned coordinates keep
-    their initialization."""
+    search) but for a failed search without a safe point, which takes no
+    step.  ``free`` is an optional 0/1 mask applied to the gradient, so
+    pinned coordinates keep their initialization."""
     x0 = torch.as_tensor(x0)
 
     def one_row(X):
@@ -191,10 +210,13 @@ def _zoom_linesearch(objective, x, d, f, g, searching):
     row on its own trials; a row that is done (or has failed) waits,
     masked, while the others go on.  Each round is one call of ``objective``
     on the whole batch, at most ``_MAX_LINE_SEARCH``.  A row that fails
-    takes no step, where optax would take its safest point of sufficient
-    decrease, else its last trial, even one above f or not finite.  Returns
-    each row's step length and the value and gradient there (0, f and g
-    where the search failed)."""
+    takes its safe point, the lowest trial of sufficient decrease, at
+    optax's step length (optax's ``_try_safe_step``), where that point is
+    no higher than f.  Only where there is no such point does the port part
+    from optax: the row takes no step, where optax would step to its last
+    trial, even one above f or not finite.  Returns each row's step length
+    and the value and gradient there (0, f and g where the search failed
+    without a safe point)."""
     slope0 = (g * d).sum(-1)
     t, value, grad, slope = torch.zeros_like(f), f, g, slope0
     bracketed = torch.zeros_like(searching)
@@ -204,7 +226,7 @@ def _zoom_linesearch(objective, x, d, f, g, searching):
     ref, v_ref = torch.zeros_like(f), f
     # optax's safe step, the lowest point of sufficient decrease: once one
     # is known, a bracket narrower than _INTERVAL_THRESHOLD ends the search
-    safe_t, safe_v = torch.zeros_like(f), f
+    safe_t, safe_v, safe_g = torch.zeros_like(f), f, g
     count = 0
     while True:
         on = ~(done | failed)
@@ -237,6 +259,7 @@ def _zoom_linesearch(objective, x, d, f, g, searching):
         new_safe = ((search & (dec_new <= 0.0)) | (zoom & (dec_new <= 0.0) & (v_new < safe_v)))
         safe_t = torch.where(new_safe, trial, safe_t)
         safe_v = torch.where(new_safe, v_new, safe_v)
+        safe_g = torch.where(new_safe[:, None], g_new, safe_g)
 
         # the zoom's next cubic reference: the old high where high moves,
         # else the old low
@@ -263,7 +286,14 @@ def _zoom_linesearch(objective, x, d, f, g, searching):
         failed = failed | (on & ~ok & ((count >= _MAX_LINE_SEARCH) | too_small))
         t, value, slope = torch.where(on, trial, t), torch.where(on, v_new, value), torch.where(on, s_new, slope)
         grad = torch.where(on[:, None], g_new, grad)
-    return torch.where(failed, 0.0, t), torch.where(failed, f, value), torch.where(failed[:, None], g, grad)
+    # a failed search takes its safe point where it is no higher than f (the
+    # approximate decrease allows a rise of 1e-6 |f|), else no step
+    safe = failed & (safe_t > 0.0) & (safe_v <= f)
+    stay = failed & ~safe
+    t = torch.where(safe, safe_t, torch.where(stay, 0.0, t))
+    value = torch.where(safe, safe_v, torch.where(stay, f, value))
+    grad = torch.where(safe[:, None], safe_g, torch.where(stay[:, None], g, grad))
+    return t, value, grad
 
 
 def lbfgs_batched(
@@ -285,10 +315,12 @@ def lbfgs_batched(
     zero product weighs 0), scales the identity by s.y / y.y (on the first
     step by min(1, 1/|g|)), runs the two-loop recursion on the whole batch
     and then :func:`_zoom_linesearch`.  Where a search fails, the row takes
-    no step (optax would step to its safest or last trial, even uphill) and,
-    as L-BFGS-B does, clears its memory and searches again along the scaled
-    gradient; a second failure in a row stalls it.  So a fit never ends
-    below its start, and a row at its precision's noise floor stops.  A row
+    its safe point as optax does, if one no higher than f was found.  Where
+    none was, the row takes no step (optax would step to its last trial,
+    even uphill) and, as L-BFGS-B does, clears its memory and searches again
+    along the scaled gradient; a second such failure in a row stalls it.  So
+    a fit never ends below its start, and a row at its precision's noise
+    floor stops.  A row
     stops at its gradient threshold, at ``iters`` or at a stall, frozen from
     then on; rows only ever stop, so every running row is on the batch's
     step.

@@ -1,0 +1,211 @@
+"""Sequential Monte Carlo sampler: adaptive tempering and HMC mutation.
+
+PyTorch twin of ``gogp_tpu/infer/smc.py`` (Del Moral et al. 2006, the
+likelihood-tempering path):
+
+- particles start from a Gaussian reference q0 = N(mu0, sigma0^2 I);
+- the bridge is logp_beta(v) = (1 - beta) log q0(v) + beta logp(v), beta
+  from 0 to 1;
+- each stage picks the next beta by bisection (a fixed number of halvings)
+  so that the effective sample size of the incremental weights stays near
+  ``ess_target`` of the particles;
+- systematic resampling, then ``num_mcmc_steps`` HMC (or random-walk
+  Metropolis) transitions targeting logp_beta, with the mass from the
+  resampled population's spread;
+- the log evidence is the sum of the stages' logsumexp increments.
+
+Every particle moves at once: each value and gradient is one batched call
+of ``logp`` on (particles, dim), which on a theta-only GP study is one K7
+launch (``tutorial/bayes.py``).  The stage loop is a host loop with one
+host read of beta per stage (the JAX while loop's ``cond``).
+
+Randomness: the JAX twin draws from a key chain (``split(rng)`` once, then
+``split(key, 3)`` per stage, ``fold_in(k_mut, i)`` and a key per particle
+per mutation), which torch cannot reproduce.  The sampler takes its draws
+from an :class:`SMCDraws`: the initial eps, each stage's resampling uniform
+and each mutation's normals and uniforms.  By default
+:func:`generator_draws` takes them from a ``torch.Generator``; tests hand in
+JAX's own.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, NamedTuple
+
+import torch
+
+from gogp_torch.infer.hmc import IntegratorState, LogDensity, as_free, kinetic, value_and_grad
+
+Tensor = torch.Tensor
+
+_LOG_2PI = 1.8378770664093453
+
+
+class SMCResult(NamedTuple):
+    particles: Tensor  # (num_particles, dim) final (beta = 1) particles
+    log_evidence: Tensor  # () log E_q0[exp(logp - log q0)]
+    num_stages: int  # tempering stages used
+    betas_hit_one: bool  # annealing completed within max_stages
+    accept_rate: Tensor  # () mean accept rate of the final stage's last mutation
+
+
+class SMCDraws(NamedTuple):
+    """Where the sampler's random numbers come from."""
+
+    init: Callable[[], Tensor]  # () -> (particles, dim) standard normal
+    resample: Callable[[int], Tensor]  # stage -> () uniform
+    mutation: Callable[[int, int], tuple[Tensor, Tensor]]  # (stage, i) -> (particles, dim) normal, (particles,) uniform
+
+
+def generator_draws(rng: torch.Generator, num_particles: int, like: Tensor) -> SMCDraws:
+    """Draws from ``rng``, each made when first asked for."""
+    dim = like.shape[-1]
+    kw = dict(dtype=like.dtype, device=like.device, generator=rng)
+    return SMCDraws(
+        init=lambda: torch.randn((num_particles, dim), **kw),
+        resample=lambda stage: torch.rand((), **kw),
+        mutation=lambda stage, i: (torch.randn((num_particles, dim), **kw), torch.rand((num_particles,), **kw)),
+    )
+
+
+def _systematic_resample(u: Tensor, log_weights: Tensor) -> Tensor:
+    """Indices of the resampled particles (systematic, one uniform ``u``)."""
+    p = log_weights.shape[0]
+    cum = torch.cumsum(torch.softmax(log_weights, 0), 0)
+    pts = (torch.arange(p, dtype=cum.dtype, device=cum.device) + u) / p
+    return torch.clamp(torch.searchsorted(cum, pts), 0, p - 1)
+
+
+def _ess(log_weights: Tensor) -> Tensor:
+    lw = log_weights - torch.logsumexp(log_weights, -1, keepdim=True)
+    return torch.exp(-torch.logsumexp(2.0 * lw, -1))
+
+
+def _rwm_mutate(logp_beta, positions: Tensor, normals: Tensor, uniforms: Tensor, step_scale: Tensor, free):
+    """One random-walk Metropolis transition of every particle (gradient
+    free)."""
+    step = step_scale * normals
+    if free is not None:
+        step = step * free
+    q_new = positions + step
+    delta = logp_beta(q_new) - logp_beta(positions)
+    delta = torch.where(torch.isnan(delta), -torch.inf, delta)
+    accept_prob = torch.clamp(torch.exp(delta), max=1.0)
+    accept = uniforms < accept_prob
+    return torch.where(accept[:, None], q_new, positions), accept_prob
+
+
+def _hmc_mutate(vg_beta, positions: Tensor, normals: Tensor, uniforms: Tensor, step_size: float,
+                inv_mass: Tensor, n_leapfrog: int, free):
+    """One HMC transition of every particle on the tempered density
+    (``vg_beta`` masks its gradient by ``free``).
+
+    As in the JAX twin, each step carries the momentum of its first half
+    kick (smc.py's ``leap``): the next step's first half kick completes it,
+    but the last step's second half kick is never taken, so the energy that
+    the acceptance compares is computed with the endpoint's momentum half a
+    kick short (``hmc.leapfrog`` would complete it).  Kept for parity with
+    the reference; ROADMAP.md lists it."""
+    logp_q, grad_q = vg_beta(positions)
+    r0 = normals / torch.sqrt(inv_mass)
+    if free is not None:
+        r0 = r0 * free
+    e0 = -logp_q + kinetic(r0, inv_mass)
+    s = IntegratorState(positions, r0, logp_q, grad_q)
+    for _ in range(n_leapfrog):
+        r = s.momentum + 0.5 * step_size * s.grad
+        q = s.position + step_size * inv_mass * r
+        if free is not None:
+            q = torch.where(free > 0, q, s.position)
+        s = IntegratorState(q, r, *vg_beta(q))
+    e1 = -s.logp + kinetic(s.momentum, inv_mass)
+    delta = torch.where(torch.isnan(e1 - e0), torch.inf, e1 - e0)
+    accept_prob = torch.clamp(torch.exp(-delta), max=1.0)
+    accept = uniforms < accept_prob
+    return torch.where(accept[:, None], s.position, positions), accept_prob
+
+
+def run_smc(
+    logp: LogDensity,
+    position0: Tensor,
+    rng: torch.Generator,
+    num_particles: int = 512,
+    sigma0: float = 1.0,
+    num_mcmc_steps: int = 5,
+    n_leapfrog: int = 10,
+    ess_target: float = 0.5,
+    max_stages: int = 100,
+    bisection_iters: int = 20,
+    free: Tensor | None = None,
+    mutation: str = "hmc",
+    draws: SMCDraws | None = None,
+) -> SMCResult:
+    """Anneal from N(position0, sigma0^2 I) to ``logp`` (a batched
+    log-density, (particles, dim) to (particles,)); returns the particles.
+
+    ``log_evidence`` estimates log E_q0[exp(logp - log q0)].  ``mutation``:
+    "hmc" (default) or "rwm", random-walk Metropolis for targets whose
+    gradient is unavailable."""
+    if mutation not in ("hmc", "rwm"):
+        raise ValueError(f"unknown mutation {mutation!r}")
+    position0 = torch.as_tensor(position0)
+    dim = position0.shape[0]
+    freea = as_free(free, position0)
+    draws = draws or generator_draws(rng, num_particles, position0)
+
+    eps = draws.init()
+    if freea is not None:
+        eps = eps * freea[None, :]
+    particles = position0[None, :] + sigma0 * eps
+    n_free = freea.sum() if freea is not None else dim
+
+    def log_q0(V):
+        z = (V - position0) / sigma0
+        if freea is not None:
+            z = z * freea
+        return -0.5 * (z * z).sum(-1) - n_free * (0.5 * _LOG_2PI + math.log(sigma0))
+
+    def next_beta(beta: Tensor, log_ratios: Tensor) -> Tensor:
+        """The largest beta' in (beta, 1] keeping the ESS at least
+        ``ess_target`` of the particles."""
+        target = ess_target * num_particles
+        lo, hi = beta, torch.ones_like(beta)
+        ok_full = _ess((hi - beta) * log_ratios) >= target
+        for _ in range(bisection_iters):
+            mid = 0.5 * (lo + hi)
+            ok = _ess((mid - beta) * log_ratios) >= target
+            lo, hi = torch.where(ok, mid, lo), torch.where(ok, hi, mid)
+        return torch.where(ok_full, 1.0, lo)
+
+    beta = position0.new_zeros(())
+    log_z, accept_rate = position0.new_zeros(()), position0.new_zeros(())
+    stage = 0
+    while stage < max_stages and float(beta) < 1.0:
+        log_ratios = logp(particles) - log_q0(particles)
+        log_ratios = torch.where(torch.isnan(log_ratios), -torch.inf, log_ratios)
+        beta_new = next_beta(beta, log_ratios)
+        lw = (beta_new - beta) * log_ratios
+        log_z = log_z + torch.logsumexp(lw, 0) - math.log(float(num_particles))
+        particles = particles[_systematic_resample(draws.resample(stage), lw)]
+
+        # the mutation's mass from the resampled population's spread
+        std = particles.std(0, correction=0)
+        if freea is not None:
+            std = torch.where(freea > 0, std, 1.0)
+        inv_mass = torch.clamp(std * std, min=1e-10)
+
+        def logp_beta(V, b=beta_new):
+            return (1.0 - b) * log_q0(V) + b * logp(V)
+
+        for i in range(num_mcmc_steps):
+            normals, uniforms = draws.mutation(stage, i)
+            if mutation == "hmc":
+                particles, accept_probs = _hmc_mutate(value_and_grad(logp_beta, freea), particles, normals, uniforms,
+                                                      0.5 / math.sqrt(dim), inv_mass, n_leapfrog, freea)
+            else:  # Roberts and Rosenthal's optimal RWM scale from the population std
+                particles, accept_probs = _rwm_mutate(logp_beta, particles, normals, uniforms,
+                                                      (2.38 / math.sqrt(dim)) * std, freea)
+            accept_rate = accept_probs.mean()
+        beta, stage = beta_new, stage + 1
+    return SMCResult(particles, log_z, stage, bool(beta >= 1.0), accept_rate)

@@ -9,21 +9,23 @@ Output CSV rows: ``z, nan, mu, sigma`` (the reference's out-of-sample schema,
 tutorial/tutorial.go:200-225) on a grid reaching one span past the data,
 then a comment line with the posterior means of the hyperparameters.
 
-Ported so far: the theta-only studies (barebones, hyperpriors, events) and
-the ChEES-HMC engine.  The latent-input studies (warpedtime, anynoise) and
-the other engines (NUTS, the JAX default, HMC, PT-ChEES, GHMC, ADVI, SMC;
-``--pops`` and ``--race``) stop with a message naming ROADMAP.md.
+Engines: NUTS (the default, as in the JAX twin), HMC, ChEES-HMC, ADVI
+(mean-field and full-rank) and SMC, on all five studies.  PT-ChEES, GHMC,
+``--pops`` and ``--race`` stop with a message naming ROADMAP.md.
 
 The log-joint of a theta-only study runs on the K7 route: its forward is
 ``ops.fused_gp.make_fused_value_and_grad``'s value for the whole chain
 batch, and its backward hands back the gradient that evaluation computed
 (GPML 5.9), so the sampler differentiates it like any other log-density.
 Built under ``ops.linalg.force_plain()`` it is the JAX package's own route
-instead: ``gp_observe`` plus the priors, differentiated by autograd.
+instead: ``gp_observe`` plus the priors, differentiated by autograd.  A
+latent-input study (warpedtime, anynoise) samples its inputs and outputs
+too, over the full parameter vector, always on that route (``torch.func.vmap``
+over the chains), and its forecast conditions each draw on its own inputs.
 
 Usage:
-    python -m gogp_torch.tutorial.bayes hyperpriors --engine chees selfcheck
-    python -m gogp_torch.tutorial.bayes hyperpriors --engine chees --platform cpu selfcheck
+    python -m gogp_torch.tutorial.bayes hyperpriors selfcheck
+    python -m gogp_torch.tutorial.bayes anynoise --engine advi --platform cpu selfcheck
 """
 
 from __future__ import annotations
@@ -36,20 +38,18 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from gogp_torch.gp.core import predict_mixture
-from gogp_torch.infer import chees
-from gogp_torch.models.params import gp_observe
+from gogp_torch.gp.core import predict_from_posterior, predict_mixture
+from gogp_torch.infer import advi, chees, hmc, nuts, smc
+from gogp_torch.models.params import gp_observe, gp_posterior, join_params
 from gogp_torch.ops import fused_gp, linalg
 from gogp_torch.tutorial import io as tio
 
 STUDIES = ("barebones", "hyperpriors", "warpedtime", "anynoise", "events")
 ENGINES = ("nuts", "hmc", "chees", "pt-chees", "ghmc", "advi", "advi-full", "smc")
-_PORTED_STUDIES = ("barebones", "hyperpriors", "events")
+_UNPORTED_ENGINES = ("pt-chees", "ghmc")
 
 
 def get_study(name: str):
-    if name not in _PORTED_STUDIES:
-        raise SystemExit(f"study {name!r} is not ported yet (ROADMAP.md, queue 1); ported: {_PORTED_STUDIES}")
     mod = importlib.import_module(f"gogp_torch.tutorial.{name}")
     return mod, mod.make_study(), mod.selfcheck_data()
 
@@ -57,11 +57,13 @@ def get_study(name: str):
 class Observed(NamedTuple):
     """The data every draw conditions on (where the JAX twin returns
     ``posterior_of``, one draw's posterior, the port returns the data, and
-    ``predict_mixture`` conditions all draws at once)."""
+    ``predict_mixture`` conditions all draws at once).  ``latent``: each
+    draw carries its own inputs and outputs (a latent-input study)."""
 
     x: torch.Tensor  # (n, ndim)
     y: torch.Tensor  # (n,)
     mask: torch.Tensor  # (n,)
+    latent: bool = False
 
 
 class _SavedGradLogp(torch.autograd.Function):
@@ -81,11 +83,11 @@ class _SavedGradLogp(torch.autograd.Function):
 
 
 def build_logjoint(study, x: np.ndarray, y: np.ndarray, device=None, dtype: torch.dtype = torch.float32):
-    """``(logp, observed, v0, free)`` for a theta-only study: ``logp`` maps
-    (chains, n_theta) log-thetas to (chains,) log-joints, on the K7 route or,
-    built under ``linalg.force_plain()``, on the plain one."""
-    if study.optinp:
-        raise SystemExit(f"study {study.name!r} samples its inputs too: not ported yet (ROADMAP.md, queue 1)")
+    """``(logp, observed, v0, free)``: ``logp`` maps (chains, p) parameter
+    vectors to (chains,) log-joints.  A theta-only study's vector is its
+    log-thetas, on the K7 route or, built under ``linalg.force_plain()``, on
+    the plain one; a latent-input study's is the full vector (log-thetas,
+    inputs, outputs) on the plain route."""
     gp = study.gp
     n = x.shape[0]
     xt = torch.as_tensor(x, dtype=dtype, device=device)
@@ -93,46 +95,85 @@ def build_logjoint(study, x: np.ndarray, y: np.ndarray, device=None, dtype: torc
     mask = torch.ones(n, dtype=dtype, device=device)
     priors = study.make_priors(x, y) if study.make_priors else None
     v0 = torch.zeros(gp.n_theta, dtype=dtype, device=device)
-    free = np.ones(gp.n_theta)
+    if study.optinp:
+        v0 = join_params(gp, v0, xt, yt)
+    free = np.ones(v0.shape[0])
     if study.free_fn is not None:
-        free = free * study.free_fn(gp.n_theta, n, n)[: gp.n_theta]
+        free = free * study.free_fn(gp.n_theta, n, n)[: v0.shape[0]]
     free = torch.as_tensor(free, dtype=dtype, device=device)
+    observed = Observed(xt, yt, mask, study.optinp)
 
-    if linalg._FORCE_PLAIN:
+    if study.optinp or linalg._FORCE_PLAIN:
 
         def one(v):
-            ll = gp_observe(gp, v, x=xt, y=yt, mask=mask)
+            ll = gp_observe(gp, v, mask=mask) if study.optinp else gp_observe(gp, v, x=xt, y=yt, mask=mask)
             return ll if priors is None else ll + priors(v, mask)
 
-        logp = torch.func.vmap(one)
-    else:
-        vg = fused_gp.make_fused_value_and_grad(
-            gp, xt, yt, mask, None if priors is None else (lambda V: priors(V, mask)))
+        return torch.func.vmap(one), observed, v0, free
+    vg = fused_gp.make_fused_value_and_grad(
+        gp, xt, yt, mask, None if priors is None else (lambda V: priors(V, mask)))
 
-        def logp(V):
-            return _SavedGradLogp.apply(V, vg)
+    def logp(V):
+        return _SavedGradLogp.apply(V, vg)
 
-    return logp, Observed(xt, yt, mask), v0, free
+    return logp, observed, v0, free
 
 
 def sample_posterior(logp, v0, free, engine: str, seed: int, num_samples: int,
                      num_warmup: int, chains: int, pops: int = 1,
                      replicas: int = 8, race: int = 0) -> torch.Tensor:
-    """(draws, n_theta) posterior draws on ``v0``'s device.  ChEES keeps
-    ``num_samples // chains`` draws per chain, as the JAX twin does."""
-    if engine != "chees":
-        raise SystemExit(f"engine {engine!r} is not ported yet (ROADMAP.md, queue 1); --engine chees is")
+    """(draws, p) posterior draws on ``v0``'s device, with the JAX twin's
+    sizes: ChEES keeps ``num_samples // chains`` draws per chain (at least
+    one), NUTS and HMC ``num_samples // chains`` (chain after chain, as
+    JAX's vmap stacks them), ADVI runs ``4 num_warmup`` steps and draws
+    ``num_samples``, SMC anneals ``max(num_samples, 128)`` particles."""
+    if engine in _UNPORTED_ENGINES:
+        raise SystemExit(f"engine {engine!r} is not ported yet (ROADMAP.md, queue 1)")
     if pops > 1 or race > 0:
         raise SystemExit("--pops and --race are not ported yet (ROADMAP.md, queue 1)")
     del replicas  # a PT-ChEES flag
     dim = v0.shape[0]
-    init = torch.Generator(device=v0.device).manual_seed(seed + 1)
-    x0 = v0[None, :] + 0.1 * torch.randn((chains, dim), generator=init, dtype=v0.dtype,
+
+    def generator(offset: int) -> torch.Generator:
+        return torch.Generator(device=v0.device).manual_seed(seed + offset)
+
+    if engine in ("advi", "advi-full"):
+        run, sample = ((advi.run_advi, advi.sample_posterior) if engine == "advi"
+                       else (advi.run_advi_fullrank, advi.sample_posterior_fullrank))
+        res = run(logp, v0, generator(0), num_steps=num_warmup * 4, free=free)
+        return sample(res, generator(2), num_samples, free)
+    if engine == "smc":
+        return smc.run_smc(logp, v0, generator(0), num_particles=max(num_samples, 128), free=free).particles
+    x0 = v0[None, :] + 0.1 * torch.randn((chains, dim), generator=generator(1), dtype=v0.dtype,
                                          device=v0.device) * free[None, :]
-    rng = torch.Generator(device=v0.device).manual_seed(seed)
-    res = chees.run_chees(logp, x0, rng, num_warmup=num_warmup,
-                          num_samples=max(1, num_samples // chains), free=free)
-    return res.positions.reshape(-1, dim)
+    if engine == "chees":
+        res = chees.run_chees(logp, x0, generator(0), num_warmup=num_warmup,
+                              num_samples=max(1, num_samples // chains), free=free)
+        return res.positions.reshape(-1, dim)
+    if engine == "hmc":
+        res = hmc.run_hmc(logp, x0, generator(0), num_warmup=num_warmup, num_samples=num_samples // chains, free=free)
+        return res.positions.transpose(0, 1).reshape(-1, dim)
+    # NUTS keeps its tree state on the host (:func:`on_host`): its per-leaf
+    # bookkeeping is some fifty small operations, which cost less there than
+    # as launches on a card (PERF.md)
+    host = torch.device("cpu")
+    res = nuts.run_nuts(on_host(logp, v0.device), x0.to(host), torch.Generator(device=host).manual_seed(seed),
+                        num_warmup=num_warmup, num_samples=num_samples // chains, free=free.to(host))
+    return res.positions.transpose(0, 1).reshape(-1, dim).to(v0.device)
+
+
+def on_host(logp, device):
+    """``logp`` for a sampler whose state lives on the host: each batch goes
+    to ``device``, where ``logp``'s value and gradient are taken, and both
+    come back in one copy; the backward hands back that gradient."""
+    vg = hmc.value_and_grad(logp, None)
+
+    def host_vg(V):
+        val, grad = vg(V.to(device))
+        both = torch.cat([val[:, None], grad], 1).cpu()
+        return both[:, 0], both[:, 1:]
+
+    return lambda V: _SavedGradLogp.apply(V, host_vg)
 
 
 def mixture_forecast(gp, observed: Observed, draws, z: np.ndarray, max_draws: int = 256):
@@ -142,15 +183,26 @@ def mixture_forecast(gp, observed: Observed, draws, z: np.ndarray, max_draws: in
     if draws.shape[0] > max_draws:
         idx = np.linspace(0, draws.shape[0] - 1, max_draws).astype(int)
         draws = draws[torch.as_tensor(idx, device=draws.device)]
-    mu, sigma = predict_mixture(gp, draws, observed.x, observed.y, z, observed.mask)
-    return mu.cpu().numpy(), sigma.cpu().numpy()
+    if not observed.latent:
+        mu, sigma = predict_mixture(gp, draws, observed.x, observed.y, z, observed.mask)
+        return mu.cpu().numpy(), sigma.cpu().numpy()
+    zt = torch.as_tensor(z, dtype=draws.dtype, device=draws.device)
+
+    def one(v):
+        return predict_from_posterior(gp, gp_posterior(gp, v, mask=observed.mask), zt)
+
+    with torch.no_grad():
+        mus, sigmas = torch.func.vmap(one)(draws)
+    mu = mus.mean(0)
+    var = (sigmas * sigmas + mus * mus).mean(0) - mu * mu
+    return mu.cpu().numpy(), torch.sqrt(torch.clamp(var, min=0.0)).cpu().numpy()
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("study", choices=STUDIES)
     ap.add_argument("--engine", default="nuts", choices=ENGINES,
-                    help="sampler (default nuts, as in the JAX package; chees is the one ported)")
+                    help="sampler (default nuts, as in the JAX package; pt-chees and ghmc are not ported yet)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--samples", type=int, default=512)
     ap.add_argument("--warmup", type=int, default=400)

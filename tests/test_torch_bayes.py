@@ -157,6 +157,26 @@ def test_logjoint_matches_jax(plain):
     np.testing.assert_allclose(grad.numpy(), np.asarray(want_g), rtol=0, atol=1e-8 * np.abs(want_g).max())
 
 
+@pytest.mark.parametrize("plain", [False, True])
+def test_on_host_logjoint_matches_jax(plain):
+    """``bayes.on_host``, the log-joint NUTS takes (its value and gradient in
+    one copy, the gradient handed back by the backward), against JAX's, with
+    each row's gradient scaled by its own cotangent."""
+    x, y = _hyperpriors_data()
+    with linalg.force_plain() if plain else contextlib.nullcontext():
+        logp = bayes.build_logjoint(hyperpriors.make_study(), x, y, "cpu", torch.float64)[0]
+    jlogp = jbayes.build_logjoint(jhp.make_study(), x, y)[0]
+    V = 0.3 * np.random.default_rng(4).normal(size=(4, 6))
+    want_v, want_g = jax.jit(jax.vmap(jax.value_and_grad(jlogp)))(jnp.asarray(V))
+    weights = np.array([1.0, -0.5, 2.0, 0.25])
+    q = T(V).requires_grad_(True)
+    val = bayes.on_host(logp, "cpu")(q)
+    (grad,) = torch.autograd.grad(val, q, T(weights))
+    want_g = weights[:, None] * np.asarray(want_g)
+    np.testing.assert_allclose(val.detach().numpy(), np.asarray(want_v), **VALUE)
+    np.testing.assert_allclose(grad.numpy(), want_g, rtol=0, atol=1e-8 * np.abs(want_g).max())
+
+
 def test_barebones_logjoint_matches_jax():
     """The barebones study (no priors) on the plain route: the log-joint at
     three points against JAX's ``build_logjoint``."""
@@ -259,8 +279,8 @@ def test_hyperpriors_chees_slice_matches_jax():
 
 def test_main_selfcheck_on_cpu():
     """The command line end to end at a small size: 50 finite rows with
-    sigma > 0, then the theta-mean line; engines not yet ported stop with a
-    message."""
+    sigma > 0, then the theta-mean line; engines and options not yet ported
+    stop with a message."""
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         bayes.main(["hyperpriors", "--engine", "chees", "--chains", "4", "--warmup", "20",
@@ -270,12 +290,71 @@ def test_main_selfcheck_on_cpu():
     assert rows.shape == (50, 4)
     assert np.isnan(rows[:, 1]).all() and np.isfinite(rows[:, [0, 2, 3]]).all() and (rows[:, 3] > 0).all()
     assert lines[-1].startswith("# posterior theta mean: ") and len(lines[-1].split(",")) == 6
-    for argv in (["hyperpriors", "--platform", "cpu", "selfcheck"],
-                 ["warpedtime", "--engine", "chees", "--platform", "cpu", "selfcheck"],
+    for argv in (["barebones", "--engine", "ghmc", "--platform", "cpu", "selfcheck"],
+                 ["hyperpriors", "--engine", "pt-chees", "--platform", "cpu", "selfcheck"],
                  ["hyperpriors", "--engine", "chees", "--pops", "2", "--platform", "cpu", "selfcheck"]):
         with pytest.raises(SystemExit, match="ROADMAP"):
             bayes.main(argv)
 
+
+
+def run_main(argv):
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        bayes.main(argv)
+    return buf.getvalue().strip().splitlines()
+
+
+@pytest.mark.parametrize("study,engine", [
+    ("hyperpriors", "nuts"),
+    ("hyperpriors", "hmc"),
+    ("barebones", "smc"),
+    ("anynoise", "advi"),
+    ("barebones", "advi-full"),
+    ("warpedtime", "nuts"),
+    ("anynoise", "nuts"),
+])
+def test_engines_produce_forecast(study, engine):
+    """Each engine through the command line on tests/test_bayes_driver.py's
+    pairs of study and engine (and NUTS on the latent-input studies), at
+    2 chains, a grid of 10 and, to keep the CPU's time short, 10 warmup
+    transitions (40 ADVI steps) and 8 samples (128 SMC particles): finite
+    rows with sigma >= 0 and the theta-mean line."""
+    lines = run_main([study, "--engine", engine, "--samples", "8", "--warmup", "10", "--chains", "2",
+                      "--grid", "10", "--platform", "cpu", "selfcheck"])
+    rows = np.array([[float(v) for v in line.split(",")] for line in lines[:-1]])
+    assert rows.shape == (10, 4)
+    assert np.isnan(rows[:, 1]).all() and np.isfinite(rows[:, [0, 2, 3]]).all() and (rows[:, 3] >= 0).all()
+    n_theta = bayes.get_study(study)[1].gp.n_theta
+    assert lines[-1].startswith("# posterior theta mean: ") and len(lines[-1].split(",")) == n_theta
+
+
+@pytest.mark.parametrize("name", ["warpedtime", "anynoise"])
+def test_latent_logjoint_matches_jax(name):
+    """A latent-input study's log-joint over the full parameter vector
+    (inputs and outputs too) against ``jax.vmap(jax.value_and_grad)`` of
+    JAX's, at 4 points around v0; the same v0 and free mask; then the
+    mixture forecast, each draw conditioned on its own inputs."""
+    _, study, data = bayes.get_study(name)
+    x, y = tio.load_csv(data)
+    y = tio.normalize(y)[0]
+    logp, observed, v0, free = bayes.build_logjoint(study, x, y, "cpu", torch.float64)
+    jlogp, jposterior_of, jv0, jfree = jbayes.build_logjoint(jbayes.get_study(name)[1], x, y)
+    np.testing.assert_array_equal(v0.numpy(), np.asarray(jv0))
+    np.testing.assert_array_equal(free.numpy(), np.asarray(jfree))
+    assert observed.latent and v0.shape[0] == study.gp.n_theta + 2 * x.shape[0]
+    V = np.asarray(jv0) + 0.05 * np.random.default_rng(6).normal(size=(4, v0.shape[0])) * np.asarray(jfree)
+    want_v, want_g = jax.jit(jax.vmap(jax.value_and_grad(jlogp)))(jnp.asarray(V))
+    q = T(V).requires_grad_(True)
+    val = logp(q)
+    (grad,) = torch.autograd.grad(val.sum(), q)
+    np.testing.assert_allclose(val.detach().numpy(), np.asarray(want_v), **VALUE)
+    np.testing.assert_allclose(grad.numpy(), np.asarray(want_g), rtol=0, atol=1e-9 * np.abs(want_g).max())
+    z = np.linspace(x[:, 0].min(), 2 * x[:, 0].max(), 7)[:, None]
+    got = bayes.mixture_forecast(study.gp, observed, T(V), z)
+    want = jbayes.mixture_forecast(jbayes.get_study(name)[1].gp, jposterior_of, V, z)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g, w, rtol=1e-9, atol=1e-12)
 
 
 def test_sample_posterior_holds_fixed_coordinates():

@@ -5,7 +5,8 @@ Adam is held to the JAX ``adam`` step for step (optax's arithmetic: the same
 x, value and iteration count to rtol 1e-10 on the quadratic and 1e-8 on the
 GP, where 50 steps compound the different summation orders of the LML
 gradient).  LBFGS is optax's algorithm with its zoom line search on both
-sides, but for a failed search, where the port takes no step: the same
+sides, but for a failed search that found no point of sufficient decrease
+no higher than the start, where the port takes no step: the same
 iteration count, x to atol 1e-5 (1e-6 on the quadratic) and the LML to rtol
 1e-9 at gradient threshold 1e-6.  The slice runs the port's blocked path
 under ``force_blocked(64)`` (K1's plain version, the K3 and K5 plain
@@ -15,6 +16,7 @@ versions) and JAX's Pallas kernels in interpret mode.
 import jax
 import jax.numpy as jnp
 import numpy as np
+import optax
 import pytest
 import torch
 
@@ -168,6 +170,44 @@ def test_lbfgs_stall_flag():
     assert got.stalled and not got.converged and got.iters == 2
     np.testing.assert_array_equal(got.x.numpy(), [1.0, 1.0])
     assert float(got.value) >= float(WrongSign.apply(x0))
+
+
+@pytest.mark.parametrize("case", ["kink", "unbounded"])
+def test_failed_search_takes_optax_safe_step(case):
+    """A zoom search that fails but found points of sufficient decrease
+    steps to the lowest of them, at optax's step length: at a kink the
+    bracket shrinks below its threshold (the curvature condition cannot
+    hold there); on a line falling without end the doubling never brackets
+    in 20 trials.  Held against ``optax.scale_by_zoom_linesearch`` (the
+    line search of ``optax.lbfgs``) on one row: the step length and the
+    value to 1e-12, the gradient there exactly."""
+    jf, tf, x0 = {
+        "kink": (lambda x: jnp.abs(x[0] - 0.3) + 0.01 * x[0] ** 2,
+                 lambda X: (X[:, 0] - 0.3).abs() + 0.01 * X[:, 0] ** 2, [0.0]),
+        "unbounded": (lambda x: -x[0] - 0.5 * x[1], lambda X: -X[:, 0] - 0.5 * X[:, 1], [0.0, 1.0]),
+    }[case]
+    d = np.ones(len(x0))
+    ls = optax.scale_by_zoom_linesearch(max_linesearch_steps=20)
+    p = jnp.asarray(x0)
+    v, g = jax.value_and_grad(jf)(p)
+    _, state = ls.update(jnp.asarray(d), ls.init(p), p, value=v, grad=g, value_fn=jf)
+    assert float(state.info.curvature_error) > 0  # the search failed
+
+    def objective(X):
+        X = X.detach().requires_grad_(True)
+        with torch.enable_grad():
+            val = tf(X)
+            (grad,) = torch.autograd.grad(val.sum(), X)
+        return val.detach(), grad
+
+    X = T([x0])
+    f, grad = objective(X)
+    t, value, g_t = mle._zoom_linesearch(objective, X, T([d]), f, grad, torch.tensor([True]))
+    want_t = float(state.learning_rate)
+    assert 0.0 < want_t and float(value[0]) < float(f[0])
+    np.testing.assert_allclose(float(t[0]), want_t, rtol=1e-12)
+    np.testing.assert_allclose(float(value[0]), float(jf(p + want_t * jnp.asarray(d))), rtol=1e-12)
+    np.testing.assert_array_equal(g_t[0].numpy(), np.asarray(jax.grad(jf)(p + float(t[0]) * jnp.asarray(d))))
 
 
 def test_lbfgs_stall_outside_domain_matches_jax():
