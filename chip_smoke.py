@@ -92,32 +92,48 @@ process per source) and then runs these phases, each printing JSON lines:
               under force_plain at 128 + 128 transitions (none of its calls
               may launch K7).
 
-9. samplers - the other engines of the command line, each through
-              ``bayes.main`` in process on the card's default route with
-              its run function wrapped to count the log-joint's calls and
-              its launch counts set to 0 just before: NUTS (the JAX
-              package's default command) and HMC on hyperpriors at the
-              JAX command line's defaults (4 chains, 400 + 512
+9. samplers - the other engines and options of the command line, each
+              through ``bayes.main`` in process on the card's default
+              route with its run function wrapped to count the
+              log-joint's calls and its launch counts set to 0 just
+              before.  On hyperpriors, each in a worker process (5 at a
+              time, started before the bayes phase's runs and running
+              beside them, the other samplers runs and the evaluate
+              phase): NUTS (the JAX package's default command) and HMC at
+              the JAX command line's defaults (4 chains, 400 + 512
               transitions, trees up to depth 10, trajectories up to 1024
-              steps; NUTS at 200 warmup transitions), each in a worker
-              process of its own, started before the bayes phase's runs and
-              running beside them, the other samplers runs and the
-              evaluate phase, ADVI on hyperpriors
-              (1600 steps of 8 draws), HMC
-              (cut to 20 + 32 transitions) beside ADVI on anynoise,
-              full-rank ADVI and SMC (512 particles) on barebones.  NUTS's
-              trees (leapfrog steps per transition, depths and their
-              spread across chains, divergences), ms per transition and
-              per value and gradient, ESS, ESS/s and R-hat, and for NUTS
-              and HMC each chain's step size and mean; one NUTS (its state
+              steps; NUTS at 200 warmup transitions); PT-ChEES at its
+              defaults (4 ladders x 8 rungs, 400 + 128 sweeps, one
+              (32, 44, 44) K7 batch a leapfrog step); GHMC at its defaults
+              (1600 + 2048 one-step transitions of 4 chains); ChEES with
+              --pops 4 and with --race 4 at the bayes phase's 64 chains and
+              128 + 128 (the race's probe 4 arms x 64 chains, 32
+              transitions); tempering.run_pt_nuts (no command line runs it
+              on one device) at 8 replicas, depth 6, 128 + 128 sweeps,
+              through ``pt_nuts_main``.  In this process: ADVI on
+              hyperpriors (1600 steps of 8 draws), HMC (cut to 20 + 32
+              transitions) beside ADVI on anynoise, full-rank ADVI and SMC
+              (512 particles) on barebones.  NUTS's trees (leapfrog steps
+              per transition, depths and their spread across chains,
+              divergences); for every MCMC run ms per transition and per
+              value and gradient, ESS, ESS/s and R-hat; each NUTS and HMC
+              chain's step size and mean; PT's round trips, swap rate,
+              pair rejections, ladder and each ladder's cold-chain mean of
+              the period coordinate v[4]; GHMC's step, damping and
+              acceptance; the race's candidates, scores, costs and winner;
+              each population's step and trajectory.  One NUTS (its state
               on the host, as bayes keeps it) and one HMC transition of 64
-              chains from one state with the same draws on the K7 route
-              and under force_plain; NUTS with its tree state on the card
-              and on the host, in pairs of alternating order; K7 once
-              per log-joint call on the theta-only studies (none on
-              anynoise); 50 finite forecast rows and the theta-mean line
-              from each run; K7 against its plain version at each run's
-              batch (4, 8 x 44 x 44; 8, 512 x 20 x 20).  The checks that
+              chains from one state, one PT-ChEES sweep of 32 chains from
+              the pt_chees run's final state (also on the plain route in
+              f64: a chain on which f32 itself parts from f64 is
+              reported, not held) and one GHMC transition of 64 chains,
+              each with the same draws on the K7 route and under
+              force_plain; NUTS with its tree state on the card and
+              on the host, in pairs of alternating order; K7 once per
+              log-joint call on the theta-only studies (none on anynoise);
+              50 finite forecast rows and the theta-mean line from each
+              run; K7 against its plain version at each run's batch (4, 8,
+              32, 64, 256 x 44 x 44; 8, 512 x 20 x 20).  The checks that
               read the workers' runs or time the card (the transitions,
               the placement, K7) wait for the workers, after evaluate.
 
@@ -176,7 +192,7 @@ import torch
 from gogp_torch import GP, make_gp_logp, masked_value_and_grad, matern32, mle, rbf, uniform_noise
 from gogp_torch.gp import core
 from gogp_torch.models.params import gp_observe, gp_posterior
-from gogp_torch.infer import chees, diagnostics, hmc, nuts
+from gogp_torch.infer import chees, diagnostics, ghmc, hmc, nuts, pt_chees, tempering
 from gogp_torch.ops import _build, fused_gp, linalg
 from gogp_torch.ops import cholesky_blocked as cb
 from gogp_torch.tutorial import bayes
@@ -891,7 +907,8 @@ OFF_PATH_SOLVES = tuple(k for k in ("trsv_lower", "trsv_lower_t", "trsv2d_lower"
 EVALUATE_KERNELS = ("fused_gp_linv",)
 # The samplers path's: K7, once per batched value-and-gradient of each
 # engine's run on a theta-only study, at that run's batch.
-SAMPLER_PATHS = ("samplers_nuts", "samplers_hmc", "samplers_advi", "samplers_advi_full", "samplers_smc")
+SAMPLER_PATHS = ("samplers_nuts", "samplers_hmc", "samplers_pt_chees", "samplers_ghmc", "samplers_chees_pops",
+                 "samplers_chees_race", "samplers_pt_nuts", "samplers_advi", "samplers_advi_full", "samplers_smc")
 PATH_KERNELS = {"serve": SERVE_KERNELS, "train": TRAIN_KERNELS, "large": LARGE_KERNELS, "bayes": BAYES_KERNELS,
                 "evaluate": EVALUATE_KERNELS, "evaluate_hyperpriors": EVALUATE_KERNELS,
                 **{path: ("fused_gp_linv",) for path in SAMPLER_PATHS},
@@ -1327,43 +1344,66 @@ def phase_bayes(dev, rows: dict | None = None) -> dict:
     return {"launches": launches, "rows": rows, "logps": (logp, plain_logp)}
 
 
-# The samplers path: every engine of the command line but ChEES, each through
-# ``bayes.main`` in process on the card's default route: K7 on the
-# theta-only studies (hyperpriors, barebones), the plain route on anynoise,
-# whose inputs and outputs are sampled too.  NUTS is the JAX package's
-# default command; anynoise under HMC beside ADVI is BASELINE.json's "HMC +
-# ADVI comparison".  Sizes: the JAX command line's defaults
-# (gogp_tpu/tutorial/bayes.py: 4 chains, 400 warmup transitions, 512
-# samples, NUTS's trees up to depth 10, HMC's trajectories up to 1024
-# leapfrog steps; ADVI 4 x 400 steps of 8 draws; SMC 512 particles), but
-# for two runs.  NUTS alone took 612 s at the defaults on an H100 (max bulk
-# R-hat 1.29), so it runs at NUTS_WARMUP warmup transitions, its trees
-# whole.  HMC on anynoise, whose f32 steps adapt to about 0.003 (about 300
-# leapfrog steps, 2.6 s, a transition there: its 528 transitions would take
-# 23 minutes), runs ANYNOISE_HMC transitions, its trajectories whole.  The
-# hyperpriors posterior has more than one mode in the seasonal period, 1-2
-# of 4 chains adapt a small step, and the lockstep pays their trees
-# (PERF.md).  So NUTS and HMC on hyperpriors each run in a worker
-# process of their own (SAMPLER_WORKERS), which a whole run starts before
-# the bayes phase's runs and waits for after the evaluate phase, while this
-# process takes those phases and the other runs: the runs are host-bound
-# (K7 0.019 ms of a 5-9 ms value and gradient) and the host has cores to
-# spare.  Nothing that times the card runs beside them.
+# The samplers path: every engine of the command line but ChEES at its
+# defaults, each through ``bayes.main`` in process on the card's default
+# route: K7 on the theta-only studies (hyperpriors, barebones), the plain
+# route on anynoise, whose inputs and outputs are sampled too.  NUTS is the
+# JAX package's default command; anynoise under HMC beside ADVI is
+# BASELINE.json's "HMC + ADVI comparison".  Sizes: the JAX command line's
+# defaults (gogp_tpu/tutorial/bayes.py: 4 chains, 400 warmup transitions,
+# 512 samples, NUTS's trees up to depth 10, HMC's trajectories up to 1024
+# leapfrog steps; PT-ChEES 4 ladders of 8 rungs, 400 + 128 sweeps, ChEES
+# trajectories up to 256 steps; GHMC 1600 + 2048 one-step transitions;
+# ADVI 4 x 400 steps of 8 draws; SMC 512 particles), but for five runs.
+# NUTS alone took 612 s at the defaults on an H100 (max bulk R-hat 1.29),
+# so it runs at NUTS_WARMUP warmup transitions, its trees whole.  HMC on
+# anynoise, whose f32 steps adapt to about 0.003 (about 300 leapfrog steps,
+# 2.6 s, a transition there: its 528 transitions would take 23 minutes),
+# runs ANYNOISE_HMC transitions, its trajectories whole.  ChEES with
+# ``--pops 4`` and ``--race 4`` runs at the bayes phase's 64 chains and 128
+# + 128 transitions (BAYES_CUT).  ``tempering.run_pt_nuts``, which no
+# command line runs on one device (gogp_tpu/parallel/sample.py:1093 is its
+# only caller), runs at its 8 replicas and depth 6, 128 + 128 sweeps
+# (PT_NUTS_CUT; its defaults are 500 + 500), through :func:`pt_nuts_main`.
+# The hyperpriors posterior has more than one mode in the seasonal period,
+# 1-2 of 4 NUTS chains adapt a small step, and the lockstep pays their
+# trees (PERF.md).  The runs on hyperpriors each run in a worker process
+# (SAMPLER_WORKERS, SAMPLER_POOL at a time, the longest first), which a
+# whole run starts before the bayes phase's runs and waits for after the
+# evaluate phase, while this process takes those phases and the other runs:
+# the runs are host-bound (K7 0.019 ms of a 5-9 ms value and gradient) and
+# the host has cores to spare.  Nothing that times the card runs beside
+# them.
 NUTS_WARMUP = ("--warmup", "200")
 ANYNOISE_HMC = ("--warmup", "20", "--samples", "32")
+BAYES_CUT = ("--chains", str(BAYES_CHAINS), "--warmup", str(BAYES_WARMUP), "--samples",
+             str(BAYES_CHAINS * BAYES_SAMPLES))
+PT_NUTS_CUT = ("--replicas", "8", "--warmup", "128", "--samples", "128")
 SAMPLER_RUNS = (
     ("nuts", ["hyperpriors", "--engine", "nuts", *NUTS_WARMUP, "selfcheck"]),
     ("hmc", ["hyperpriors", "--engine", "hmc", "selfcheck"]),
+    ("pt_chees", ["hyperpriors", "--engine", "pt-chees", "selfcheck"]),
+    ("ghmc", ["hyperpriors", "--engine", "ghmc", "selfcheck"]),
+    ("chees_pops", ["hyperpriors", "--engine", "chees", *BAYES_CUT, "--pops", "4", "selfcheck"]),
+    ("chees_race", ["hyperpriors", "--engine", "chees", *BAYES_CUT, "--race", "4", "selfcheck"]),
+    ("pt_nuts", ["hyperpriors", "--engine", "pt-nuts", *PT_NUTS_CUT, "selfcheck"]),
     ("advi", ["hyperpriors", "--engine", "advi", "selfcheck"]),
     ("anynoise_hmc", ["anynoise", "--engine", "hmc", *ANYNOISE_HMC, "selfcheck"]),
     ("anynoise_advi", ["anynoise", "--engine", "advi", "selfcheck"]),
     ("advi_full", ["barebones", "--engine", "advi-full", "selfcheck"]),
     ("smc", ["barebones", "--engine", "smc", "selfcheck"]),
 )
-SAMPLER_WORKERS = ("nuts", "hmc")
-# The function each engine runs, wrapped to count its log-joint's calls.
+SAMPLER_WORKERS = ("pt_chees", "nuts", "pt_nuts", "chees_race", "chees_pops", "hmc", "ghmc")
+SAMPLER_POOL = 5
+# The function each engine runs, wrapped to count its log-joint's calls
+# (ChEES with --pops: run_chees_pops).
 SAMPLER_FNS = {"nuts": ("nuts", "run_nuts"), "hmc": ("hmc", "run_hmc"), "advi": ("advi", "run_advi"),
-               "advi-full": ("advi", "run_advi_fullrank"), "smc": ("smc", "run_smc")}
+               "advi-full": ("advi", "run_advi_fullrank"), "smc": ("smc", "run_smc"), "chees": ("chees", "run_chees"),
+               "pt-chees": ("pt_chees", "run_pt_chees"), "ghmc": ("ghmc", "run_ghmc"),
+               "pt-nuts": ("tempering", "run_pt_nuts")}
+# Each MCMC engine's default draws, wrapped to mark where sampling begins.
+SAMPLER_DRAWS = {"nuts": nuts.generator_draws, "pt-nuts": nuts.generator_draws, "chees": chees.generator_draws,
+                 "pt-chees": chees.generator_draws, "ghmc": ghmc.generator_draws}
 # The one-transition check: NUTS and HMC at this many chains from one state
 # with the same draws, on the K7 route and under force_plain (f32 both).
 SAMPLER_CHECK_CHAINS = 64
@@ -1376,22 +1416,78 @@ SAMPLER_CHECK_CHAINS = 64
 # nuts_agree of the chains must agree.
 SAMPLER_BOUNDS = {"position_atol": 1.5e-3, "logp_rtol": 4e-4, "accept_atol": 2.5e-2,
                   "nuts_agree": SAMPLER_CHECK_CHAINS - 4}
-# The K7 shapes of the samplers path, by run: the chains, draws or
-# particles of one batched value and gradient.
-SAMPLER_K7 = {"nuts": ("hyperpriors", 4), "hmc": ("hyperpriors", 4), "advi": ("hyperpriors", 8),
-              "advi_full": ("barebones", 8), "smc": ("barebones", 512)}
+# The same check for one PT-ChEES sweep (4 ladders x 8 rungs, 32 chains, from
+# the pt_chees run's final state: ChEES trajectories of up to 256 steps,
+# then the swap) and one GHMC transition (64 chains, one leapfrog step, at
+# the ghmc run's step size and preconditioner).  The bounds were set before
+# their first run on the card, from the bayes phase's 55-step ChEES
+# transition (1.1e-4) and HMC's check: every chain must agree, take the
+# same accept decision, and PT's sweep the same swaps.  In that run 30 of
+# PT's 32 chains agreed (2.7e-4) and two parted by 3.0 (PERF.md, PR 11), so
+# the sweep also runs on the plain route in f64: a chain on which the plain
+# f32 route itself parts from f64 beyond the bounds is reported, not held.
+PT_CHECK_BOUNDS = {"position_atol": 5e-3, "logp_rtol": 1e-3, "accept_atol": 5e-2}
+GHMC_CHECK_CHAINS = 64
+GHMC_CHECK_BOUNDS = {"position_atol": 1e-4, "logp_rtol": 1e-4, "accept_atol": 1e-2}
+# The K7 shapes of the samplers path, by run: the chains, rungs x ladders,
+# arms x chains, draws or particles of one batched value and gradient.
+SAMPLER_K7 = {"nuts": ("hyperpriors", 4), "hmc": ("hyperpriors", 4), "pt_chees": ("hyperpriors", 32),
+              "ghmc": ("hyperpriors", 4), "chees_pops": ("hyperpriors", BAYES_CHAINS),
+              "chees_race": ("hyperpriors", 4 * BAYES_CHAINS), "pt_nuts": ("hyperpriors", 8),
+              "advi": ("hyperpriors", 8), "advi_full": ("barebones", 8), "smc": ("barebones", 512)}
+
+
+def pt_nuts_main(argv: list[str]) -> None:
+    """``bayes.main``'s steps for ``tempering.run_pt_nuts``, which no
+    command line runs on one device: the study's log-joint on the card's
+    default route, one start as ``bayes.sample_posterior`` makes it (v0 +
+    0.1 N(0, 1) on the free coordinates, seed + 1), the replicas' NUTS state
+    on the host through ``bayes.on_host`` as ``bayes`` keeps NUTS's, then the
+    mixture forecast over the cold chain's draws and the theta-mean line."""
+    ap = argparse.ArgumentParser()
+    ap.add_argument("study")
+    ap.add_argument("--engine")
+    ap.add_argument("--replicas", type=int)
+    ap.add_argument("--warmup", type=int)
+    ap.add_argument("--samples", type=int)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--platform", default=None)
+    ap.add_argument("mode")
+    args = ap.parse_args(argv)
+    dev, host = tio.device_for(args.platform or "cuda"), torch.device("cpu")
+    _, study, data = bayes.get_study(args.study)
+    x, y = tio.load_csv(data)
+    y_norm, mean_y, std_y = tio.normalize(y)
+    logp, observed, v0, free = bayes.build_logjoint(study, x, y_norm, dev)
+    g = torch.Generator(device=dev).manual_seed(args.seed + 1)
+    x0 = v0 + 0.1 * torch.randn(v0.shape, generator=g, dtype=v0.dtype, device=dev) * free
+    res = tempering.run_pt_nuts(bayes.on_host(logp, dev), x0.to(host), torch.Generator(device=host).manual_seed(
+        args.seed), n_replicas=args.replicas, num_warmup=args.warmup, num_samples=args.samples, max_tree_depth=6,
+                                free=free.to(host))
+    draws = res.positions.to(dev)
+    lo, hi = x[:, 0].min(), x[:, 0].max()
+    z = np.linspace(lo, hi + (hi - lo), 50)[:, None]
+    mu, sigma = bayes.mixture_forecast(study.gp, observed, draws, z)
+    tio.write_forecast_rows(sys.stdout, [[z[i, 0], float("nan"), mu[i] * std_y + mean_y, sigma[i] * std_y]
+                                         for i in range(z.shape[0])])
+    theta_mean = torch.exp(draws[:, : study.gp.n_theta]).mean(0)
+    print("# posterior theta mean: " + ",".join(f"{t:.6f}" for t in theta_mean.tolist()))
 
 
 def run_engine(argv: list[str]) -> dict:
-    """``bayes.main(argv)`` in process, its output captured, with the
-    engine's run function wrapped to count its log-joint's calls and keep
-    its result (and, for NUTS, to record each transition's trees and read
-    the host clock, after a synchronize, where sampling begins).  The launch
-    counts are set to 0 just before ``bayes.main`` and read just after."""
+    """``bayes.main(argv)`` (``pt_nuts_main`` for the engine "pt-nuts") in
+    process, its output captured, with the engine's run function wrapped to
+    count its log-joint's calls and keep its result, and an MCMC engine's
+    draws wrapped to read the host clock, after a synchronize, where
+    sampling begins (after the race's probe with --race); for NUTS each
+    transition's trees, for a race its statistics.  The launch counts are
+    set to 0 just before ``bayes.main`` and read just after."""
     engine = argv[argv.index("--engine") + 1]
     module, name = SAMPLER_FNS[engine]
+    if engine == "chees" and "--pops" in argv:
+        name = "run_chees_pops"
     module = importlib.import_module(f"gogp_torch.infer.{module}")
-    real, calls, mark, trace, shapes, results = getattr(module, name), [0], {}, [], set(), []
+    real, calls, mark, trace, shapes, results, races = getattr(module, name), [0], {}, [], set(), [], []
 
     def wrapped(logp, *args, **kwargs):
         def counted(V):
@@ -1401,14 +1497,17 @@ def run_engine(argv: list[str]) -> dict:
 
         if engine == "nuts":
             kwargs["trace"] = trace
-            transitions = [0]
+        if engine in SAMPLER_DRAWS:
+            base, transitions = SAMPLER_DRAWS[engine], [0]
+            start = kwargs["num_warmup"] + (kwargs["race_probe"] if kwargs.get("race") else 0)
 
             def draws(state):
-                if transitions[0] == kwargs["num_warmup"]:  # the first sampling transition
+                if transitions[0] == start:  # the first sampling transition
                     torch.cuda.synchronize()
                     mark.update(t=time.perf_counter(), calls=calls[0])
                 transitions[0] += 1
-                return nuts.generator_draws(state)
+                mark["transitions"] = transitions[0]
+                return base(state)
 
             kwargs["draws"] = draws
         torch.cuda.synchronize()
@@ -1418,12 +1517,21 @@ def run_engine(argv: list[str]) -> dict:
         mark.update(t1=time.perf_counter())
         return results[-1]
 
+    real_race = chees.chees_race
+
+    def race(*args, **kwargs):
+        out = real_race(*args, **kwargs)
+        races.append(out[1])
+        return out
+
     out = io.StringIO()
+    main = pt_nuts_main if engine == "pt-nuts" else bayes.main
     torch.cuda.synchronize()
-    with contextlib.redirect_stdout(out), unittest.mock.patch.object(module, name, wrapped):
+    with (contextlib.redirect_stdout(out), unittest.mock.patch.object(module, name, wrapped),
+          unittest.mock.patch.object(chees, "chees_race", race)):
         cb.reset_launch_counts()
         t0 = time.perf_counter()
-        bayes.main(argv)
+        main(argv)
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
         launches = cb.LAUNCHES["fused_gp_linv"]
@@ -1431,7 +1539,7 @@ def run_engine(argv: list[str]) -> dict:
     rows = np.array([[float(v) for v in line.split(",")] for line in lines[:-1]])
     return {"argv": argv, "wall_s": wall_s, "sampler_wall_s": mark["t1"] - mark["t0"], "k7_launches": launches,
             "vg_calls": calls[0], "batch_shapes": sorted(shapes), "trace": trace, "mark": mark,
-            "result": results[0], "theta_mean_line": lines[-1], "forecast_rows": list(rows.shape),
+            "result": results[0], "races": races, "theta_mean_line": lines[-1], "forecast_rows": list(rows.shape),
             "forecast_ok": bool(rows.shape == (50, 4) and np.isfinite(rows[:, [0, 2, 3]]).all()
                                 and (rows[:, 3] > 0).all() and lines[-1].startswith("# posterior theta mean: "))}
 
@@ -1476,6 +1584,61 @@ def nuts_report(run: dict) -> dict:
             "ess_per_s_total": chains["min_bulk_ess"] / sum(walls.values())}
 
 
+def mcmc_report(run: dict) -> dict:
+    """An MCMC run's walls, calls, transitions, diagnostics and ESS/s (over
+    the sampling wall and over the whole run).  PT's draws are its cold
+    chains' (one a ladder), GHMC's every transition's."""
+    mark, res = run["mark"], run["result"]
+    pos = res.positions if res.positions.dim() == 3 else res.positions[:, None]
+    walls = {"init_and_warmup": mark["t"] - mark["t0"], "sampling": mark["t1"] - mark["t"]}
+    summ = _posterior_summary(pos)
+    return {"transitions": mark["transitions"], "wall_s": walls,
+            "vg_calls_by_stage": {"init_and_warmup": mark["calls"], "sampling": run["vg_calls"] - mark["calls"]},
+            "vg_per_transition": run["vg_calls"] / mark["transitions"],
+            "ms_per_transition": 1e3 * sum(walls.values()) / mark["transitions"],
+            "ms_per_vg": 1e3 * sum(walls.values()) / run["vg_calls"],
+            "draws": list(pos.shape), "min_bulk_ess": summ["min_bulk_ess"], "max_bulk_rhat": summ["max_bulk_rhat"],
+            "posterior_mean": summ["mean"].tolist(), "ess_per_s_sampling": summ["min_bulk_ess"] / walls["sampling"],
+            "ess_per_s_total": summ["min_bulk_ess"] / sum(walls.values()),
+            "draws_finite": bool(torch.isfinite(res.positions).all())}
+
+
+def engine_report(label: str, run: dict) -> dict:
+    """What each new engine's run adds: PT's flow, ladder and each cold
+    chain's mean of the period coordinate v[4]; GHMC's step, damping and
+    acceptance; the race's candidates, scores, costs and winner; each
+    population's step and trajectory.  ``final``: the plain values of the
+    final state that the one-transition checks start from."""
+    res = run["result"]
+    state = res.state
+    if label in ("pt_chees", "pt_nuts"):
+        pos = res.positions if res.positions.dim() == 3 else res.positions[:, None]
+        out = {"round_trips": int(res.round_trips), "swap_rate": float(res.swap_rate),
+               "pair_rej": res.pair_rej.tolist(), "barrier": float(res.barrier), "betas": res.betas.tolist(),
+               "cold_chain_mean_v4": pos[..., 4].double().mean(0).tolist(),
+               "cold_chain_mean": pos.double().mean(0).tolist()}
+        if label == "pt_nuts":
+            return {**out, "step_size": state.step_size.tolist()}
+        return {**out, "step_size": state.step_size.tolist(), "traj_length": torch.exp(state.log_traj).tolist(),
+                "mean_accept_sampling": float(state.accept_probs.mean()),
+                "final": {"betas": res.betas.tolist(), "positions": state.positions.tolist(),
+                          "step_size": state.step_size.tolist(), "log_traj": state.log_traj.tolist(),
+                          "inv_mass": state.inv_mass.tolist(), "step": state.step}}
+    if label == "ghmc":
+        return {"step_size": float(state.step_size), "damping": float(ghmc._damping(state)),
+                "sigma": state.sigma.tolist(), "mean_accept_sampling": float(res.accept_probs.mean()),
+                "final": {"step_size": float(state.step_size), "sigma": state.sigma.tolist()}}
+    out = {"mean_accept_sampling": float(res.accept_probs.mean()), "step_size": state.step_size.tolist(),
+           "traj_length": torch.exp(state.log_traj).tolist()}
+    if label == "chees_race":
+        info = run["races"][0]
+        out["race"] = {"candidates_traj_length": torch.exp(info["candidates_log_traj"]).tolist(),
+                       "norm_esjd": info["norm_esjd"].tolist(), "probe_min_ess": info["probe_min_ess"].tolist(),
+                       "leapfrog_cost": info["leapfrog_cost"].tolist(), "score": info["score"].tolist(),
+                       "winner": info["winner"]}
+    return out
+
+
 def sampler_run(label: str, argv: list[str]) -> dict:
     """One run of the samplers path in this process, reduced to what the
     phase reports and checks (plain values, so that a worker process can
@@ -1489,10 +1652,12 @@ def sampler_run(label: str, argv: list[str]) -> dict:
               "forecast_ok": run["forecast_ok"], "forecast_rows": run["forecast_rows"],
               "theta_mean_line": run["theta_mean_line"]}
     samples = run["result"]
-    if argv[argv.index("--engine") + 1] in ("nuts", "hmc"):
+    if label in ("nuts", "hmc"):
         report.update(nuts_report(run) if label == "nuts" else chains_report(samples),
                       draws_finite=bool(torch.isfinite(samples.positions).all()),
                       inv_mass=samples.state.inv_mass.tolist())
+    elif label in ("pt_chees", "ghmc", "chees_pops", "chees_race", "pt_nuts"):
+        report.update(mcmc_report(run), **engine_report(label, run))
     return report
 
 
@@ -1557,20 +1722,111 @@ def nuts_placement(logp, free, start: hmc.HMCState, dev, pairs: int = 4, transit
             "vg_alone_ms": wall_ms(lambda: vg(start.position), reps=20)}
 
 
-def transition_agreement(k7: hmc.HMCState, plain: hmc.HMCState) -> tuple[dict, int]:
-    """Per chain, the two routes' positions, log-joints and acceptance
-    probabilities against SAMPLER_BOUNDS: the largest errors over the
-    chains that agree and over all, and how many agree."""
-    errs = {"position": (k7.position - plain.position).abs().amax(1),
-            "logp_rel": (k7.logp - plain.logp).abs() / plain.logp.abs(),
-            "accept": (k7.accept_prob - plain.accept_prob).abs()}
-    ok = ((errs["position"] <= SAMPLER_BOUNDS["position_atol"]) & (errs["logp_rel"] <= SAMPLER_BOUNDS["logp_rtol"])
-          & (errs["accept"] <= SAMPLER_BOUNDS["accept_atol"]))
-    report = {"chains_agreeing": int(ok.sum()), "chains": int(ok.numel()), "bounds": SAMPLER_BOUNDS,
+def transition_agreement(k7, plain, bounds: dict = SAMPLER_BOUNDS) -> tuple[dict, int]:
+    """Per chain, the two routes' (positions (chains, dim), log-joints,
+    acceptance probabilities) against ``bounds``: the largest errors over
+    the chains that agree and over all, and how many agree."""
+    errs = {"position": (k7[0] - plain[0]).abs().amax(1), "logp_rel": (k7[1] - plain[1]).abs() / plain[1].abs(),
+            "accept": (k7[2] - plain[2]).abs()}
+    ok = ((errs["position"] <= bounds["position_atol"]) & (errs["logp_rel"] <= bounds["logp_rtol"])
+          & (errs["accept"] <= bounds["accept_atol"]))
+    report = {"chains_agreeing": int(ok.sum()), "chains": int(ok.numel()), "bounds": bounds,
               "max_err_agreeing": {k: float(v[ok].max()) if ok.any() else None for k, v in errs.items()},
               "max_err_all": {k: float(v.max()) for k, v in errs.items()},
-              "mean_accept": float(k7.accept_prob.mean())}
+              "mean_accept": float(k7[2].mean())}
     return report, int(ok.sum())
+
+
+def hmc_rows(state: hmc.HMCState) -> tuple:
+    return state.position, state.logp, state.accept_prob
+
+
+def pt_chees_check(logp, plain_logp, plain64_logp, free, final: dict, dev) -> tuple[dict, list]:
+    """One PT-ChEES sweep (every rung's transition, then the swap) of the
+    pt_chees run's final state with the same draws on the K7 route and the
+    plain route in f32 and on the plain route in f64: each of the 32
+    chains' positions, raw log-joints and acceptance against
+    PT_CHECK_BOUNDS, the accept decisions and the swaps.  A chain on which
+    the plain f32 route itself parts from f64 beyond the bounds is one whose
+    trajectory f32 rounding decides (a hot rung's wide target reaches
+    covariances that f32 cannot factor closely): it is reported, with both
+    f32 routes' errors against f64, and the routes are held to each other
+    on every other chain."""
+    betas = torch.tensor(final["betas"], device=dev)
+    pos = torch.tensor(final["positions"], device=dev)
+    K, L, _ = pos.shape
+    # an odd halton index: a jitter of at least half the adapted trajectory
+    # (the final state's own index, 528, gives 3%)
+    params = dict(step_size=torch.tensor(final["step_size"], device=dev),
+                  log_traj=torch.tensor(final["log_traj"], device=dev),
+                  inv_mass=torch.tensor(final["inv_mass"], device=dev), step=final["step"] | 1)
+    start = chees.chees_init(tempering.tempered(logp, betas.repeat_interleave(L)), pos,
+                             torch.Generator(device=dev).manual_seed(0), free=free)._replace(**params)
+    fixed = chees.generator_draws(start._replace(rng=torch.Generator(device=dev).manual_seed(8)))
+    u_swap = torch.rand((L, K), generator=torch.Generator(device=dev).manual_seed(9), device=dev)
+    start64 = chees.chees_init(tempering.tempered(plain64_logp, betas.double().repeat_interleave(L)), pos.double(),
+                               start.rng, free=free.double())
+    start64 = start64._replace(**{k: v.double() if isinstance(v, torch.Tensor) else v for k, v in params.items()})
+    out, fracs = {}, {}
+    for label, lp, s0, d, u, b, fr in (
+            ("k7", logp, start, fixed, u_swap, betas, free), ("plain", plain_logp, start, fixed, u_swap, betas, free),
+            ("plain64", plain64_logp, start64, tuple(t.double() for t in fixed), u_swap.double(), betas.double(),
+             free.double())):
+        s, _, _, frac, _ = pt_chees.pt_chees_sample_chunk(lp, s0, b, 1, 0, free=fr, draws=lambda s, d=d: d,
+                                                          swap_draws=lambda s, u=u: u)
+        out[label] = (s.positions.reshape(K * L, -1).double(), (s.logps / b[:, None]).reshape(-1).double(),
+                      s.accept_probs.reshape(-1).double())
+        fracs[label] = float(frac[0])
+    report, _ = transition_agreement(out["k7"], out["plain"], PT_CHECK_BOUNDS)
+    agree = {pair: transition_agreement(out[a], out[b], PT_CHECK_BOUNDS)[0]
+             for pair, (a, b) in (("k7_f64", ("k7", "plain64")), ("plain_f64", ("plain", "plain64")))}
+
+    def ok(a, b):
+        errs = ((out[a][0] - out[b][0]).abs().amax(1), (out[a][1] - out[b][1]).abs() / out[b][1].abs(),
+                (out[a][2] - out[b][2]).abs())
+        return ((errs[0] <= PT_CHECK_BOUNDS["position_atol"]) & (errs[1] <= PT_CHECK_BOUNDS["logp_rtol"])
+                & (errs[2] <= PT_CHECK_BOUNDS["accept_atol"]))
+
+    held = ok("plain", "plain64")  # the chains f32 can reproduce
+    routes = ok("k7", "plain")
+    u_acc = fixed[1].reshape(-1).double()
+    same = bool(torch.equal((u_acc < out["k7"][2])[held], (u_acc < out["plain"][2])[held]))
+    apart = (~held).nonzero().flatten().tolist()
+    report.update(same_accept_decisions_where_f32_holds=same, swap_fraction=fracs,
+                  leapfrog_steps=chees.n_leapfrog_steps(start)[0], chains_shape=[K, L], against_f64=agree,
+                  f32_apart_from_f64={"chains": apart, "rungs": [c // L for c in apart],
+                                       "k7_position_err": [float((out["k7"][0][c] - out["plain64"][0][c]).abs().max())
+                                                           for c in apart],
+                                       "plain_position_err": [float((out["plain"][0][c] - out["plain64"][0][c])
+                                                                    .abs().max()) for c in apart]})
+    failures = []
+    if not bool(routes[held].all()) or not same or fracs["k7"] != fracs["plain"]:
+        failures.append(f"pt-chees sweep: {int(routes[held].sum())} of the {int(held.sum())} chains that f32 "
+                        f"reproduces agree on the two routes (want all), same accept decisions: {same}, swap "
+                        f"fractions {fracs}")
+    return report, failures
+
+
+def ghmc_check(logp, plain_logp, free, final: dict, dev) -> tuple[dict, list]:
+    """One GHMC transition of GHMC_CHECK_CHAINS chains around v0 at the
+    ghmc run's final step size and preconditioner, on both routes with the
+    same draws, against GHMC_CHECK_BOUNDS."""
+    start = ghmc.ghmc_init(logp, bayes_positions(GHMC_CHECK_CHAINS, dev, seed=4),
+                           torch.Generator(device=dev).manual_seed(0))
+    start = start._replace(step_size=torch.tensor(final["step_size"], device=dev),
+                           sigma=torch.tensor(final["sigma"], device=dev))
+    fixed = ghmc.generator_draws(start._replace(rng=torch.Generator(device=dev).manual_seed(8)))
+    out = {label: ghmc.ghmc_transition(lp, start, free=free, draws=lambda s: fixed)
+           for label, lp in (("k7", logp), ("plain", plain_logp))}
+    rows = {label: (o.positions, o.logps, o.accept_probs) for label, o in out.items()}
+    report, agree = transition_agreement(rows["k7"], rows["plain"], GHMC_CHECK_BOUNDS)
+    same = bool(torch.equal(fixed[1] < out["k7"].accept_probs, fixed[1] < out["plain"].accept_probs))
+    report["same_accept_decisions"] = same
+    failures = []
+    if agree < GHMC_CHECK_CHAINS or not same:
+        failures.append(f"ghmc transition: {agree} chains agree on the two routes (want all), same accept "
+                        f"decisions: {same}")
+    return report, failures
 
 
 def check_start(logp, free, chains: int, step: float, inv_mass: torch.Tensor, dev) -> hmc.HMCState:
@@ -1582,11 +1838,12 @@ def check_start(logp, free, chains: int, step: float, inv_mass: torch.Tensor, de
 
 
 def start_sampler_workers():
-    """The SAMPLER_WORKERS runs of the samplers path, each started in a
-    worker process of its own: (the pool, {label: its pending report})."""
-    pool = multiprocessing.get_context("spawn").Pool(len(SAMPLER_WORKERS))
-    return pool, {label: pool.apply_async(sampler_worker, (label, argv))
-                  for label, argv in SAMPLER_RUNS if label in SAMPLER_WORKERS}
+    """The SAMPLER_WORKERS runs of the samplers path, each in a worker
+    process, SAMPLER_POOL at a time in SAMPLER_WORKERS' order: (the pool,
+    {label: its pending report})."""
+    pool = multiprocessing.get_context("spawn").Pool(SAMPLER_POOL)
+    argvs = dict(SAMPLER_RUNS)
+    return pool, {label: pool.apply_async(sampler_worker, (label, argvs[label])) for label in SAMPLER_WORKERS}
 
 
 def sampler_runs_here() -> dict:
@@ -1619,7 +1876,10 @@ def finish_samplers(dev, here: dict, pending: dict) -> dict:
             failures.append(f"{label}: not 50 finite forecast rows with sigma > 0 and the theta-mean line")
         if not report.get("draws_finite", True):
             failures.append(f"{label}: non-finite draws")
-        emit({**{k: v for k, v in report.items() if k != "inv_mass"}, "in_worker": label in SAMPLER_WORKERS})
+        if report.get("max_bulk_rhat") is not None and not np.isfinite(report["max_bulk_rhat"]):
+            failures.append(f"{label}: non-finite R-hat")
+        emit({**{k: v for k, v in report.items() if k not in ("inv_mass", "final")},
+              "in_worker": label in SAMPLER_WORKERS})
 
     # the one-transition check: NUTS and HMC at SAMPLER_CHECK_CHAINS chains
     # from one state (around v0, at the NUTS run's median step size and mean
@@ -1627,6 +1887,7 @@ def finish_samplers(dev, here: dict, pending: dict) -> dict:
     # NUTS with its state on the host, as bayes.main keeps it
     _, _, _, logp, _, _, free = bayes_problem(dev)
     plain_logp = bayes_problem(dev, plain=True)[3]
+    plain64_logp = bayes_problem(dev, torch.float64, plain=True)[3]
     nuts_step = statistics.median(reports["nuts"]["step_size"])
     nuts_mass = torch.tensor(reports["nuts"]["inv_mass"]).mean(0)
     start = check_start(logp, free, SAMPLER_CHECK_CHAINS, nuts_step, nuts_mass, dev)
@@ -1640,7 +1901,7 @@ def finish_samplers(dev, here: dict, pending: dict) -> dict:
             out[label] = (nuts.nuts_transition(bayes.on_host(lp, dev), state_to(start, host), free=free.to(host),
                                                draws=fixed_nuts_draws(7), trace=traces[label])
                           if engine == "nuts" else hmc.hmc_transition(lp, start, free=free, draws=lambda s: hmc_draws))
-        checks[engine], agree = transition_agreement(out["k7"], out["plain"])
+        checks[engine], agree = transition_agreement(hmc_rows(out["k7"]), hmc_rows(out["plain"]))
         if engine == "nuts":
             checks[engine]["leapfrogs"] = {label: t[0].leapfrogs for label, t in traces.items()}
             checks[engine]["chains_of_another_depth"] = int((traces["k7"][0].depth != traces["plain"][0].depth).sum())
@@ -1653,8 +1914,16 @@ def finish_samplers(dev, here: dict, pending: dict) -> dict:
             if agree < SAMPLER_CHECK_CHAINS or not same:
                 failures.append(f"hmc transition: {agree} chains agree on the two routes (want all), "
                                 f"same accept decisions: {same}")
+    # the same for one PT-ChEES sweep of 32 chains and one GHMC transition of
+    # 64, from the runs' final states
+    checks["pt_chees"], failed = pt_chees_check(logp, plain_logp, plain64_logp, free, reports["pt_chees"]["final"],
+                                                dev)
+    failures += failed
+    checks["ghmc"], failed = ghmc_check(logp, plain_logp, free, reports["ghmc"]["final"], dev)
+    failures += failed
     chains = reports["nuts"]["chains"]
-    emit({"phase": "samplers", "check": f"one transition of {SAMPLER_CHECK_CHAINS} chains on both routes", **checks,
+    emit({"phase": "samplers", "check": f"one transition of {SAMPLER_CHECK_CHAINS} chains on both routes (PT-ChEES "
+                                        f"32, GHMC {GHMC_CHECK_CHAINS})", **checks,
           "nuts_placement": nuts_placement(logp, free, check_start(logp, free, chains, nuts_step, nuts_mass, dev),
                                            dev)})
     emit({"phase": "samplers", "comparison": "anynoise: HMC beside ADVI, posterior theta means",

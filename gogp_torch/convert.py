@@ -3,8 +3,10 @@
 The JAX package's state is a handful of arrays: theta vectors, flat parameter
 vectors, the fields of a ``gogp_tpu.gp.core.Posterior``, of a
 ``gogp_tpu.infer.mle.OptResult``, of a ``gogp_tpu.infer.chees.ChEESState``
-and of a chain batch of ``gogp_tpu.infer.hmc.HMCState`` (the NUTS and HMC
-state under ``jax.vmap``).
+(also rung-stacked, as PT-ChEES keeps it), of a chain batch of
+``gogp_tpu.infer.hmc.HMCState`` (the NUTS and HMC state under ``jax.vmap``),
+of a ``gogp_tpu.infer.ghmc.GHMCState`` and of a
+``gogp_tpu.infer.tempering.PTFlow``.
 The caller turns them into numpy arrays (``np.asarray``) and these functions
 put them on the device the caller names.  This module does not import JAX.
 """
@@ -19,8 +21,10 @@ import torch
 from gogp_torch.gp.core import Posterior
 from gogp_torch.infer import adapt
 from gogp_torch.infer.chees import AdamState, ChEESState
+from gogp_torch.infer.ghmc import GHMCState
 from gogp_torch.infer.hmc import HMCState
 from gogp_torch.infer.mle import OptResult
+from gogp_torch.infer.tempering import PTFlow
 
 
 def _fields(obj) -> Mapping[str, Any]:
@@ -62,35 +66,51 @@ def opt_result(res: Mapping[str, Any] | Any, device, dtype: torch.dtype | None =
     )
 
 
+def _shared(a, device, dtype: torch.dtype | None = None) -> torch.Tensor:
+    """A counter that a vmapped JAX state holds once per chain, rung or
+    population, as the port's one shared value."""
+    a = np.asarray(a)
+    if not (a == a.reshape(-1)[0]).all():
+        raise ValueError("a counter that differs between chains cannot be shared")
+    return array_from_numpy(a.reshape(-1)[0], device, dtype)
+
+
+def _rng(rng, device) -> torch.Generator:
+    """The JAX key cannot carry over: ``rng``, or a new generator on
+    ``device`` seeded 0."""
+    return torch.Generator(device=device).manual_seed(0) if rng is None else rng
+
+
 def chees_state_from_numpy(state: Mapping[str, Any] | Any, device, dtype: torch.dtype | None = None,
                            rng: torch.Generator | None = None) -> ChEESState:
     """A :class:`ChEESState` from the leaves of the JAX one (a mapping, or
     the JAX NamedTuple itself, with ``da``, ``adam`` and ``welford`` nested
-    the same way).  Iteration counters become int32 tensors and ``step`` an
-    int.  The JAX key cannot carry over: ``rng`` is the port's generator (a
+    the same way).  A rung-stacked state (every leaf with a leading K, as
+    ``pt_chees`` vmaps it) becomes a grouped one: its iteration counters,
+    equal on every rung, become the port's shared ones.  Counters become
+    int32 tensors and ``step`` an int; ``rng`` is the port's generator (a
     new one on ``device``, seeded 0, if None)."""
     f = _fields(state)
 
     def t(a):
         return array_from_numpy(a, device, dtype)
 
-    def count(a):
-        return array_from_numpy(a, device, torch.int32)
-
     da, adam, welford = _fields(f["da"]), _fields(f["adam"]), _fields(f["welford"])
-    if rng is None:
-        rng = torch.Generator(device=device).manual_seed(0)
     return ChEESState(
         positions=t(f["positions"]), logps=t(f["logps"]), grads=t(f["grads"]),
         step_size=t(f["step_size"]), inv_mass=t(f["inv_mass"]), log_traj=t(f["log_traj"]),
         accept_probs=t(f["accept_probs"]),
         da=adapt.DualAveragingState(t(da["log_step"]), t(da["log_step_avg"]), t(da["gradient_avg"]),
-                                    count(da["t"]), t(da["mu"])),
-        adam=AdamState(t(adam["m"]), t(adam["v"]), count(adam["t"])),
-        welford=adapt.WelfordState(t(welford["count"]), t(welford["mean"]), t(welford["m2"])),
-        step=int(np.asarray(f["step"])),
-        rng=rng,
+                                    _shared(da["t"], device, torch.int32), t(da["mu"])),
+        adam=AdamState(t(adam["m"]), t(adam["v"]), _shared(adam["t"], device, torch.int32)),
+        welford=adapt.WelfordState(_shared(welford["count"], device, dtype), t(welford["mean"]), t(welford["m2"])),
+        step=int(_shared(f["step"], device)),
+        rng=_rng(rng, device),
     )
+
+
+# PT-ChEES keeps its rungs as the groups of one ChEESState.
+pt_chees_state_from_numpy = chees_state_from_numpy
 
 
 def hmc_state_from_numpy(state: Mapping[str, Any] | Any, device, dtype: torch.dtype | None = None,
@@ -104,21 +124,41 @@ def hmc_state_from_numpy(state: Mapping[str, Any] | Any, device, dtype: torch.dt
     def t(a):
         return array_from_numpy(a, device, dtype)
 
-    def shared(a, dt=dtype):
-        a = np.asarray(a)
-        if not (a == a.reshape(-1)[0]).all():
-            raise ValueError("a counter that differs between chains cannot be shared")
-        return array_from_numpy(a.reshape(-1)[0], device, dt)
-
     da, welford = _fields(f["da"]), _fields(f["welford"])
-    if rng is None:
-        rng = torch.Generator(device=device).manual_seed(0)
     return HMCState(
         position=t(f["position"]), logp=t(f["logp"]), grad=t(f["grad"]), step_size=t(f["step_size"]),
         inv_mass=t(f["inv_mass"]),
         da=adapt.DualAveragingState(t(da["log_step"]), t(da["log_step_avg"]), t(da["gradient_avg"]),
-                                    shared(da["t"], torch.int32), t(da["mu"])),
-        welford=adapt.WelfordState(shared(welford["count"]), t(welford["mean"]), t(welford["m2"])),
+                                    _shared(da["t"], device, torch.int32), t(da["mu"])),
+        welford=adapt.WelfordState(_shared(welford["count"], device, dtype), t(welford["mean"]), t(welford["m2"])),
         accept_prob=t(f["accept_prob"]),
-        rng=rng,
+        rng=_rng(rng, device),
     )
+
+
+def ghmc_state_from_numpy(state: Mapping[str, Any] | Any, device, dtype: torch.dtype | None = None,
+                          rng: torch.Generator | None = None) -> GHMCState:
+    """A :class:`GHMCState` from the leaves of the JAX one; ``rng`` as in
+    :func:`chees_state_from_numpy`."""
+    f = _fields(state)
+
+    def t(a):
+        return array_from_numpy(a, device, dtype)
+
+    da = _fields(f["da"])
+    return GHMCState(
+        positions=t(f["positions"]), momenta=t(f["momenta"]), logps=t(f["logps"]), grads=t(f["grads"]),
+        step_size=t(f["step_size"]), sigma=t(f["sigma"]), accept_probs=t(f["accept_probs"]),
+        da=adapt.DualAveragingState(t(da["log_step"]), t(da["log_step_avg"]), t(da["gradient_avg"]),
+                                    array_from_numpy(da["t"], device, torch.int32), t(da["mu"])),
+        step=int(np.asarray(f["step"])),
+        rng=_rng(rng, device),
+    )
+
+
+def flow_from_numpy(flow: Mapping[str, Any] | Any, device, dtype: torch.dtype | None = None) -> PTFlow:
+    """A :class:`PTFlow` from the JAX one (per-ladder labels and trips
+    where it has them)."""
+    f = _fields(flow)
+    return PTFlow(array_from_numpy(f["labels"], device, torch.int32), array_from_numpy(f["trips"], device, torch.int32),
+                  array_from_numpy(f["rej_sum"], device, dtype), array_from_numpy(f["prop_count"], device, dtype))

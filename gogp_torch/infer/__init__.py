@@ -17,8 +17,16 @@ from gogp_torch.infer.chees import (  # noqa: F401
     chees_warm_chunk,
     finalize_chees_warmup,
     run_chees,
+    run_chees_pops,
 )
 from gogp_torch.infer.diagnostics import ess, split_rhat  # noqa: F401
+from gogp_torch.infer.ghmc import (  # noqa: F401
+    GHMCState,
+    ghmc_init,
+    ghmc_sample_chunk,
+    ghmc_warm_chunk,
+    run_ghmc,
+)
 from gogp_torch.infer.hmc import (  # noqa: F401
     HMCState,
     IntegratorState,
@@ -30,4 +38,19 @@ from gogp_torch.infer.hmc import (  # noqa: F401
 )
 from gogp_torch.infer.mle import OptResult, adam, lbfgs  # noqa: F401
 from gogp_torch.infer.nuts import nuts_transition, run_nuts  # noqa: F401
+from gogp_torch.infer.pt_chees import (  # noqa: F401
+    PTChEESResult,
+    pt_chees_init,
+    pt_chees_sample_chunk,
+    pt_chees_warm_chunk,
+    run_pt_chees,
+)
 from gogp_torch.infer.smc import SMCResult, run_smc  # noqa: F401
+from gogp_torch.infer.tempering import (  # noqa: F401
+    PTFlow,
+    PTResult,
+    geometric_ladder,
+    place_rungs,
+    run_pt_nuts,
+    tune_ladder,
+)

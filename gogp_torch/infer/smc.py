@@ -96,29 +96,38 @@ def _rwm_mutate(logp_beta, positions: Tensor, normals: Tensor, uniforms: Tensor,
     return torch.where(accept[:, None], q_new, positions), accept_prob
 
 
-def _hmc_mutate(vg_beta, positions: Tensor, normals: Tensor, uniforms: Tensor, step_size: float,
-                inv_mass: Tensor, n_leapfrog: int, free):
-    """One HMC transition of every particle on the tempered density
-    (``vg_beta`` masks its gradient by ``free``).
-
-    As in the JAX twin, each step carries the momentum of its first half
-    kick (smc.py's ``leap``): the next step's first half kick completes it,
-    but the last step's second half kick is never taken, so the energy that
-    the acceptance compares is computed with the endpoint's momentum half a
-    kick short (``hmc.leapfrog`` would complete it).  Kept for parity with
-    the reference; ROADMAP.md lists it."""
-    logp_q, grad_q = vg_beta(positions)
-    r0 = normals / torch.sqrt(inv_mass)
-    if free is not None:
-        r0 = r0 * free
-    e0 = -logp_q + kinetic(r0, inv_mass)
-    s = IntegratorState(positions, r0, logp_q, grad_q)
+def _mutation_steps(vg_beta, s: IntegratorState, step_size: float, inv_mass: Tensor, n_leapfrog: int,
+                    free) -> IntegratorState:
+    """The mutation's integrator, the JAX twin's ``leap`` (smc.py:101-109):
+    each step kicks the momentum by half a step's gradient, drifts, and
+    evaluates the gradient at the new position, but the next step kicks by
+    half a step again.  So every interior kick is half of velocity
+    Verlet's (``hmc.leapfrog`` kicks by ``step * grad`` between drifts) and
+    the last half kick is never taken: the integrator is not the leapfrog,
+    is not reversible under a momentum flip, and the energy that the
+    acceptance compares is not the leapfrog's.  Mirrored for parity with
+    the JAX package; ROADMAP.md lists it as the reference's fault."""
     for _ in range(n_leapfrog):
         r = s.momentum + 0.5 * step_size * s.grad
         q = s.position + step_size * inv_mass * r
         if free is not None:
             q = torch.where(free > 0, q, s.position)
         s = IntegratorState(q, r, *vg_beta(q))
+    return s
+
+
+def _hmc_mutate(vg_beta, positions: Tensor, normals: Tensor, uniforms: Tensor, step_size: float,
+                inv_mass: Tensor, n_leapfrog: int, free):
+    """One HMC-like transition of every particle on the tempered density
+    (``vg_beta`` masks its gradient by ``free``), integrated by
+    :func:`_mutation_steps` as the JAX twin integrates it."""
+    logp_q, grad_q = vg_beta(positions)
+    r0 = normals / torch.sqrt(inv_mass)
+    if free is not None:
+        r0 = r0 * free
+    e0 = -logp_q + kinetic(r0, inv_mass)
+    s = _mutation_steps(vg_beta, IntegratorState(positions, r0, logp_q, grad_q), step_size, inv_mass, n_leapfrog,
+                        free)
     e1 = -s.logp + kinetic(s.momentum, inv_mass)
     delta = torch.where(torch.isnan(e1 - e0), torch.inf, e1 - e0)
     accept_prob = torch.clamp(torch.exp(-delta), max=1.0)

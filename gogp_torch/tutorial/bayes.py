@@ -9,9 +9,10 @@ Output CSV rows: ``z, nan, mu, sigma`` (the reference's out-of-sample schema,
 tutorial/tutorial.go:200-225) on a grid reaching one span past the data,
 then a comment line with the posterior means of the hyperparameters.
 
-Engines: NUTS (the default, as in the JAX twin), HMC, ChEES-HMC, ADVI
-(mean-field and full-rank) and SMC, on all five studies.  PT-ChEES, GHMC,
-``--pops`` and ``--race`` stop with a message naming ROADMAP.md.
+Engines: every one of the JAX twin's, on all five studies: NUTS (the
+default), HMC, ChEES-HMC (with ``--pops`` independent populations or a
+``--race`` of trajectory lengths), PT-ChEES (``--chains`` ladders of
+``--replicas`` rungs), GHMC, ADVI (mean-field and full-rank) and SMC.
 
 The log-joint of a theta-only study runs on the K7 route: its forward is
 ``ops.fused_gp.make_fused_value_and_grad``'s value for the whole chain
@@ -25,6 +26,7 @@ over the chains), and its forecast conditions each draw on its own inputs.
 
 Usage:
     python -m gogp_torch.tutorial.bayes hyperpriors selfcheck
+    python -m gogp_torch.tutorial.bayes hyperpriors --engine pt-chees selfcheck
     python -m gogp_torch.tutorial.bayes anynoise --engine advi --platform cpu selfcheck
 """
 
@@ -39,14 +41,13 @@ import numpy as np
 import torch
 
 from gogp_torch.gp.core import predict_from_posterior, predict_mixture
-from gogp_torch.infer import advi, chees, hmc, nuts, smc
+from gogp_torch.infer import advi, chees, ghmc, hmc, nuts, pt_chees, smc
 from gogp_torch.models.params import gp_observe, gp_posterior, join_params
 from gogp_torch.ops import fused_gp, linalg
 from gogp_torch.tutorial import io as tio
 
 STUDIES = ("barebones", "hyperpriors", "warpedtime", "anynoise", "events")
 ENGINES = ("nuts", "hmc", "chees", "pt-chees", "ghmc", "advi", "advi-full", "smc")
-_UNPORTED_ENGINES = ("pt-chees", "ghmc")
 
 
 def get_study(name: str):
@@ -124,14 +125,15 @@ def sample_posterior(logp, v0, free, engine: str, seed: int, num_samples: int,
                      replicas: int = 8, race: int = 0) -> torch.Tensor:
     """(draws, p) posterior draws on ``v0``'s device, with the JAX twin's
     sizes: ChEES keeps ``num_samples // chains`` draws per chain (at least
-    one), NUTS and HMC ``num_samples // chains`` (chain after chain, as
-    JAX's vmap stacks them), ADVI runs ``4 num_warmup`` steps and draws
-    ``num_samples``, SMC anneals ``max(num_samples, 128)`` particles."""
-    if engine in _UNPORTED_ENGINES:
-        raise SystemExit(f"engine {engine!r} is not ported yet (ROADMAP.md, queue 1)")
-    if pops > 1 or race > 0:
-        raise SystemExit("--pops and --race are not ported yet (ROADMAP.md, queue 1)")
-    del replicas  # a PT-ChEES flag
+    one; ``pops > 1`` splits the chains into independent populations, ``race
+    > 0`` races that many trajectory lengths for ``min(128, max(32,
+    num_warmup // 4))`` transitions), PT-ChEES as many per ladder of
+    ``replicas`` rungs, ``chains`` ladders, pooled; GHMC warms up for
+    ``max(4 num_warmup, 512)`` transitions and keeps every 16th of ``16
+    max(1, num_samples // chains)``; NUTS and HMC ``num_samples // chains``
+    (chain after chain, as JAX's vmap stacks them), ADVI runs ``4
+    num_warmup`` steps and draws ``num_samples``, SMC anneals
+    ``max(num_samples, 128)`` particles."""
     dim = v0.shape[0]
 
     def generator(offset: int) -> torch.Generator:
@@ -146,10 +148,24 @@ def sample_posterior(logp, v0, free, engine: str, seed: int, num_samples: int,
         return smc.run_smc(logp, v0, generator(0), num_particles=max(num_samples, 128), free=free).particles
     x0 = v0[None, :] + 0.1 * torch.randn((chains, dim), generator=generator(1), dtype=v0.dtype,
                                          device=v0.device) * free[None, :]
-    if engine == "chees":
-        res = chees.run_chees(logp, x0, generator(0), num_warmup=num_warmup,
-                              num_samples=max(1, num_samples // chains), free=free)
+    per = max(1, num_samples // chains)
+    if engine == "chees" and pops > 1:
+        res = chees.run_chees_pops(logp, x0, generator(0), n_pops=pops, num_warmup=num_warmup, num_samples=per,
+                                   free=free)
         return res.positions.reshape(-1, dim)
+    if engine == "chees":
+        res = chees.run_chees(logp, x0, generator(0), num_warmup=num_warmup, num_samples=per, free=free,
+                              race=race, race_probe=min(128, max(32, num_warmup // 4)))
+        return res.positions.reshape(-1, dim)
+    if engine == "pt-chees":
+        res = pt_chees.run_pt_chees(logp, x0, generator(0), n_ladders=chains, n_replicas=replicas,
+                                    num_warmup=num_warmup, num_samples=per, free=free)
+        return res.positions.reshape(-1, dim)
+    if engine == "ghmc":
+        thin = 16  # transitions per kept draw: one leapfrog step each
+        res = ghmc.run_ghmc(logp, x0, generator(0), num_warmup=max(num_warmup * 4, 512), num_samples=per * thin,
+                            free=free)
+        return res.positions[::thin].reshape(-1, dim)
     if engine == "hmc":
         res = hmc.run_hmc(logp, x0, generator(0), num_warmup=num_warmup, num_samples=num_samples // chains, free=free)
         return res.positions.transpose(0, 1).reshape(-1, dim)
@@ -201,17 +217,17 @@ def mixture_forecast(gp, observed: Observed, draws, z: np.ndarray, max_draws: in
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("study", choices=STUDIES)
-    ap.add_argument("--engine", default="nuts", choices=ENGINES,
-                    help="sampler (default nuts, as in the JAX package; pt-chees and ghmc are not ported yet)")
+    ap.add_argument("--engine", default="nuts", choices=ENGINES, help="sampler (default nuts, as in the JAX package)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--samples", type=int, default=512)
     ap.add_argument("--warmup", type=int, default=400)
     ap.add_argument("--chains", type=int, default=4)
     ap.add_argument("--replicas", type=int, default=8, help="with --engine pt-chees: rungs per ladder")
     ap.add_argument("--pops", type=int, default=1,
-                    help="with --engine chees: independent populations (not ported yet)")
+                    help="with --engine chees: independent populations of chains/pops chains, each adapting its "
+                         "own kernel")
     ap.add_argument("--race", type=int, default=0,
-                    help="with --engine chees: post-warmup trajectory race (not ported yet)")
+                    help="with --engine chees (pops=1): K-candidate post-warmup trajectory race (0 = off)")
     ap.add_argument("-n", action="store_true", help="do not normalize outputs")
     ap.add_argument("--grid", type=int, default=50, help="forecast grid points")
     ap.add_argument("--platform", default=None, choices=["cpu"],

@@ -26,7 +26,7 @@ from gogp_tpu.infer import advi as jadvi
 from gogp_tpu.infer import smc as jsmc
 from gogp_tpu.tutorial import bayes as jbayes
 from gogp_tpu.tutorial import hyperpriors as jhp
-from gogp_torch.infer import advi, smc
+from gogp_torch.infer import advi, hmc, smc
 from gogp_torch.tutorial import bayes, hyperpriors
 from gogp_torch.tutorial import io as tio
 
@@ -182,3 +182,24 @@ def test_run_smc_moments_and_evidence():
     np.testing.assert_allclose(np.cov(s.T), COV, atol=0.3)
     log_z = 1.5 * np.log(2 * np.pi) + 0.5 * np.log(np.linalg.det(COV))
     assert abs(float(res.log_evidence) - log_z) < 0.2
+
+
+def test_smc_mutation_is_not_reversible():
+    """The mutation's integrator, mirrored from the JAX package, is not the
+    leapfrog: on a 1-D N(0, 1), five steps forward, the momentum flipped,
+    five more do not come back to the start (the interior kicks are half of
+    velocity Verlet's and the last is missing), where ``hmc.leapfrog``'s
+    round trip does, to rounding."""
+    vg = hmc.value_and_grad(lambda V: -0.5 * (V * V).sum(-1), None)
+    q = torch.tensor([[0.7]], dtype=torch.float64)
+    start = hmc.IntegratorState(q, torch.tensor([[0.4]], dtype=torch.float64), *vg(q))
+    one = torch.ones(1, dtype=torch.float64)
+
+    def round_trip_miss(integrate):
+        out = integrate(start)
+        back = integrate(out._replace(momentum=-out.momentum))
+        return float((back.position - start.position).abs().max())
+
+    mutation = round_trip_miss(lambda s: smc._mutation_steps(vg, s, 0.3, one, 5, None))
+    leapfrog = round_trip_miss(lambda s: hmc.leapfrog(vg, s, 0.3, one, 5))
+    assert mutation > 1e-2 and leapfrog < 1e-14, (mutation, leapfrog)

@@ -279,23 +279,21 @@ def test_hyperpriors_chees_slice_matches_jax():
 
 def test_main_selfcheck_on_cpu():
     """The command line end to end at a small size: 50 finite rows with
-    sigma > 0, then the theta-mean line; engines and options not yet ported
-    stop with a message."""
-    buf = io.StringIO()
-    with contextlib.redirect_stdout(buf):
-        bayes.main(["hyperpriors", "--engine", "chees", "--chains", "4", "--warmup", "20",
-                    "--samples", "16", "--platform", "cpu", "selfcheck"])
-    lines = buf.getvalue().strip().splitlines()
-    rows = np.array([[float(v) for v in line.split(",")] for line in lines[:-1]])
-    assert rows.shape == (50, 4)
-    assert np.isnan(rows[:, 1]).all() and np.isfinite(rows[:, [0, 2, 3]]).all() and (rows[:, 3] > 0).all()
-    assert lines[-1].startswith("# posterior theta mean: ") and len(lines[-1].split(",")) == 6
-    for argv in (["barebones", "--engine", "ghmc", "--platform", "cpu", "selfcheck"],
-                 ["hyperpriors", "--engine", "pt-chees", "--platform", "cpu", "selfcheck"],
-                 ["hyperpriors", "--engine", "chees", "--pops", "2", "--platform", "cpu", "selfcheck"]):
-        with pytest.raises(SystemExit, match="ROADMAP"):
-            bayes.main(argv)
-
+    sigma > 0, then the theta-mean line, for ChEES and for the engines and
+    options that the port once refused (GHMC, PT-ChEES, ``--pops``,
+    ``--race``)."""
+    for argv in (["hyperpriors", "--engine", "chees"],
+                 ["hyperpriors", "--engine", "ghmc"],
+                 ["hyperpriors", "--engine", "pt-chees", "--replicas", "3"],
+                 ["hyperpriors", "--engine", "chees", "--pops", "2"],
+                 ["hyperpriors", "--engine", "chees", "--race", "2"]):
+        lines = run_main([*argv, "--chains", "4", "--warmup", "20", "--samples", "16", "--platform", "cpu",
+                          "selfcheck"])
+        rows = np.array([[float(v) for v in line.split(",")] for line in lines[:-1]])
+        assert rows.shape == (50, 4), argv
+        assert np.isnan(rows[:, 1]).all() and np.isfinite(rows[:, [0, 2, 3]]).all() and (rows[:, 3] > 0).all()
+        n_theta = bayes.get_study(argv[0])[1].gp.n_theta
+        assert lines[-1].startswith("# posterior theta mean: ") and len(lines[-1].split(",")) == n_theta
 
 
 def run_main(argv):
@@ -327,6 +325,26 @@ def test_engines_produce_forecast(study, engine):
     assert np.isnan(rows[:, 1]).all() and np.isfinite(rows[:, [0, 2, 3]]).all() and (rows[:, 3] >= 0).all()
     n_theta = bayes.get_study(study)[1].gp.n_theta
     assert lines[-1].startswith("# posterior theta mean: ") and len(lines[-1].split(",")) == n_theta
+
+
+@pytest.mark.parametrize("engine,draws", [
+    ("pt-chees", 4 * 2),
+    ("ghmc", 4 * 2),
+    ("chees --pops 2", 4 * 2),
+    ("chees --race 2", 4 * 2),
+])
+def test_new_engines_draw_as_jax_sizes(engine, draws):
+    """``sample_posterior`` with the JAX command line's sizes for the
+    engines of the PT-ChEES, GHMC, populations and race branches: 4
+    chains, 8 samples, so 2 draws a chain (a ladder's cold chain for
+    PT-ChEES, every 16th of 32 transitions for GHMC), each finite."""
+    x, y = _hyperpriors_data()
+    logp, _, v0, free = bayes.build_logjoint(hyperpriors.make_study(), x, y, "cpu", torch.float64)
+    name, *opts = engine.split()
+    pops = int(opts[1]) if opts[:1] == ["--pops"] else 1
+    race = int(opts[1]) if opts[:1] == ["--race"] else 0
+    out = bayes.sample_posterior(logp, v0, free, name, 0, 8, 20, 4, pops=pops, replicas=3, race=race)
+    assert out.shape == (draws, 6) and torch.isfinite(out).all()
 
 
 @pytest.mark.parametrize("name", ["warpedtime", "anynoise"])
