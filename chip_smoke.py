@@ -152,16 +152,51 @@ process per source) and then runs these phases, each printing JSON lines:
               44 against its plain version, once the samplers' workers are
               done.
 
-With ``--phases a,b,...`` (of kernels, k5, k7, gate, stamps, slice, train,
-large, bayes, samplers, evaluate; k7 is the bayes phase's kernel checks without its sampler runs,
-gate times K3 against K4 at n = 24576 to 65536 and stamps records the stages
-of K2, K5 and K4's chain step, both in no whole run) only those phases
+11. serve    - (run after large, before the samplers' workers start, like
+              classify) the serving caches on the slice's problem (n = 4096,
+              m = 1024): fit_serving, serve_predict and serve_predict_y;
+              serve_predict_cov and serve_sample (4 draws on fixed normals,
+              jitter 1e-4) at 256 points; compile_mixture of 8 log-theta
+              draws 0.1 N(0, 1) (numpy seed 1) and serve_predict_mixture
+              against gp.core.predict_mixture; absorb_stream of the 4096
+              points in 32 appends of 128 into a capacity-4096 posterior
+              against one absorb; loo_from_posterior.  The f32 kernel path
+              against the f64 plain path on the card; sigma's error at
+              ACCURATE_PRECISION ("float32") and at "tensorfloat32"; wall per
+              request batch (median of 5) of serve_predict, of
+              predict_from_posterior on the kernel path (one blocked TRSM
+              per request) and on the plain path; ms per append; K1 and K5
+              launches (K1 in every absorb, K5 in every tril_inv and append,
+              no other kernel) and K1 and K5 at this path's shapes.
+12. classify - GP classification on the slice's inputs with labels
+              1[sin(x/3) + 0.3 N(0, 1) > 0] (numpy seed 0), rbf.scaled() at
+              log-theta 0, bernoulli_logit: laplace_fit with its Newton
+              iterations, laplace_lml's value and gradient,
+              compile_laplace_serving and serve_predict_prob at m = 1024
+              against laplace_predict_prob; ep_fit with its sweeps, ep_lml's
+              value and gradient, compile_ep_serving; each call's wall (a
+              first and a warm run), against the f64 plain path on the
+              card; K1 and K5 launches, each count the one the Newton
+              iterations and EP sweeps of the run give, K1 on B = I + sW K
+              sW and K5 on its factor's tiles.  Then the classify study
+              (n = 40, no kernel) for -e laplace, ep and ess through its
+              command line (f32) and in f64 on the card: walls and the
+              largest |dp_hat|; ess's NaN rows where the f32 factor fails,
+              as in the JAX package, and its other rows held to rounding
+              or, where a slice decision flipped, to its Monte Carlo error.
+
+With ``--phases a,b,...`` (of kernels, k5, k7, gate, stamps, coldstart,
+slice, train, large, serve, classify, bayes, samplers, evaluate; k7 is the
+bayes phase's kernel checks without its sampler runs, gate times K3 against
+K4 at n = 24576 to 65536, stamps records the stages of K2, K5 and K4's chain
+step and coldstart takes apart a process's first laplace_fit, the last three
+in no whole run) only those phases
 run, after device and build, and the script ends with ``{"ok": false,
 "partial": [...]}`` and exit code 2: for work on one kernel, never a pass.
 
 With ``--profile``, one more phase follows:
 
-11. profile - one serving slice run, one train and one large value-and-gradient
+13. profile - one serving slice run, one train and one large value-and-gradient
               step, one 64-chain value and gradient of the bayes path and one
               127-prefix value and gradient of the evaluate path, on each
               path under torch.profiler: the device's busy time and idle
@@ -180,6 +215,7 @@ import importlib
 import io
 import json
 import multiprocessing
+import pathlib
 import statistics
 import subprocess
 import sys
@@ -190,12 +226,12 @@ import numpy as np
 import torch
 
 from gogp_torch import GP, make_gp_logp, masked_value_and_grad, matern32, mle, rbf, uniform_noise
-from gogp_torch.gp import core
+from gogp_torch.gp import core, ep, laplace, likelihoods, model_selection, serve, streaming
 from gogp_torch.models.params import gp_observe, gp_posterior
-from gogp_torch.infer import chees, diagnostics, ghmc, hmc, nuts, pt_chees, tempering
+from gogp_torch.infer import chees, diagnostics, elliptical, ghmc, hmc, nuts, pt_chees, tempering
 from gogp_torch.ops import _build, fused_gp, linalg
 from gogp_torch.ops import cholesky_blocked as cb
-from gogp_torch.tutorial import bayes
+from gogp_torch.tutorial import bayes, classify
 from gogp_torch.tutorial import evaluate as tev
 from gogp_torch.tutorial import io as tio
 
@@ -901,6 +937,12 @@ BAYES_KERNELS = ("fused_gp_linv",)
 # launches in the kernels phase.
 OFF_PATH_SOLVES = tuple(k for k in ("trsv_lower", "trsv_lower_t", "trsv2d_lower", "trsv2d_lower_t")
                         if k not in (*SERVE_KERNELS, *TRAIN_KERNELS, *LARGE_KERNELS))
+# The serving caches' (gp.serve, gp.streaming, gp.model_selection): K1 in
+# every absorb, K5 in every tril_inv and every append's TRSM.  The
+# classification path's (gp.laplace, gp.ep): K1 for B in every Newton step
+# and EP sweep, K5 in the TRSMs and pullbacks and the serving inverses.
+SERVE_CACHE_KERNELS = ("fused_cholesky_invs", "tril_inv_tile")
+CLASSIFY_KERNELS = ("fused_cholesky_invs", "tril_inv_tile")
 # The evaluate path's: K7, once per batched value-and-gradient of the
 # prefix fits, at 127 x 128 x 128 (barebones at EVAL_N) and 43 x 44 x 44
 # (hyperpriors).
@@ -909,7 +951,9 @@ EVALUATE_KERNELS = ("fused_gp_linv",)
 # engine's run on a theta-only study, at that run's batch.
 SAMPLER_PATHS = ("samplers_nuts", "samplers_hmc", "samplers_pt_chees", "samplers_ghmc", "samplers_chees_pops",
                  "samplers_chees_race", "samplers_pt_nuts", "samplers_advi", "samplers_advi_full", "samplers_smc")
-PATH_KERNELS = {"serve": SERVE_KERNELS, "train": TRAIN_KERNELS, "large": LARGE_KERNELS, "bayes": BAYES_KERNELS,
+PATH_KERNELS = {"serve": SERVE_KERNELS, "train": TRAIN_KERNELS, "large": LARGE_KERNELS,
+                "serve_cache": SERVE_CACHE_KERNELS, "classify": CLASSIFY_KERNELS,
+                "bayes": BAYES_KERNELS,
                 "evaluate": EVALUATE_KERNELS, "evaluate_hyperpriors": EVALUATE_KERNELS,
                 **{path: ("fused_gp_linv",) for path in SAMPLER_PATHS},
                 "kernels": ("chol_tile", *OFF_PATH_SOLVES)}
@@ -2399,6 +2443,454 @@ def chain_stamps(dev, n: int = N_LARGE, launches: int = 5) -> None:
             raise AssertionError(f"the stamped K4 ({direction}) disagrees with solve_triangular ({err:.3e})")
 
 
+# ---------------------------------------------------------------------------
+# The serving caches (gp.serve, gp.streaming, gp.model_selection) and GP
+# classification (gp.laplace, gp.ep, the classify study)
+# ---------------------------------------------------------------------------
+
+# The serving-cache path, on the slice's problem (n = 4096, m = 1024): the
+# joint covariance and the draws at M_COV points, the mixture of MIX_DRAWS
+# log-theta draws 0 + 0.1 N(0, 1) (numpy seed MIX_SEED), the stream in
+# appends of STREAM_B points into a capacity-N posterior.
+M_COV, MIX_DRAWS, MIX_SEED, STREAM_B, SAMPLES = 256, 8, 1, 128, 4
+# serve_sample's jitter, relative to the mean variance + 1: the joint
+# covariance of M_COV points 0.39 apart under a unit lengthscale is singular
+# to f32's precision, where the default 1e-8 leaves it (NaN draws, as in the
+# JAX twin).
+SAMPLE_JITTER = 1e-4
+# Bounds of the serving-cache path (f32 kernel path) against the f64 plain
+# path on the card.  Set before its first run on the card (pred, cov,
+# mixture, stream_chol 1e-4, tf32 1e-1, sample 1e-2, stream_alpha 1e-3, loo
+# total 1e-4, loo mu 1e-3), then to about 10 times what an H100 showed
+# (PERF.md).
+SERVE_CACHE_BOUNDS = {
+    "pred_atol": 1.5e-5,  # serve_predict and serve_predict_y, mean and std, at ACCURATE_PRECISION (1.4e-6)
+    "tf32_atol": 2.5e-2,  # the same under "tensorfloat32" (sigma 2.5e-3)
+    "cov_atol": 5e-6,  # serve_predict_cov's covariance (5.4e-7)
+    "sample_atol": 2e-3,  # serve_sample on the same normals (1.7e-4)
+    "mixture_atol": 1.5e-5,  # serve_predict_mixture against gp.core.predict_mixture in f64 (1.4e-6)
+    "stream_chol_atol": 2.5e-5,  # absorb_stream's factor against one absorb in f64 (2.5e-6)
+    "stream_alpha_rtol": 5e-5,  # its alpha, relative to the largest entry (4.5e-6)
+    "loo_total_rtol": 5e-7,  # loo_from_posterior's total (4.1e-8)
+    "loo_mu_atol": 2e-5,  # its means (1.6e-6)
+}
+# The classification path: binary labels y = 1[sin(x/3) + 0.3 N(0, 1) > 0]
+# on the slice's inputs (numpy seed 0), n = 4096, rbf.scaled() at log-theta
+# 0 (jitter-only noise), bernoulli_logit, probabilities at m = 1024 points.
+CLASSIFY_NOISE = 0.3
+# Set before the first run on the card (f 1e-2, lml 1e-4, grad 1e-2, prob
+# 1e-3, serve 1e-4, study 5e-3), then to about 10 times what an H100 showed
+# (PERF.md).
+CLASSIFY_BOUNDS = {
+    "f_atol": 1e-4,  # the Laplace mode (1.1e-5)
+    "lml_rtol": 1e-6,  # laplace_lml and ep_lml values (9.0e-8, 4.8e-8)
+    "grad_rtol": 1e-5,  # their gradients, relative to the largest entry (7.8e-8, 8.0e-7)
+    "prob_atol": 5e-5,  # class probabilities, served and predicted, against f64 (4.0e-6, 2.4e-6)
+    "serve_atol": 2e-6,  # served probabilities against the same path's laplace/ep_predict_prob, f32 both (1.2e-7)
+    "study_p_atol": 4e-3,  # the classify study's p_hat, f32 against f64 (laplace 3.3e-4, ep 2.2e-7)
+    # ess, on a row where the f32 and f64 chains took different slice
+    # decisions: this many Monte Carlo standard errors of the difference
+    # (each run's from its 4 chains' means, 3 degrees of freedom: t_3's
+    # two-sided 1% point is 5.8)
+    "study_p_se_ess": 6.0,
+}
+CLASSIFY_ENGINES = ("laplace", "ep", "ess")
+
+
+def serve_extras(dtype, dev):
+    """The serving-cache path's other inputs: the covariance points, the
+    mixture's draws and the samples' normals (numpy, shared by both
+    precisions)."""
+    rng = np.random.default_rng(MIX_SEED)
+    vs = 0.1 * rng.normal(size=(MIX_DRAWS, 3))
+    eps = np.random.default_rng(2).normal(size=(SAMPLES, M_COV))
+
+    def t(a):
+        return torch.as_tensor(a, dtype=dtype, device=dev)
+
+    return t(np.linspace(0, 100, M_COV)), t(vs), t(eps)
+
+
+def timed_call(walls: dict, name: str, fn, *a, **k):
+    """``fn(*a, **k)``, its wall in ms (synchronized on both sides) stored
+    as ``walls[name]``."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(*a, **k)
+    torch.cuda.synchronize()
+    walls[name] = (time.perf_counter() - t0) * 1e3
+    return out
+
+
+def run_serve_cache(gp, x, y, ts, tn, z, zc, vs, eps, precision=linalg.ACCURATE_PRECISION) -> dict:
+    """The serving-cache path once through the front door."""
+    walls = {}
+
+    def timed(name, fn, *a, **k):
+        return timed_call(walls, name, fn, *a, **k)
+
+    sp = timed("fit_serving", serve.fit_serving, gp, ts, tn, x, y, precision=precision)
+    out = {"predict": timed("serve_predict", serve.serve_predict, gp, sp, z, precision),
+           "predict_y": serve.serve_predict_y(gp, sp, z, precision),
+           "cov": serve.serve_predict_cov(gp, sp, zc, precision)[1],
+           "sample": serve.serve_sample(gp, sp, zc, num_samples=SAMPLES, jitter=SAMPLE_JITTER, precision=precision,
+                                         eps=eps)}
+    sm = timed("compile_mixture", serve.compile_mixture, gp, vs, x, y, precision=precision)
+    out["mixture"] = timed("serve_predict_mixture", serve.serve_predict_mixture, gp, sm, z, precision)
+    steps = N // STREAM_B
+    empty = streaming.streaming_posterior(gp, ts, tn, N, dtype=x.dtype, device=x.device)
+    post = timed("absorb_stream", streaming.absorb_stream, gp, empty, x.view(steps, STREAM_B, 1),
+                 y.view(steps, STREAM_B))
+    out["stream"] = (post.chol, post.alpha)
+    out["loo"] = timed("loo", lambda: model_selection.loo_from_posterior(core.absorb(gp, ts, tn, x, y)))
+    out["walls_ms"] = walls
+    return out
+
+
+def phase_serve_cache(dev) -> dict:
+    """gp.serve, gp.streaming and gp.model_selection at n = 4096 (the slice's
+    problem): the f32 kernel path against the f64 plain path, sigma's error
+    under both precisions, the cache against one TRSM per request, the
+    stream's appends, K1 and K5 on this path."""
+    gp, x, y, _, ts, tn, z = problem(torch.float32, dev)
+    gp64, x64, y64, _, ts64, tn64, z64 = problem(torch.float64, dev)
+    zc, vs, eps = serve_extras(torch.float32, dev)
+    zc64, vs64, eps64 = serve_extras(torch.float64, dev)
+
+    cb.reset_launch_counts()
+    got = run_serve_cache(gp, x, y, ts, tn, z, zc, vs, eps)
+    torch.cuda.synchronize()
+    launches = dict(cb.LAUNCHES)
+
+    with linalg.force_plain():
+        ref = run_serve_cache(gp64, x64, y64, ts64, tn64, z64, zc64, vs64, eps64)
+        ref_mixture = core.predict_mixture(gp64, vs64, x64, y64, z64)
+        ref_absorb = core.absorb(gp64, ts64, tn64, x64, y64)
+    tf32 = {"predict": serve.serve_predict(gp, serve.fit_serving(gp, ts, tn, x, y, precision="tensorfloat32"), z,
+                                           "tensorfloat32")}
+    steady = run_serve_cache(gp, x, y, ts, tn, z, zc, vs, eps)["walls_ms"]  # the same calls, warm
+    torch.cuda.synchronize()
+
+    def abs_err(a, b):
+        return float((a.double() - b).abs().max())
+
+    errors = {}
+    for label, run in (("float32", got), ("tensorfloat32", tf32)):
+        for name, g, r in zip(("mu", "sigma"), run["predict"], ref["predict"]):
+            errors[f"predict_{name}_{label}"] = abs_err(g, r)
+    for name, g, r in zip(("mu", "sigma"), got["predict_y"], ref["predict_y"]):
+        errors[f"predict_y_{name}"] = abs_err(g, r)
+    errors["cov"] = abs_err(got["cov"], ref["cov"])
+    errors["sample"] = abs_err(got["sample"], ref["sample"])
+    for name, g, r, w in zip(("mu", "sigma"), got["mixture"], ref_mixture, ref["mixture"]):
+        errors[f"mixture_{name}"] = abs_err(g, r)
+        errors[f"mixture_{name}_f64_cache_vs_predict_mixture"] = abs_err(w, r)
+    errors["stream_chol"] = abs_err(got["stream"][0], ref_absorb.chol)
+    errors["stream_alpha_rel"] = abs_err(got["stream"][1], ref_absorb.alpha) / float(ref_absorb.alpha.abs().max())
+    errors["loo_total_rel"] = abs(float(got["loo"].total) - float(ref["loo"].total)) / abs(float(ref["loo"].total))
+    errors["loo_mu"] = abs_err(got["loo"].mu, ref["loo"].mu)
+    b = SERVE_CACHE_BOUNDS
+    checks = {
+        "predict_mu_float32": b["pred_atol"], "predict_sigma_float32": b["pred_atol"],
+        "predict_y_mu": b["pred_atol"], "predict_y_sigma": b["pred_atol"],
+        "predict_mu_tensorfloat32": b["tf32_atol"], "predict_sigma_tensorfloat32": b["tf32_atol"],
+        "cov": b["cov_atol"], "sample": b["sample_atol"], "mixture_mu": b["mixture_atol"],
+        "mixture_sigma": b["mixture_atol"], "stream_chol": b["stream_chol_atol"],
+        "stream_alpha_rel": b["stream_alpha_rtol"], "loo_total_rel": b["loo_total_rtol"], "loo_mu": b["loo_mu_atol"],
+    }
+    failures = [k for k, bound_ in checks.items() if not errors[k] <= bound_]
+
+    # one request batch of M points, three routes: the cache's matmul, one
+    # blocked TRSM per request (K5 and GEMMs), the plain path's TRSM
+    sp = serve.fit_serving(gp, ts, tn, x, y)
+    post = core.absorb(gp, ts, tn, x, y)
+    request_ms = {"serve_predict": wall_ms(lambda: serve.serve_predict(gp, sp, z)),
+                  "serve_predict_tensorfloat32": wall_ms(lambda: serve.serve_predict(gp, sp, z, "tensorfloat32")),
+                  "predict_from_posterior_kernels": wall_ms(lambda: core.predict_from_posterior(gp, post, z))}
+    with linalg.force_plain():
+        request_ms["predict_from_posterior_plain"] = wall_ms(lambda: core.predict_from_posterior(gp, post, z))
+    fit_ms = {"fit_serving": wall_ms(lambda: serve.fit_serving(gp, ts, tn, x, y)),
+              "absorb": wall_ms(lambda: core.absorb(gp, ts, tn, x, y))}
+
+    # K1 and K5 at this path's shapes: the covariance, its factor's tiles
+    K = core.masked_cov(gp, ts, tn, x, None)
+    tiles = diag_tiles(cb.blocked_cholesky_invs(K, BLOCK)[0])
+    rows = kernel_rows("serve_cache", K, tiles)
+    steps = N // STREAM_B
+    expect = {"fused_cholesky_invs": 1 + MIX_DRAWS + 1, "tril_inv_tile": 1 + MIX_DRAWS + steps + 1}
+    emit({"phase": "serve_cache", "n": N, "m": M, "m_cov": M_COV, "mixture_draws": MIX_DRAWS,
+          "stream_appends": steps, "stream_b": STREAM_B, "accurate_precision": linalg.ACCURATE_PRECISION,
+          "bounds": SERVE_CACHE_BOUNDS, "errors": errors, "launches": launches, "launches_expected": expect,
+          "walls_ms_main_run": got["walls_ms"], "walls_ms_second_run": steady,
+          "ms_per_append": steady["absorb_stream"] / steps,
+          "request_wall_ms": request_ms, "fit_wall_ms": fit_ms})
+    if failures:
+        raise AssertionError(f"serving caches disagree with the f64 plain path: {failures}")
+    wrong = {k: launches[k] for k in launches if launches[k] != expect.get(k, 0)}
+    if wrong:
+        raise AssertionError(f"serve_cache launches {wrong}, expected {expect} and no other kernel")
+    return {"launches": launches, "rows": rows}
+
+
+def kernel_rows(path: str, K: torch.Tensor, tiles: torch.Tensor) -> dict:
+    """K1 on ``K`` and K5 on ``tiles`` against their plain versions, as
+    ``path`` gives them."""
+    eye = torch.eye(BLOCK, dtype=K.dtype, device=K.device)
+    return {
+        (path, "fused_cholesky_invs"): check_kernel(
+            path, "fused_cholesky_invs", lambda: cb.fused_cholesky_invs(K), lambda: cb.fused_cholesky_invs_plain(K),
+            K.shape, 20, lambda: torch.linalg.cholesky_ex(K), rtol=K1_RTOL),
+        (path, "tril_inv_tile"): check_kernel(
+            path, "tril_inv_tile", lambda: cb.tril_inv_tile(tiles), lambda: cb.tril_inv_tile_plain(tiles),
+            tiles.shape, 20, lambda: torch.linalg.solve_triangular(tiles, eye, upper=False)),
+    }
+
+
+def classify_problem(dtype: torch.dtype, device):
+    """Binary labels on the slice's inputs: y = 1[sin(x/3) + 0.3 N(0, 1) > 0]
+    (numpy seed 0), rbf.scaled() at log-theta 0."""
+    rng = np.random.default_rng(0)
+    x = np.sort(rng.uniform(0, 100, (N, 1)), axis=0)
+    y = (np.sin(x[:, 0] / 3.0) + CLASSIFY_NOISE * rng.normal(size=N) > 0).astype(np.float64)
+    gp = GP(ndim=1, simil=rbf.scaled())
+
+    def t(a):
+        return torch.as_tensor(a, dtype=dtype, device=device)
+
+    return gp, t(x), t(y), t(np.ones(2)), t(np.zeros(0)), t(np.linspace(0, 100, M))
+
+
+def run_classify(gp, x, y, ts, tl, z) -> dict:
+    """Laplace and EP once each through the front door, each call timed."""
+    lik = likelihoods.bernoulli_logit
+    walls, out = {}, {}
+
+    def timed(name, fn, *a, **k):
+        return timed_call(walls, name, fn, *a, **k)
+
+    def value_and_grad(lml_fn):
+        tsg = ts.clone().requires_grad_(True)
+        val = lml_fn(gp, lik, tsg, tl, x, y)
+        (grad,) = torch.autograd.grad(val, tsg)
+        return val.detach(), grad
+
+    for name, mod, fit, lml, predict, compile_ in (
+            ("laplace", laplace, laplace.laplace_fit, laplace.laplace_lml, laplace.laplace_predict_prob,
+             laplace.compile_laplace_serving),
+            ("ep", ep, ep.ep_fit, ep.ep_lml, ep.ep_predict_prob, ep.compile_ep_serving)):
+        post = timed(f"{name}_fit", fit, gp, lik, ts, tl, x, y)
+        value, grad = timed(f"{name}_lml_value_and_grad", value_and_grad, lml)
+        sp = timed(f"compile_{name}_serving", compile_, gp, post)
+        out[name] = {"post": post, "value": value, "grad": grad,
+                     "served": timed(f"{name}_serve_predict_prob", laplace.serve_predict_prob, gp, lik, sp, tl, z),
+                     "predicted": timed(f"{name}_predict_prob", predict, gp, lik, post, z)}
+    out["walls_ms"] = walls
+    return out
+
+
+def run_classify_study(engine: str, dev, dtype) -> tuple[np.ndarray, float, tuple | None]:
+    """The classify study (n = 40, --seed 0 --iters 60): in float32 through
+    its command line, in float64 through ``evaluate_classify`` on the card.
+    Returns (rows, wall seconds, and for ess the (x, ESSResult) of its
+    ``run_ess_gp`` call, else None)."""
+    captured = []
+    run_ess_gp = elliptical.run_ess_gp
+
+    def capture(*a, **k):
+        res = run_ess_gp(*a, **k)
+        captured.append((a[4], res))
+        return res
+
+    t0 = time.perf_counter()
+    with unittest.mock.patch.object(elliptical, "run_ess_gp", capture):
+        if dtype == torch.float32:
+            with contextlib.redirect_stderr(io.StringIO()):
+                rows = classify.main(["-e", engine, "--seed", "0", "--iters", "60", "selfcheck"],
+                                     wtr=io.StringIO())
+        else:
+            x, y = tio.load_csv(classify.selfcheck_data())
+            rows = classify.evaluate_classify(classify.make_gp(), likelihoods.bernoulli_logit, x, y,
+                                              engine=engine, seed=0, iters=60, device=dev, dtype=dtype)
+    torch.cuda.synchronize()
+    return np.asarray(rows, dtype=np.float64), time.perf_counter() - t0, (captured[0] if captured else None)
+
+
+def ess_chain_se(x: torch.Tensor, res: elliptical.ESSResult) -> np.ndarray:
+    """Each row's Monte Carlo standard error of the ess study's p_hat: the
+    spread of the probability each chain alone predicts, over sqrt(chains)."""
+    gp, lik, chains = classify.make_gp(), likelihoods.bernoulli_logit, res.f.shape[1]
+    ps = torch.stack([elliptical.ess_predict_prob(gp, lik, res._replace(f=res.f[:, c : c + 1]), x[:, None, :])[:, 0]
+                      for c in range(chains)])
+    return (ps.double().std(0) / chains**0.5).cpu().numpy()
+
+
+def check_ess_study(r32: np.ndarray, r64: np.ndarray, cap32: tuple, cap64: tuple) -> tuple[dict, bool]:
+    """The ess study in f32 against f64.  As in the JAX package, a row whose
+    prior K does not factor in the working precision has NaN chains: p_hat
+    must be NaN exactly on the rows whose f32 factor is not finite, and f64
+    factors every row.  On the other rows the two runs share their draws
+    (``generator_draws`` draws in f64): where every slice decision agrees
+    (equal shrink counts) p_hat is held to rounding, ``study_p_atol``; where
+    one flipped, the chains part, and it is held to ``study_p_se_ess``
+    standard errors of the difference."""
+    b = CLASSIFY_BOUNDS
+    (x32, res32), (x64, res64) = cap32, cap64
+
+    def factored(res):
+        return torch.isfinite(torch.diagonal(res.chol, dim1=-2, dim2=-1)).all(-1).cpu().numpy()
+
+    fin32, fin64 = factored(res32), factored(res64)
+    same = (res32.shrinks == res64.shrinks).flatten(1).all(-1).cpu().numpy()
+    se = np.hypot(ess_chain_se(x32, res32), ess_chain_se(x64, res64))
+    dp = np.abs(r32[:, 2] - r64[:, 2])
+    bound_ = np.where(same, b["study_p_atol"], np.maximum(b["study_p_atol"], b["study_p_se_ess"] * se))
+    rows_ok = fin32 & (dp <= bound_)
+    out = {"rows_factored_f32": int(fin32.sum()), "rows_factored_f64": int(fin64.sum()),
+           "rows_decisions_agree": int((fin32 & same).sum()),
+           "max_abs_dp_hat_decisions_agree": float(dp[fin32 & same].max(initial=0.0)),
+           "max_abs_dp_hat_decisions_flipped": float(dp[fin32 & ~same].max(initial=0.0)),
+           "max_dp_over_bound": float((dp[fin32] / bound_[fin32]).max(initial=0.0))}
+    ok = (bool(fin32.any()) and fin64.all() and np.array_equal(np.isfinite(r32[:, 2]), fin32)
+          and bool(rows_ok[fin32].all()) and np.isfinite(r64).all())
+    return out, ok
+
+
+def phase_classify(dev) -> dict:
+    """gp.laplace and gp.ep at n = 4096 (f32 kernel path against f64 plain
+    on the card, K1 and K5 on this path), then the classify study."""
+    args32 = classify_problem(torch.float32, dev)
+    args64 = classify_problem(torch.float64, dev)
+
+    cb.reset_launch_counts()
+    got = run_classify(*args32)
+    torch.cuda.synchronize()
+    launches = dict(cb.LAUNCHES)
+    with linalg.force_plain():
+        ref = run_classify(*args64)
+    steady = run_classify(*args32)["walls_ms"]  # the same calls, warm
+    torch.cuda.synchronize()
+
+    def abs_err(a, b):
+        return float((a.double() - b).abs().max())
+
+    b = CLASSIFY_BOUNDS
+    errors, failures, counts = {}, [], {}
+    for name in ("laplace", "ep"):
+        g, r = got[name], ref[name]
+        errors[f"{name}_lml_rel"] = abs(float(g["value"]) - float(r["value"])) / abs(float(r["value"]))
+        errors[f"{name}_grad_rel"] = abs_err(g["grad"], r["grad"]) / float(r["grad"].abs().max())
+        errors[f"{name}_served_prob"] = abs_err(g["served"], r["served"])
+        errors[f"{name}_predicted_prob"] = abs_err(g["predicted"], r["predicted"])
+        errors[f"{name}_served_vs_predicted_f32"] = abs_err(g["served"], g["predicted"].double())
+        failures += [k for k, bound_ in ((f"{name}_lml_rel", b["lml_rtol"]), (f"{name}_grad_rel", b["grad_rtol"]),
+                                         (f"{name}_served_prob", b["prob_atol"]),
+                                         (f"{name}_predicted_prob", b["prob_atol"]),
+                                         (f"{name}_served_vs_predicted_f32", b["serve_atol"]))
+                     if not errors[k] <= bound_]
+    errors["laplace_f_hat"] = abs_err(got["laplace"]["post"].f_hat, ref["laplace"]["post"].f_hat)
+    if not errors["laplace_f_hat"] <= b["f_atol"]:
+        failures.append("laplace_f_hat")
+    iters, sweeps = int(got["laplace"]["post"].iters), int(got["ep"]["post"].sweeps)
+    counts = {"laplace_newton_iters": {"f32_kernels": iters, "f64_plain": int(ref["laplace"]["post"].iters)},
+              "ep_sweeps": {"f32_kernels": sweeps, "f64_plain": int(ref["ep"]["post"].sweeps)}}
+    # K1: one cholesky(B) a Newton iteration and one more at the mode
+    # (laplace_fit); the iterations again, the differentiable step's and
+    # W's at f (laplace_lml); one a sweep and one after (ep_fit, ep_lml).
+    # K5: one trsm_lower a sweep and one after (ep_fit, ep_lml); the
+    # backward's tile inverses, 2 for each of laplace_lml's factors and 3
+    # for ep_lml's factor and TRSM; one tril_inv a compile_*_serving, one
+    # trsm_lower a *_predict_prob (the factors from K1 carry their tile
+    # inverses, so cho_solve_vec launches nothing)
+    expect = {"fused_cholesky_invs": (iters + 1) + (iters + 2) + 2 * (sweeps + 1),
+              "tril_inv_tile": 2 * (sweeps + 1) + 2 * 2 + 3 + 2 + 2}
+
+    # K1 on B = I + sW K sW at the Laplace mode, K5 on its factor's tiles
+    gp, x, y, ts, tl, z = args32
+    post = got["laplace"]["post"]
+    B = laplace._b_matrix(core.masked_cov(gp, ts, torch.zeros(0, device=dev), x, None), post.sqrt_w)
+    rows = kernel_rows("classify", B.contiguous(), diag_tiles(post.chol_b))
+
+    study = {}
+    for engine in CLASSIFY_ENGINES:
+        r32, s32, cap32 = run_classify_study(engine, dev, torch.float32)
+        r64, s64, cap64 = run_classify_study(engine, dev, torch.float64)
+        p32 = r32[:, 2][np.isfinite(r32[:, 2])]
+        ok = (r32.shape == r64.shape == (40, 7) and np.isfinite(np.delete(r32, 2, axis=1)).all()
+              and ((p32 >= 0) & (p32 <= 1)).all())
+        study[engine] = {"wall_s_f32_cli": s32, "wall_s_f64": s64,
+                         "max_abs_dtheta": float(np.abs(r32[:, 5:] - r64[:, 5:]).max())}
+        if engine == "ess":
+            report, ok_ = check_ess_study(r32, r64, cap32, cap64)
+            study[engine].update(report)
+        else:
+            dp = float(np.abs(r32[:, 2] - r64[:, 2]).max())
+            ok_ = len(p32) == 40 and dp <= b["study_p_atol"]
+            study[engine].update({"max_abs_dp_hat": dp, "bound": b["study_p_atol"]})
+        if not (ok and ok_):
+            failures.append(f"study_{engine}")
+    emit({"phase": "classify", "n": N, "m": M, "bounds": CLASSIFY_BOUNDS, "errors": errors, "iterations": counts,
+          "launches": launches, "launches_expected": expect, "walls_ms_f32_kernels": got["walls_ms"], "walls_ms_f32_kernels_second_run": steady,
+          "walls_ms_f64_plain": ref["walls_ms"],
+          "study": study})
+    if failures:
+        raise AssertionError(f"classification disagrees with the f64 plain path: {failures}")
+    wrong = {k: launches[k] for k in launches if launches[k] != expect.get(k, 0)}
+    if wrong:
+        raise AssertionError(f"classify launches {wrong}, expected {expect} and no other kernel")
+    return {"launches": launches, "rows": rows}
+
+
+def coldstart_child(parts: bool) -> None:
+    """The first ``laplace_fit`` of the classify problem in this (fresh)
+    process, after the card's context and K1's first launch, which every
+    path pays anyway.  With ``parts``, what it does first for the first time
+    is timed before it, step by step: ``torch.broadcast_shapes`` (which
+    imports torch._refs, sympy with it), a ``torch.func`` transform (which
+    loads its decompositions) and the likelihood's ``grads`` (vmap of grad
+    of grad).  Prints one JSON object of walls in ms."""
+    dev = torch.device("cuda", 0)
+    walls = {}
+
+    def step(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls[name] = (time.perf_counter() - t0) * 1e3
+
+    _build.library()
+    step("cuda_context", lambda: torch.zeros(1, device=dev))
+    step("k1_first_launch", lambda: cb.fused_cholesky_invs(torch.eye(1024, device=dev)))
+    gp, x, y, ts, tl, _ = classify_problem(torch.float32, dev)
+    lik = likelihoods.bernoulli_logit
+    if parts:
+        step("broadcast_shapes_first", lambda: torch.broadcast_shapes((2,), (3, 2)))
+        step("torch_func_first", lambda: torch.func.vmap(torch.func.grad(lambda v: (v * v).sum()))(
+            torch.ones(3, 2, device=dev)))
+        step("likelihood_grads_first", lambda: lik.grads(tl, torch.zeros_like(y), y, torch.ones_like(y)))
+    step("laplace_fit_first", lambda: laplace.laplace_fit(gp, lik, ts, tl, x, y))
+    step("laplace_fit_second", lambda: laplace.laplace_fit(gp, lik, ts, tl, x, y))
+    print(json.dumps(walls), flush=True)
+
+
+def phase_coldstart(dev) -> None:
+    """Where the first ``laplace_fit`` of a process spends its time: two
+    fresh processes (:func:`coldstart_child`), one that calls it first and
+    one that first takes apart what it does for the first time.  In no whole
+    run."""
+    del dev
+    out = {}
+    for parts in (False, True):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", f"import chip_smoke; chip_smoke.coldstart_child({parts})"],
+                              capture_output=True, text=True, timeout=600, check=True,
+                              cwd=pathlib.Path(__file__).resolve().parent)
+        walls = json.loads(proc.stdout.strip().splitlines()[-1])
+        walls["process_wall"] = (time.perf_counter() - t0) * 1e3
+        out["parts" if parts else "whole"] = walls
+    emit({"phase": "coldstart", "walls_ms": out})
+
+
 def _partial_slice(dev) -> None:
     phase_launches(*phase_slice(dev))
 
@@ -2406,12 +2898,13 @@ def _partial_slice(dev) -> None:
 # What ``--phases`` can name; "k7" is the bayes phase's kernel checks without
 # its sampler runs, "slice" the serving slice with its launch counts, "gate"
 # (in no whole run) K3 against K4 beyond the large path's size, "stamps" (in
-# no whole run) the tile body's stage cycles and K4's chain step.
+# no whole run) the tile body's stage cycles and K4's chain step, "coldstart"
+# (in no whole run) the first laplace_fit of a process taken apart.
 PARTIAL_PHASES = {"kernels": phase_kernels, "k5": phase_k5, "k7": phase_k7, "gate": phase_gate,
-                  "slice": _partial_slice,
+                  "slice": _partial_slice, "serve": phase_serve_cache, "classify": phase_classify,
                   "train": phase_train, "large": phase_large, "bayes": phase_bayes, "samplers": phase_samplers,
                   "evaluate": lambda dev: check_k7(phase_evaluate(dev)["k7_cases"]),
-                  "stamps": phase_stamps}
+                  "stamps": phase_stamps, "coldstart": phase_coldstart}
 
 
 def main() -> int:
@@ -2457,6 +2950,10 @@ def main() -> int:
     measured("launches", phase_launches, serve_launches, slice_args32)
     train = measured("train", phase_train, dev)
     large = measured("large", phase_large, dev)
+    serve_cache = measured("serve", phase_serve_cache, dev)
+    classify_out = measured("classify", phase_classify, dev)
+    kernels.update(serve_cache["rows"])
+    kernels.update(classify_out["rows"])
     bayes_rows = measured("k7", phase_k7, dev)
     # NUTS and HMC on hyperpriors, the longest runs, in worker processes from
     # here on, beside the bayes, samplers and evaluate phases in this process
@@ -2478,6 +2975,7 @@ def main() -> int:
     # one entry per kernel and path that launches it: the path's launch
     # count beside the error and times at the shapes that path gives it
     launches = {"serve": serve_launches, "train": train["launches"], "large": large["launches"],
+                "serve_cache": serve_cache["launches"], "classify": classify_out["launches"],
                 "bayes": bayes_out["launches"], "evaluate": evaluate_out["launches"],
                 "evaluate_hyperpriors": evaluate_out["hyperpriors_launches"], **samplers_out["launches"],
                 "kernels": kernels_launches}

@@ -4,7 +4,10 @@ Module layout mirrors ``gogp_tpu/`` one for one; each module names its JAX
 twin, against which the tests hold it.
 
 - ``gogp_torch.kernels`` - pair-function kernels and combinators.
-- ``gogp_torch.gp``      - covariance assembly, LML, prediction.
+- ``gogp_torch.gp``      - covariance assembly, LML, prediction; serving
+  caches (``serve``), streaming appends (``streaming``), exact LOO
+  (``model_selection``), and non-Gaussian likelihoods (``likelihoods``)
+  with the Laplace (``laplace``) and EP (``ep``) approximations.
 - ``gogp_torch.models``  - the flat parameter-vector protocol, log-density
   composition and gradient masks.
 - ``gogp_torch.dists``   - prior log-densities.
@@ -12,14 +15,17 @@ twin, against which the tests hold it.
   ``mle.lbfgs``, and batched over rows ``mle.adam_batched``,
   ``mle.lbfgs_batched``); ChEES-HMC (``chees``) with its warmup adaptation
   (``adapt``), integrator (``hmc``) and diagnostics (``diagnostics``).
+- ``gogp_torch.infer.elliptical`` - elliptical slice sampling of the exact
+  latent posterior.
 - ``gogp_torch.ops``     - the linear-algebra front door (``linalg``), the
   blocked driver with its hand-written CUDA kernels (``cholesky_blocked``),
   and a chain population's small-GP value and gradient (``fused_gp``, K7);
   sources in ``gogp_torch/csrc/``.
 - ``gogp_torch.tutorial`` - the rolling forecast (``evaluate``, the
   reference's entry point) with its five studies
-  (``python -m gogp_torch.tutorial.<study> selfcheck``) and the Bayesian
-  forecast command line (``python -m gogp_torch.tutorial.bayes``).
+  (``python -m gogp_torch.tutorial.<study> selfcheck``), the Bayesian
+  forecast command line (``python -m gogp_torch.tutorial.bayes``) and GP
+  classification (``python -m gogp_torch.tutorial.classify``).
 - ``gogp_torch.convert`` - state carried across from the JAX package.
 
 The package never imports JAX.

@@ -5,8 +5,11 @@ vectors, the fields of a ``gogp_tpu.gp.core.Posterior``, of a
 ``gogp_tpu.infer.mle.OptResult``, of a ``gogp_tpu.infer.chees.ChEESState``
 (also rung-stacked, as PT-ChEES keeps it), of a chain batch of
 ``gogp_tpu.infer.hmc.HMCState`` (the NUTS and HMC state under ``jax.vmap``),
-of a ``gogp_tpu.infer.ghmc.GHMCState`` and of a
-``gogp_tpu.infer.tempering.PTFlow``.
+of a ``gogp_tpu.infer.ghmc.GHMCState``, of a
+``gogp_tpu.infer.tempering.PTFlow``, of the serving caches
+(``gogp_tpu.gp.serve.ServingPosterior`` and ``ServingMixture``), of the
+non-Gaussian posteriors (``gogp_tpu.gp.laplace.LaplacePosterior``,
+``gogp_tpu.gp.ep.EPPosterior``) and of ``gogp_tpu.infer.elliptical.ESSResult``.
 The caller turns them into numpy arrays (``np.asarray``) and these functions
 put them on the device the caller names.  This module does not import JAX.
 """
@@ -19,6 +22,10 @@ import numpy as np
 import torch
 
 from gogp_torch.gp.core import Posterior
+from gogp_torch.gp.ep import EPPosterior
+from gogp_torch.gp.laplace import LaplacePosterior
+from gogp_torch.gp.serve import ServingMixture, ServingPosterior
+from gogp_torch.infer.elliptical import ESSResult
 from gogp_torch.infer import adapt
 from gogp_torch.infer.chees import AdamState, ChEESState
 from gogp_torch.infer.ghmc import GHMCState
@@ -44,6 +51,51 @@ def posterior_from_numpy(post: Mapping[str, Any] | Any, device, dtype: torch.dty
     mapping or as any object with ``_asdict()`` (the JAX NamedTuple itself)."""
     fields = _fields(post)
     return Posterior(*(array_from_numpy(fields[name], device, dtype) for name in Posterior._fields))
+
+
+def _tuple_from_numpy(cls, obj, device, dtype, fields=None):
+    f = _fields(obj)
+    return cls(*(array_from_numpy(f[name], device, dtype) for name in fields or cls._fields))
+
+
+def serving_posterior_from_numpy(sp: Mapping[str, Any] | Any, device,
+                                 dtype: torch.dtype | None = None) -> ServingPosterior:
+    """A :class:`ServingPosterior` from the six fields of the JAX one."""
+    return _tuple_from_numpy(ServingPosterior, sp, device, dtype)
+
+
+def serving_mixture_from_numpy(sm: Mapping[str, Any] | Any, device,
+                               dtype: torch.dtype | None = None) -> ServingMixture:
+    """A :class:`ServingMixture` from the six fields of the JAX one."""
+    return _tuple_from_numpy(ServingMixture, sm, device, dtype)
+
+
+def laplace_posterior_from_numpy(post: Mapping[str, Any] | Any, device,
+                                 dtype: torch.dtype | None = None) -> LaplacePosterior:
+    """A :class:`LaplacePosterior` from the ten fields of the JAX one (its
+    ``iters``, which the JAX state does not keep, is None)."""
+    return _tuple_from_numpy(LaplacePosterior, post, device, dtype, LaplacePosterior._fields[:-1])
+
+
+def ep_posterior_from_numpy(post: Mapping[str, Any] | Any, device,
+                            dtype: torch.dtype | None = None) -> EPPosterior:
+    """An :class:`EPPosterior` from the ten fields of the JAX one (its
+    ``sweeps`` is None)."""
+    return _tuple_from_numpy(EPPosterior, post, device, dtype, EPPosterior._fields[:-1])
+
+
+def ess_result_from_numpy(res: Mapping[str, Any] | Any, device, dtype: torch.dtype | None = None) -> ESSResult:
+    """An :class:`ESSResult` from the eight fields of the JAX one; the
+    shrink counts stay integers."""
+    f = dict(_fields(res))
+    out = _tuple_from_numpy(ESSResult, {**f, "shrinks": np.zeros(0)}, device, dtype)
+    return out._replace(shrinks=array_from_numpy(f["shrinks"], device, torch.int64))
+
+
+def likelihood_theta_from_numpy(theta, device, dtype: torch.dtype | None = None) -> torch.Tensor:
+    """A likelihood's theta vector (natural scale, ``lik.n_theta`` long;
+    empty for the Bernoulli and Poisson families), as a 1-D tensor."""
+    return array_from_numpy(np.asarray(theta).reshape(-1), device, dtype)
 
 
 def posterior_to_numpy(post: Posterior) -> dict[str, np.ndarray]:

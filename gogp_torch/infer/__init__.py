@@ -20,6 +20,15 @@ from gogp_torch.infer.chees import (  # noqa: F401
     run_chees_pops,
 )
 from gogp_torch.infer.diagnostics import ess, split_rhat  # noqa: F401
+from gogp_torch.infer.elliptical import (  # noqa: F401
+    ESSDraws,
+    ESSResult,
+    ess_predict,
+    ess_predict_prob,
+    ess_update,
+    run_ess,
+    run_ess_gp,
+)
 from gogp_torch.infer.ghmc import (  # noqa: F401
     GHMCState,
     ghmc_init,

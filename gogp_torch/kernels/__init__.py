@@ -7,6 +7,9 @@ from gogp_torch.kernels.noise import (  # noqa: F401
 from gogp_torch.kernels.stationary import (  # noqa: F401
     SQRT3,
     SQRT5,
+    exponential,
+    linear,
+    matern12,
     matern32,
     matern52,
     matern52_ref,
@@ -14,4 +17,6 @@ from gogp_torch.kernels.stationary import (  # noqa: F401
     periodic,
     rational_quadratic,
     rbf,
+    spectral_mixture,
+    white,
 )

@@ -37,6 +37,10 @@ class Kernel:
     n_theta: int
     pair: Callable[[Tensor, Tensor, Tensor], Tensor]
     name: str = "kernel"
+    # Structural tag, as in the JAX twin: ("rbf",), ("matern", 3),
+    # ("scaled", inner), ("sum", a, b), ("prod", a, b), ("ard", inner, ndim),
+    # ("sm", q, ndim), ...; None where the kernel is opaque.
+    spec: tuple | None = None
 
     def __call__(self, theta, xa, xb):
         return self.pair(theta, xa, xb)
@@ -64,7 +68,7 @@ class Kernel:
         def pair(theta, xa, xb):
             return theta[0] * inner.pair(theta[1:], xa, xb)
 
-        return Kernel(inner.n_theta + 1, pair, f"scaled({inner.name})")
+        return Kernel(inner.n_theta + 1, pair, f"scaled({inner.name})", ("scaled", inner))
 
     def __add__(self, other: "Kernel") -> "Kernel":
         """Sum kernel; thetas concatenate (self first)."""
@@ -73,7 +77,7 @@ class Kernel:
         def pair(theta, xa, xb):
             return a.pair(theta[: a.n_theta], xa, xb) + b.pair(theta[a.n_theta :], xa, xb)
 
-        return Kernel(a.n_theta + b.n_theta, pair, f"({a.name}+{b.name})")
+        return Kernel(a.n_theta + b.n_theta, pair, f"({a.name}+{b.name})", ("sum", a, b))
 
     def __mul__(self, other: "Kernel") -> "Kernel":
         """Product kernel; thetas concatenate (self first)."""
@@ -82,12 +86,13 @@ class Kernel:
         def pair(theta, xa, xb):
             return a.pair(theta[: a.n_theta], xa, xb) * b.pair(theta[a.n_theta :], xa, xb)
 
-        return Kernel(a.n_theta + b.n_theta, pair, f"({a.name}*{b.name})")
+        return Kernel(a.n_theta + b.n_theta, pair, f"({a.name}*{b.name})", ("prod", a, b))
 
     def ard(self, ndim: int) -> "Kernel":
         """Automatic relevance determination: prepends ``ndim`` lengthscales
         and evaluates the kernel on x / l."""
-        return self.warp_inputs(lambda w, x: x / w, extra_theta=ndim)
+        k = self.warp_inputs(lambda w, x: x / w, extra_theta=ndim)
+        return dataclasses.replace(k, spec=("ard", self, ndim))
 
     def warp_inputs(self, warp: Callable, extra_theta: int = 0) -> "Kernel":
         """Apply ``warp(x)`` (or ``warp(theta[:extra_theta], x)``) to both

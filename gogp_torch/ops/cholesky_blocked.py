@@ -164,6 +164,13 @@ def _matmul_tf32(tf32: bool):
         torch.backends.cuda.matmul.allow_tf32 = prev
 
 
+def matmul_precision(precision: str | None):
+    """torch matmuls inside at the JAX package's per-call ``precision``
+    (TF32 or full f32 on the card, :func:`uses_tf32`); ``None`` leaves
+    torch's ambient setting.  The CPU ignores it."""
+    return contextlib.nullcontext() if precision is None else _matmul_tf32(uses_tf32(precision))
+
+
 def _eligible_block(K: Tensor) -> int | None:
     """Block size if the blocked path should handle this matrix: a CUDA f32
     square matrix with n >= _MIN_N that the block divides (the JAX twin's
@@ -592,22 +599,27 @@ def blocked_trsm_lower_t(L: Tensor, B: Tensor, block: int = DEFAULT_BLOCK) -> Te
     return X
 
 
-def blocked_tril_inv(L: Tensor, block: int = DEFAULT_BLOCK, invs: Tensor | None = None) -> Tensor:
+def blocked_tril_inv(L: Tensor, block: int = DEFAULT_BLOCK, invs: Tensor | None = None,
+                     precision: str | None = None) -> Tensor:
     """W = inv(L) for lower-triangular L, down block rows:
     W[k, :k] = -inv(L_kk) (L[k, :k] W[:k, :k]), W[k, k] = inv(L_kk).  The
     trailing product runs only over W's nonzero (c0, c0) corner, about
     2n^3/3 FLOPs.  ``invs``: the factorization's tile inverses; one K5 launch
-    when omitted.  Twin of ``blocked_tril_inv`` (cholesky_pallas.py:1305-1338)."""
+    when omitted.  ``precision``: the GEMMs' (:func:`uses_tf32`); None keeps
+    the ambient setting.  It writes with ``out=``, which autograd cannot
+    record: the front door (``linalg.tril_inv``) runs it forward-only.  Twin
+    of ``blocked_tril_inv`` (cholesky_pallas.py:1305-1338)."""
     n = L.shape[-1]
     _check_block(n, block)
     if invs is None:
         invs = _tile_invs(L, block)
     W = torch.zeros_like(L)
-    for k in range(n // block):
-        c0, c1 = k * block, (k + 1) * block
-        if k:
-            torch.mm(invs[k], L[c0:c1, :c0] @ W[:c0, :c0], out=W[c0:c1, :c0]).neg_()
-        W[c0:c1, c0:c1] = invs[k]
+    with matmul_precision(precision):
+        for k in range(n // block):
+            c0, c1 = k * block, (k + 1) * block
+            if k:
+                torch.mm(invs[k], L[c0:c1, :c0] @ W[:c0, :c0], out=W[c0:c1, :c0]).neg_()
+            W[c0:c1, c0:c1] = invs[k]
     return W
 
 

@@ -28,7 +28,18 @@ the fast path's factor diagonal or value is not finite, as the JAX twin's
 of a flag by the host per call, paid only while the rescue is engaged: at
 the default precision (full f32) it stays dormant and reads nothing.
 
-Not on this path yet: ``tril_inv``.
+``ACCURATE_PRECISION`` is the serving and classification surfaces' default
+(``gp.serve``, ``gp.laplace``, ``gp.ep``): the precision at which the
+near-cancellations there (sigma^2 = prior - explained, the Newton and site
+updates) keep their digits.  The JAX twin names "tensorfloat32", which on
+its TPU raised matmuls above one-pass bf16; on the H100 that string means
+TF32, about three decimal digits, *below* torch's default full f32.  So the
+name keeps its meaning, not its string: here it is "float32".  The serve
+phase of ``chip_smoke.py`` measured served sigma's largest error against
+f64 at n = 4096, m = 1024 on an NVIDIA H100 80GB HBM3 (700 W): 1.3e-6 at
+"float32", 2.5e-3 at "tensorfloat32" (mu 1.4e-6 at both), for a request
+batch of 0.99 against 0.39 ms (PERF.md).  At "float32" the precision rescue
+stays dormant.
 """
 
 from __future__ import annotations
@@ -42,6 +53,8 @@ from gogp_torch.ops import cholesky_blocked as cb
 Tensor = torch.Tensor
 
 _FORCE_PLAIN = False
+
+ACCURATE_PRECISION = "float32"
 
 
 @contextlib.contextmanager
@@ -159,10 +172,11 @@ def lml_core(K: Tensor, y: Tensor, precision: str | None = None) -> Tensor:
 
 
 def cho_solve_vec(L: Tensor, y: Tensor) -> Tensor:
-    """alpha = K^{-1} y given the lower factor L.  Always torch.linalg: the
+    """alpha = K^{-1} y given the lower factor L; a batch of factors
+    (..., n, n) takes a batch of vectors (..., n).  Always torch.linalg: the
     JAX package computes it with XLA outside any Pallas kernel."""
-    z = torch.linalg.solve_triangular(L, y[:, None], upper=False)
-    return torch.linalg.solve_triangular(L.mT, z, upper=True)[:, 0]
+    z = torch.linalg.solve_triangular(L, y[..., None], upper=False)
+    return torch.linalg.solve_triangular(L.mT, z, upper=True)[..., 0]
 
 
 def cho_solve_mat(L: Tensor, B: Tensor) -> Tensor:
@@ -183,6 +197,24 @@ def trsm_lower(L: Tensor, B: Tensor) -> Tensor:
     if B.dim() == 1:
         return torch.linalg.solve_triangular(L, B[:, None], upper=False)[:, 0]
     return torch.linalg.solve_triangular(L, B, upper=False)
+
+
+def tril_inv(L: Tensor, precision: str | None = None) -> Tensor:
+    """W = inv(L) for lower-triangular L: the serving cache's precompute
+    (``gp.serve``), one O(n^3/3) inversion at fit time so that every later
+    half-solve is one matmul.  Where the factor is blocked-eligible (CUDA
+    f32, n >= 1024), ``cb.blocked_tril_inv``: its tile inverses from one K5
+    launch, its GEMMs at ``precision``.  That route is forward-only (the
+    JAX twin's blocked inverse has no VJP either): a gradient through it
+    raises.  Elsewhere ``solve_triangular(L, I)``, differentiated by
+    autograd (a batch of factors included)."""
+    block = _block(L)
+    if block is not None:
+        return cb._ForwardOnly.apply("blocked_tril_inv", cb.blocked_tril_inv, L, block, None, precision)
+    return torch.linalg.solve_triangular(L, cb._eye_like(L), upper=False)
+
+
+matmul_precision = cb.matmul_precision
 
 
 def logdet_from_chol(L: Tensor, mask: Tensor | None = None) -> Tensor:

@@ -452,12 +452,13 @@ def test_warpedtime_show_warp_on_cpu(capsys):
 
 
 def test_selfcheck_runner_on_cpu(capsys):
-    """The port's ``make selfcheck``: every study, a ``# <study>`` line
-    before its rows."""
+    """The port's ``make selfcheck``: every study, the five forecasts and
+    classify, a ``# <study>`` line before its rows."""
     assert selfcheck.main(["--platform", "cpu", "-a", "adam", "--iters", "10"]) == 0
     out = capsys.readouterr().out.splitlines()
-    assert [line for line in out if line.startswith("#")] == [f"# {name}" for name, _ in selfcheck.RUNS]
-    assert len(out) == 5 + 20 + 44 + 43 + 20 + 43
+    assert [line for line in out if line.startswith("#")] == [f"# {name}" for name, _ in selfcheck.RUNS] + [
+        "# classify"]
+    assert len(out) == 6 + 20 + 44 + 43 + 20 + 43 + 40
 
 
 def test_cpu_run_launches_no_kernel():

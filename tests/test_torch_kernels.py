@@ -46,7 +46,20 @@ SIMIL = [
         tk.matern52.warp_inputs(lambda x: x * x),
         [0.9],
     ),
+    ("linear", jk.linear, tk.linear, [0.4]),
+    ("white", jk.white, tk.white, [0.8]),
+    ("matern12", jk.matern12, tk.matern12, [1.3]),
+    ("exponential", jk.exponential, tk.exponential, [0.6]),
+    ("spectral_mixture-d1", jk.spectral_mixture(2), tk.spectral_mixture(2), [1.2, 0.5, 0.3, 0.1, 0.8, 0.05]),
+    (
+        "spectral_mixture-d3",
+        jk.spectral_mixture(2, 3),
+        tk.spectral_mixture(2, 3),
+        [1.2, 0.5, 0.3, 0.1, 0.2, 0.4, 0.15, 0.25, 0.8, 0.05, 0.3, 0.2, 0.1, 0.6],
+    ),
 ]
+# The kernels this slice adds, held also by their theta gradients.
+NEW = ("linear", "white", "matern12", "exponential", "spectral_mixture-d1", "spectral_mixture-d3")
 
 NOISE = [
     ("uniform", jk.uniform_noise, tk.uniform_noise, [0.3]),
@@ -65,7 +78,9 @@ def _inputs(ndim, seed=0):
 
 
 def _ndims(case_id):
-    return [3] if case_id == "ard" else [1, 3]
+    if case_id.startswith("spectral_mixture"):
+        return [int(case_id[-1])]
+    return [3] if case_id in ("ard",) else [1, 3]
 
 
 SIMIL_NDIM = [(c, d) for c in SIMIL for d in _ndims(c[0])]
@@ -97,12 +112,39 @@ def test_diag_matrix_matches_jax(case, ndim):
 @pytest.mark.parametrize("case", SIMIL, ids=[c[0] for c in SIMIL])
 def test_single_pair_is_scalar(case):
     _, kj, kt, theta = case
-    ndim = 3 if case[0] == "ard" else 2
+    ndim = _ndims(case[0])[-1] if case[0] in ("ard",) or case[0].startswith("spectral") else 2
     xa, xb = _inputs(ndim)
     want = float(kj(jnp.asarray(theta), xa[0], xb[0]))
     got = kt(torch.tensor(theta, dtype=torch.float64), torch.as_tensor(xa[0]), torch.as_tensor(xb[0]))
     assert got.dim() == 0
     assert abs(float(got) - want) <= ATOL + RTOL * abs(want)
+
+
+NEW_NDIM = [(c, d) for c, d in SIMIL_NDIM if c[0] in NEW]
+
+
+@pytest.mark.parametrize("case,ndim", NEW_NDIM, ids=[f"{c[0]}-d{d}" for c, d in NEW_NDIM])
+def test_theta_gradient_matches_jax(case, ndim):
+    """d sum(K)/dtheta of the kernels this slice adds, against jax.grad."""
+    _, kj, kt, theta = case
+    xa, xb = _inputs(ndim)
+    want = jax.grad(lambda t: jnp.sum(kj.matrix(t, xa, xb) * jnp.arange(1.0, 6.0)))(jnp.asarray(theta))
+    th = torch.tensor(theta, dtype=torch.float64, requires_grad=True)
+    (kt.matrix(th, torch.as_tensor(xa), torch.as_tensor(xb)) * torch.arange(1.0, 6.0, dtype=torch.float64)).sum().backward()
+    np.testing.assert_allclose(th.grad.numpy(), np.asarray(want), rtol=1e-10, atol=1e-13)
+
+
+def _spec_tree(spec):
+    """A spec with each kernel child replaced by its own spec, recursively."""
+    if spec is None:
+        return None
+    return tuple(_spec_tree(part.spec) if hasattr(part, "spec") else part for part in spec)
+
+
+@pytest.mark.parametrize("case", SIMIL, ids=[c[0] for c in SIMIL])
+def test_spec_tags_match_jax(case):
+    _, kj, kt, _ = case
+    assert _spec_tree(kt.spec) == _spec_tree(kj.spec)
 
 
 @pytest.mark.parametrize("case", NOISE, ids=[c[0] for c in NOISE])
