@@ -185,8 +185,38 @@ process per source) and then runs these phases, each printing JSON lines:
               as in the JAX package, and its other rows held to rounding
               or, where a slice decision flipped, to its Monte Carlo error.
 
+13. sparse   - (run after classify, before the samplers' workers start)
+              sparse GPs at the JAX package's own full width
+              (benchmarks/sparse_tpu.py:56-72): rbf.scaled() + uniform_noise
+              at log-theta 0, n = 65536 sorted inputs uniform on [0, 1000],
+              y = sin(x/3) + 0.1 N(0, 1) (numpy seed 0), m = 1024 inducing
+              inputs Z = x[::64], minibatch x[:4096], 4096 test points.
+              make_sgpr_logp's value and gradient over [log theta | Z] (1027
+              coordinates), 50 Adam steps on it, sgpr_fit and sgpr_predict at
+              Adam's v; svgp_elbo's value and gradient on the minibatch
+              rescaled to n, Gaussian and Gauss-Hermite (laplace_noise,
+              order 20); one natural-gradient step at gamma = 1 on the whole
+              batch from the KL-zero start, its ELBO against
+              svgp_optimal_state's (both f32); svgp_fit (100 steps) and
+              svgp_fit_natgrad (50), whose ELBO traces must rise.  The f32
+              kernel path against the f64 plain path on the card; each
+              stage's K1 and K5 launches held to the code's count; walls,
+              SGPR's value and gradient beside its FLOP bound, its device
+              busy time and peak memory; K1 on B = I + A A^T (also against
+              the stepwise driver) and K5 on its factor's 8 tiles.
+14. surface  - the model surface at the slice's n = 4096: the Student-t
+              process (make_tp_logp's value and gradient at nu = 3,
+              tp_absorb and tp_predict at m = 1024), gp_observe's value and
+              gradient on deep(rbf.scaled(), 1, hidden=()) with identity
+              weights (held against rbf.scaled()'s), on the default (8, 8)
+              deep kernel with random weights, and on icm(rbf.scaled(), 2)
+              over two 2048-point tasks; against the f64 plain path, with
+              each stage's launches, walls and peak memory, and K1, the
+              solves and K5 at this path's shapes.
+
 With ``--phases a,b,...`` (of kernels, k5, k7, gate, stamps, coldstart,
-slice, train, large, serve, classify, bayes, samplers, evaluate; k7 is the
+slice, train, large, serve, classify, sparse, surface, bayes, samplers,
+evaluate; k7 is the
 bayes phase's kernel checks without its sampler runs, gate times K3 against
 K4 at n = 24576 to 65536, stamps records the stages of K2, K5 and K4's chain
 step and coldstart takes apart a process's first laplace_fit, the last three
@@ -196,7 +226,7 @@ run, after device and build, and the script ends with ``{"ok": false,
 
 With ``--profile``, one more phase follows:
 
-13. profile - one serving slice run, one train and one large value-and-gradient
+15. profile - one serving slice run, one train and one large value-and-gradient
               step, one 64-chain value and gradient of the bayes path and one
               127-prefix value and gradient of the evaluate path, on each
               path under torch.profiler: the device's busy time and idle
@@ -226,7 +256,8 @@ import numpy as np
 import torch
 
 from gogp_torch import GP, make_gp_logp, masked_value_and_grad, matern32, mle, rbf, uniform_noise
-from gogp_torch.gp import core, ep, laplace, likelihoods, model_selection, serve, streaming
+from gogp_torch.gp import core, ep, laplace, likelihoods, model_selection, serve, sparse, streaming, tprocess
+from gogp_torch.kernels import deep, multioutput
 from gogp_torch.models.params import gp_observe, gp_posterior
 from gogp_torch.infer import chees, diagnostics, elliptical, ghmc, hmc, nuts, pt_chees, tempering
 from gogp_torch.ops import _build, fused_gp, linalg
@@ -350,6 +381,12 @@ def work(key: str, shape) -> tuple[float, float]:
     if key == "fused_cholesky_invs":  # K's block lower triangle in; L and the tile inverses out
         n = shape[0]
         return 4 * (n * (n + b) / 2 + n * n + n * b), n**3 / 3 + (n // b) * b**3 / 3
+    if key == "sgpr_value_and_grad":  # (n, m): x, y and Z in, the gradient out; the (m, n) products
+        # forward (L^-1 Kuf, A A^T) and backward (L^-T Xbar, Bbar X^T, the
+        # two of A A^T's pullback), 10 m^2 n in all, and the two m x m
+        # factorizations with their pullbacks, about 7 m^3
+        n, m = shape
+        return 4 * (2 * n + 2 * m + 3), 10 * m * m * n + 7 * m**3
     if key == "chol_inv_tile":  # the tile in; L and inv(L) out
         return 4 * 3 * b * b, 2 * b**3 / 3
     if key == "chol_tile":
@@ -943,6 +980,12 @@ OFF_PATH_SOLVES = tuple(k for k in ("trsv_lower", "trsv_lower_t", "trsv2d_lower"
 # and EP sweep, K5 in the TRSMs and pullbacks and the serving inverses.
 SERVE_CACHE_KERNELS = ("fused_cholesky_invs", "tril_inv_tile")
 CLASSIFY_KERNELS = ("fused_cholesky_invs", "tril_inv_tile")
+# The sparse path's (gp.sparse at m = 1024): K1 for every m x m factor, K5 in
+# every blocked TRSM and pullback.  The model surface's (gp.tprocess, deep and
+# ICM kernels at n = 4096): K1, the gate's solver both ways (lml_core's
+# gradient) and K5 (the TP's Cholesky pullback and tp_predict's TRSM).
+SPARSE_KERNELS = ("fused_cholesky_invs", "tril_inv_tile")
+SURFACE_KERNELS = ("fused_cholesky_invs", *solve_keys(N), "tril_inv_tile")
 # The evaluate path's: K7, once per batched value-and-gradient of the
 # prefix fits, at 127 x 128 x 128 (barebones at EVAL_N) and 43 x 44 x 44
 # (hyperpriors).
@@ -953,6 +996,7 @@ SAMPLER_PATHS = ("samplers_nuts", "samplers_hmc", "samplers_pt_chees", "samplers
                  "samplers_chees_race", "samplers_pt_nuts", "samplers_advi", "samplers_advi_full", "samplers_smc")
 PATH_KERNELS = {"serve": SERVE_KERNELS, "train": TRAIN_KERNELS, "large": LARGE_KERNELS,
                 "serve_cache": SERVE_CACHE_KERNELS, "classify": CLASSIFY_KERNELS,
+                "sparse": SPARSE_KERNELS, "surface": SURFACE_KERNELS,
                 "bayes": BAYES_KERNELS,
                 "evaluate": EVALUATE_KERNELS, "evaluate_hyperpriors": EVALUATE_KERNELS,
                 **{path: ("fused_gp_linv",) for path in SAMPLER_PATHS},
@@ -2262,9 +2306,31 @@ def _device_busy_us(events) -> float:
     return busy + (0.0 if end is None else end - start)
 
 
-def phase_profile(slice_args32, train_args32, large_args32, bayes_logps, evaluate_batch) -> None:
+def profile_once(fn) -> dict:
+    """``fn()`` once (after a warm call) under torch.profiler: the host
+    window, the device's busy time (the union of its kernels' intervals),
+    the idle share, the device launches and the kernels with the most
+    device time."""
     from torch.profiler import ProfilerActivity, profile
 
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    host = [e for e in events if e.device_type == torch.autograd.DeviceType.CPU]
+    window = max(e.time_range.end for e in host) - min(e.time_range.start for e in host)
+    busy = _device_busy_us(device)
+    kernels = [a for a in prof.key_averages() if a.device_type == torch.autograd.DeviceType.CUDA]
+    top = sorted(kernels, key=lambda a: -a.self_device_time_total)[:10]
+    return {"window_us": window, "device_busy_us": busy, "idle_share": 1.0 - busy / window,
+            "device_launches": len(device),
+            "top_us": {a.key[:60]: [a.self_device_time_total, a.count] for a in top}}
+
+
+def phase_profile(slice_args32, train_args32, large_args32, bayes_logps, evaluate_batch) -> None:
     report = {"phase": "profile"}
     V = bayes_positions(BAYES_CHAINS, slice_args32[1].device, seed=4)
     vg, V = evaluate_batch()
@@ -2276,23 +2342,7 @@ def phase_profile(slice_args32, train_args32, large_args32, bayes_logps, evaluat
     for run, (fn, args) in runs.items():
         for label, ctx in (("kernels", contextlib.nullcontext), ("plain", linalg.force_plain)):
             with ctx():
-                fn(*args)  # warm: allocator and library handles
-                torch.cuda.synchronize()
-                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                    fn(*args)
-                    torch.cuda.synchronize()
-            events = prof.events()
-            device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
-            host = [e for e in events if e.device_type == torch.autograd.DeviceType.CPU]
-            window = max(e.time_range.end for e in host) - min(e.time_range.start for e in host)
-            busy = _device_busy_us(device)
-            kernels = [a for a in prof.key_averages() if a.device_type == torch.autograd.DeviceType.CUDA]
-            top = sorted(kernels, key=lambda a: -a.self_device_time_total)[:10]
-            report[f"{run}_{label}"] = {
-                "window_us": window, "device_busy_us": busy, "idle_share": 1.0 - busy / window,
-                "device_launches": len(device),
-                "top_us": {a.key[:60]: [a.self_device_time_total, a.count] for a in top},
-            }
+                report[f"{run}_{label}"] = profile_once(lambda: fn(*args))
     emit(report)
 
 
@@ -2632,14 +2682,21 @@ def phase_serve_cache(dev) -> dict:
     return {"launches": launches, "rows": rows}
 
 
-def kernel_rows(path: str, K: torch.Tensor, tiles: torch.Tensor) -> dict:
+def kernel_rows(path: str, K: torch.Tensor, tiles: torch.Tensor, stepwise: bool = False) -> dict:
     """K1 on ``K`` and K5 on ``tiles`` against their plain versions, as
-    ``path`` gives them."""
+    ``path`` gives them; with ``stepwise``, K1's row also times the stepwise
+    driver on ``K``."""
     eye = torch.eye(BLOCK, dtype=K.dtype, device=K.device)
+
+    def stepwise_ms():
+        with cb.no_fused_whole():
+            return cb.blocked_cholesky_invs(K)
+
     return {
         (path, "fused_cholesky_invs"): check_kernel(
             path, "fused_cholesky_invs", lambda: cb.fused_cholesky_invs(K), lambda: cb.fused_cholesky_invs_plain(K),
-            K.shape, 20, lambda: torch.linalg.cholesky_ex(K), rtol=K1_RTOL),
+            K.shape, 20, lambda: torch.linalg.cholesky_ex(K), rtol=K1_RTOL,
+            **({"stepwise_ms": stepwise_ms} if stepwise else {})),
         (path, "tril_inv_tile"): check_kernel(
             path, "tril_inv_tile", lambda: cb.tril_inv_tile(tiles), lambda: cb.tril_inv_tile_plain(tiles),
             tiles.shape, 20, lambda: torch.linalg.solve_triangular(tiles, eye, upper=False)),
@@ -2840,6 +2897,466 @@ def phase_classify(dev) -> dict:
     return {"launches": launches, "rows": rows}
 
 
+# ---------------------------------------------------------------------------
+# The sparse path and the model surface
+# ---------------------------------------------------------------------------
+
+# The sparse path: the JAX package's own full-width sparse problem
+# (benchmarks/sparse_tpu.py:56-72), nothing cut: rbf.scaled() +
+# uniform_noise at log-theta 0, n = 65536 sorted inputs uniform on [0, 1000],
+# y = sin(x/3) + 0.1 N(0, 1) (numpy seed 0), Z = x[::64][:1024], minibatch
+# x[:4096], 4096 test points on linspace(0, 1000).
+N_SPARSE, M_SPARSE, B_SPARSE, T_SPARSE, X_SPARSE = 65536, 1024, 4096, 4096, 1000.0
+SPARSE_ADAM, SVGP_ITERS, NATGRAD_ITERS, QUAD_ORDER, LAPLACE_SCALE = 50, 100, 50, 20, 0.1
+# Bounds of the sparse path (f32 kernel path) against the f64 plain path on
+# the card, and of the natural-gradient anchor's gap in f32.  Set before the
+# first run on the card (values 1e-3, gradients and v 1e-2, traces 5e-2),
+# then to about 10 times what an H100 showed (PERF.md).  Adam's v is held
+# by its log-thetas and by the f64 ELBO there: a Z coordinate whose gradient
+# is near 0 moves by the sign of its f32 rounding, up to the rate a step
+# (Z parted from f64 by 0.049 after 50 steps on an H100, reported).
+SPARSE_BOUNDS = {
+    "sgpr_value_rtol": 2e-6,  # make_sgpr_logp at v0, relative (1.7e-7 measured)
+    "sgpr_grad_rtol": 1e-6,  # its gradient over [log theta | Z], relative to the largest entry (8.0e-8)
+    "adam_theta_atol": 1e-2,  # the log-thetas after SPARSE_ADAM Adam steps
+    "adam_elbo_rtol": 1e-4,  # the f64 ELBO at the f32 run's v against at the f64 run's v
+    "pred_atol": 2e-4,  # sgpr_predict's mean and std at the f32 Adam v (2.1e-5)
+    "svgp_value_rtol": 5e-7,  # svgp_elbo on the minibatch, both forms (4.5e-8)
+    "svgp_grad_rtol": 2e-5,  # its gradient in each leaf, relative to the leaf's largest entry (1.5e-6)
+    "anchor_gap_rtol": 1e-6,  # |ELBO(one natgrad step) - ELBO(optimal state)| / |ELBO(optimal state)|, f32 (0.0)
+    "svgp_fit_trace_rtol": 2e-2,  # svgp_fit's ELBO trace, f32 against f64 on the same minibatches (1.6e-3)
+    "natgrad_fit_trace_rtol": 2e-6,  # svgp_fit_natgrad's (1.7e-7)
+}
+# K1 and K5 launches of one call on the sparse path (m >= 1024, f32 on the
+# card), from the code.  SGPR's value and gradient: K1 factors Kuu and B; K5
+# once for each of the two forward TRSMs (L^-1 Kuf, LB^-1 A ytilde), twice in
+# each Cholesky pullback (two transposed TRSMs) and once in each TRSM
+# pullback.  svgp_elbo: Kuu and one TRSM, with the pullbacks when
+# differentiated.  The natural-gradient step: K1 for Kuu, S (in _elbo_mS and
+# again for the solves), P_new (no jitter retry) and S_new; K5 for the TRSM,
+# S's Cholesky pullback and the two cho_solve_mat (two TRSMs each).
+SPARSE_CALL_LAUNCHES = {
+    "sgpr_value_and_grad": (2, 2 + 2 * 2 + 2 * 1),
+    "sgpr_fit": (2, 2),
+    "sgpr_predict": (0, 2),
+    "svgp_value_and_grad": (1, 1 + 2 + 1),
+    "svgp_elbo": (1, 1),
+    "natgrad_step": (5, 1 + 2 + 2 * 2),
+    "svgp_optimal_state": (2, 3),
+}
+def sparse_launches(**calls: int) -> dict:
+    """The K1 and K5 launches of ``calls`` (name -> count) on the sparse path."""
+    k1 = sum(SPARSE_CALL_LAUNCHES[name][0] * count for name, count in calls.items())
+    k5 = sum(SPARSE_CALL_LAUNCHES[name][1] * count for name, count in calls.items())
+    return {"fused_cholesky_invs": k1, "tril_inv_tile": k5}
+
+
+def sparse_problem(dtype: torch.dtype, device):
+    """(gp, x, y, z, t) of the sparse path."""
+    rng = np.random.default_rng(0)
+    x = np.sort(rng.uniform(0, X_SPARSE, (N_SPARSE, 1)), axis=0)
+    y = np.sin(x[:, 0] / 3.0) + 0.1 * rng.normal(size=N_SPARSE)
+    gp = GP(ndim=1, simil=rbf.scaled(), noise=uniform_noise)
+
+    def t(a):
+        return torch.as_tensor(a, dtype=dtype, device=device)
+
+    return gp, t(x), t(y), t(x[:: N_SPARSE // M_SPARSE][:M_SPARSE]), t(np.linspace(0, X_SPARSE, T_SPARSE)[:, None])
+
+
+def fit_draws(dev) -> sparse.SVGPDraws:
+    """The fits' draws: a permutation whose first M_SPARSE entries index the
+    problem's Z (x[::64]), and minibatch indices from a generator on the card
+    seeded 0, so that the f32 and the f64 run take the same minibatches."""
+    step = N_SPARSE // M_SPARSE
+    return sparse.SVGPDraws(perm=lambda n: torch.arange(n, device=dev).view(-1, step).T.reshape(-1),
+                            batch=sparse.generator_draws(torch.Generator(device=dev).manual_seed(0)).batch)
+
+
+def svgp_value_and_grad(gp, state, x, y, likelihood):
+    """svgp_elbo on the minibatch rescaled to N_SPARSE, at log-theta 0, and
+    its gradient in [log_theta, z, q_mu, q_sqrt]."""
+    leaves = [torch.zeros(gp.n_theta, dtype=x.dtype, device=x.device).requires_grad_(True),
+              *(f.detach().clone().requires_grad_(True) for f in state)]
+    with torch.enable_grad():
+        theta = torch.exp(leaves[0])
+        value = sparse.svgp_elbo(gp, theta[: gp.n_theta_simil], theta[gp.n_theta_simil :],
+                                 sparse.SVGPState(*leaves[1:]), x, y, n_total=N_SPARSE, likelihood=likelihood,
+                                 quad_order=QUAD_ORDER)
+        grads = torch.autograd.grad(value, leaves)
+    return value.detach(), grads
+
+
+def natgrad_anchor(gp, x, y, z):
+    """One natural-gradient step at gamma = 1 on the whole batch from the
+    KL-zero start, and the closed-form optimum: (ELBO of the step, ELBO of
+    the optimum), at log-theta 0."""
+    ts = torch.ones(gp.n_theta_simil, dtype=x.dtype, device=x.device)
+    tn = torch.ones(gp.n_theta_noise, dtype=x.dtype, device=x.device)
+    stepped = sparse.svgp_natgrad_step(gp, ts, tn, sparse.svgp_init(gp, z), x, y, 1.0)
+    opt = sparse.svgp_optimal_state(gp, ts, tn, x, y, z)
+    return sparse.svgp_elbo(gp, ts, tn, stepped, x, y), sparse.svgp_elbo(gp, ts, tn, opt, x, y)
+
+
+def run_sparse(gp, x, y, z, t, v_fit=None) -> dict:
+    """The sparse path once through the front door, each stage timed and
+    its launches counted from 0.  SGPR's fit and predictions at ``v_fit``
+    (default: this run's own Adam result)."""
+    out, launches, walls = {}, {}, {}
+    out["launches"], out["walls_ms"] = launches, walls
+
+    def stage(name, fn, *a, **k):
+        cb.reset_launch_counts()
+        res = timed_call(walls, name, fn, *a, **k)
+        launches[name] = dict(cb.LAUNCHES)
+        return res
+
+    v0 = sparse.join_sparse_params(gp, torch.zeros(gp.n_theta, dtype=x.dtype, device=x.device), z)
+    vg = masked_value_and_grad(sparse.make_sgpr_logp(gp, x, y, M_SPARSE))
+    out["sgpr"] = stage("sgpr_value_and_grad", vg, v0)
+    out["adam"] = stage("adam", mle.adam, vg, v0, iters=SPARSE_ADAM, threshold=0.0)
+    ts, tn, zf = sparse.split_sparse_params(gp, (out["adam"].x if v_fit is None else v_fit).to(x.dtype), M_SPARSE)
+    out["predict"] = stage("sgpr_fit_predict", lambda: sparse.sgpr_predict(gp, sparse.sgpr_fit(gp, ts, tn, x, y, zf), t))
+    state0 = sparse.svgp_init(gp, z)
+    xb, yb = x[:B_SPARSE], y[:B_SPARSE]
+    for form, lik in (("gaussian", None), ("laplace", likelihoods.laplace_noise.for_svgp([LAPLACE_SCALE]))):
+        out[f"svgp_{form}"] = stage(f"svgp_{form}_value_and_grad", svgp_value_and_grad, gp, state0, xb, yb, lik)
+    out["anchor"] = stage("natgrad_anchor", natgrad_anchor, gp, x, y, z)
+    for name, fit, iters in (("svgp_fit", sparse.svgp_fit, SVGP_ITERS),
+                             ("svgp_fit_natgrad", sparse.svgp_fit_natgrad, NATGRAD_ITERS)):
+        out[name] = stage(name, fit, gp, x, y, M_SPARSE, iters=iters, batch=B_SPARSE, draws=fit_draws(x.device))[1]
+    return out
+
+
+def sparse_expected(adam_iters: int) -> dict:
+    """Each stage's K1 and K5 launches in :func:`run_sparse`."""
+    return {
+        "sgpr_value_and_grad": sparse_launches(sgpr_value_and_grad=1),
+        "adam": sparse_launches(sgpr_value_and_grad=adam_iters),
+        "sgpr_fit_predict": sparse_launches(sgpr_fit=1, sgpr_predict=1),
+        "svgp_gaussian_value_and_grad": sparse_launches(svgp_value_and_grad=1),
+        "svgp_laplace_value_and_grad": sparse_launches(svgp_value_and_grad=1),
+        "natgrad_anchor": sparse_launches(natgrad_step=1, svgp_optimal_state=1, svgp_elbo=2),
+        "svgp_fit": sparse_launches(svgp_value_and_grad=SVGP_ITERS),
+        "svgp_fit_natgrad": sparse_launches(svgp_value_and_grad=NATGRAD_ITERS, natgrad_step=NATGRAD_ITERS),
+    }
+
+
+def wrong_launches(got: dict, expect: dict) -> dict:
+    """The stages whose launch counts differ from ``expect`` (a kernel it
+    does not name must launch 0 times)."""
+    return {stage: counts for stage, counts in got.items()
+            if any(counts[k] != expect[stage].get(k, 0) for k in counts)}
+
+
+def total_launches(stages: dict) -> dict:
+    return {k: sum(counts[k] for counts in stages.values()) for k in cb.LAUNCHES}
+
+
+# The largest peak (GiB) that call_peak_gib's resets of the allocator's
+# statistics have cleared since main's last reset: the memory line takes it
+# into the phase's peak.
+_CLEARED_PEAK_GIB = [0.0]
+
+
+def call_peak_gib(fn) -> float:
+    """Peak device memory (GiB) allocated during ``fn()``."""
+    torch.cuda.synchronize()
+    _CLEARED_PEAK_GIB[0] = max(_CLEARED_PEAK_GIB[0], torch.cuda.max_memory_allocated() / 2**30)
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    _CLEARED_PEAK_GIB[0] = max(_CLEARED_PEAK_GIB[0], peak)
+    return peak
+
+
+def rel_err(got, want) -> float:
+    return abs(float(got) - float(want)) / abs(float(want))
+
+
+def grad_rel_err(got, want) -> float:
+    return float((got.double() - want.double()).abs().max() / want.double().abs().max())
+
+
+def phase_sparse(dev) -> dict:
+    """gp.sparse at n = 65536, m = 1024, minibatch 4096: the f32 kernel path
+    against the f64 plain path on the card, each stage's K1 and K5 launches,
+    the natural-gradient anchor, the fits' ELBO traces, walls, device busy
+    time and peak memory of SGPR's value and gradient, K1 and K5 at this
+    path's shapes."""
+    args32 = sparse_problem(torch.float32, dev)
+    args64 = sparse_problem(torch.float64, dev)
+    gp, x, y, z, t = args32
+    got = run_sparse(*args32)
+    torch.cuda.synchronize()
+    with linalg.force_plain():
+        ref = run_sparse(*args64, v_fit=got["adam"].x.double())
+    torch.cuda.synchronize()
+
+    b = SPARSE_BOUNDS
+    nt = gp.n_theta
+    v32, v64 = got["adam"].x.double(), ref["adam"].x
+    with linalg.force_plain():
+        logp64 = sparse.make_sgpr_logp(*args64[:3], M_SPARSE)
+        elbo_at = {"f32_v": float(logp64(v32)), "f64_v": float(logp64(v64))}
+    errors = {"sgpr_value_rel": rel_err(got["sgpr"][0], ref["sgpr"][0]),
+              "sgpr_grad_rel": grad_rel_err(got["sgpr"][1], ref["sgpr"][1]),
+              "adam_theta_abs": float((v32[:nt] - v64[:nt]).abs().max()),
+              "adam_z_abs": float((v32[nt:] - v64[nt:]).abs().max()),
+              "adam_elbo_rel": rel_err(elbo_at["f32_v"], elbo_at["f64_v"])}
+    for label, g, r in zip(("mu", "sigma"), got["predict"], ref["predict"]):
+        errors[f"predict_{label}_abs"] = float((g.double() - r).abs().max())
+    for form in ("gaussian", "laplace"):
+        (gv, gg), (rv, rg) = got[f"svgp_{form}"], ref[f"svgp_{form}"]
+        errors[f"svgp_{form}_value_rel"] = rel_err(gv, rv)
+        errors[f"svgp_{form}_grad_rel"] = max(grad_rel_err(g_, r_) for g_, r_ in zip(gg, rg))
+    (e_step, e_opt), (e_step64, e_opt64) = got["anchor"], ref["anchor"]
+    errors["anchor_gap_rel_f32"] = rel_err(e_step, e_opt)
+    errors["anchor_gap_rel_f64"] = rel_err(e_step64, e_opt64)
+    errors["anchor_opt_elbo_rel_f32_vs_f64"] = rel_err(e_opt, e_opt64)
+    traces = {}
+    for name in ("svgp_fit", "svgp_fit_natgrad"):
+        tr, tr64 = got[name].double(), ref[name]
+        errors[f"{name}_trace_rel"] = float(((tr - tr64).abs() / tr64.abs()).max())
+        traces[name] = {"first": float(tr[0]), "last": float(tr[-1]), "last10_mean": float(tr[-10:].mean()),
+                        "f64_first": float(tr64[0]), "f64_last": float(tr64[-1]),
+                        "rises": bool(torch.isfinite(tr).all()) and float(tr[-10:].mean()) > float(tr[0])}
+    checks = {"sgpr_value_rel": "sgpr_value_rtol", "sgpr_grad_rel": "sgpr_grad_rtol",
+              "adam_theta_abs": "adam_theta_atol", "adam_elbo_rel": "adam_elbo_rtol",
+              "predict_mu_abs": "pred_atol", "predict_sigma_abs": "pred_atol",
+              **{f"svgp_{f}_value_rel": "svgp_value_rtol" for f in ("gaussian", "laplace")},
+              **{f"svgp_{f}_grad_rel": "svgp_grad_rtol" for f in ("gaussian", "laplace")},
+              "anchor_gap_rel_f32": "anchor_gap_rtol",
+              "svgp_fit_trace_rel": "svgp_fit_trace_rtol", "svgp_fit_natgrad_trace_rel": "natgrad_fit_trace_rtol"}
+    failures = [k for k, name in checks.items() if not errors[k] <= b[name]]
+    failures += [f"{name} does not rise" for name, tr in traces.items() if not tr["rises"]]
+    if got["predict"][0].shape != (T_SPARSE,) or not all(torch.isfinite(p).all() for p in got["predict"]):
+        failures.append("sgpr_predict shape/finite")
+
+    # walls (median of 5) of single calls on the kernel path and, where it
+    # runs the same call, the plain path in f32; SGPR's value and gradient
+    # beside its FLOP bound, its device busy time and peak memory
+    v0 = sparse.join_sparse_params(gp, torch.zeros(gp.n_theta, dtype=x.dtype, device=dev), z)
+    vg = masked_value_and_grad(sparse.make_sgpr_logp(gp, x, y, M_SPARSE))
+    ones_s, ones_n = torch.ones(gp.n_theta_simil, device=dev), torch.ones(gp.n_theta_noise, device=dev)
+    post = sparse.sgpr_fit(gp, ones_s, ones_n, x, y, z)
+    state0 = sparse.svgp_init(gp, z)
+    lik = likelihoods.laplace_noise.for_svgp([LAPLACE_SCALE])
+    calls = {
+        "sgpr_value_and_grad": lambda: vg(v0),
+        "sgpr_fit": lambda: sparse.sgpr_fit(gp, ones_s, ones_n, x, y, z),
+        "sgpr_predict": lambda: sparse.sgpr_predict(gp, post, t),
+        "svgp_gaussian_value_and_grad": lambda: svgp_value_and_grad(gp, state0, x[:B_SPARSE], y[:B_SPARSE], None),
+        "svgp_laplace_value_and_grad": lambda: svgp_value_and_grad(gp, state0, x[:B_SPARSE], y[:B_SPARSE], lik),
+        "natgrad_step_whole_batch": lambda: sparse.svgp_natgrad_step(gp, ones_s, ones_n, state0, x, y, 1.0),
+        "svgp_optimal_state": lambda: sparse.svgp_optimal_state(gp, ones_s, ones_n, x, y, z),
+    }
+    wall = {"kernels_f32": {name: wall_ms(fn) for name, fn in calls.items()}}
+    with linalg.force_plain():
+        wall["plain_f32"] = {name: wall_ms(calls[name]) for name in ("sgpr_value_and_grad", "sgpr_predict")}
+    bound_ms, bound_by = bound("sgpr_value_and_grad", (N_SPARSE, M_SPARSE))
+    busy = {"kernels_f32": profile_once(calls["sgpr_value_and_grad"])}
+    with linalg.force_plain():
+        busy["plain_f32"] = profile_once(calls["sgpr_value_and_grad"])
+    peaks = {"sgpr_value_and_grad": call_peak_gib(calls["sgpr_value_and_grad"]),
+             "natgrad_step_whole_batch": call_peak_gib(calls["natgrad_step_whole_batch"])}
+
+    # Kuu's factor against f64, and the fits' own start (Z from 1024 random
+    # rows of the data, as svgp_fit draws it without a hook), reported
+    kuu_err = float((sparse._chol_kuu(gp, ones_s, z, sparse.DEFAULT_JITTER).double()
+                     - sparse._chol_kuu(args64[0], ones_s.double(), args64[3], sparse.DEFAULT_JITTER)).abs().max())
+    zr = x[torch.randperm(N_SPARSE, generator=torch.Generator(device=dev).manual_seed(0), device=dev)[:M_SPARSE]]
+    Lr = sparse._chol_kuu(gp, ones_s, zr, sparse.DEFAULT_JITTER)
+    random_start = {"min_gap": float(torch.sort(zr[:, 0]).values.diff().min()),
+                    "kuu_factor_finite_f32": bool(torch.isfinite(torch.diagonal(Lr)).all())}
+
+    # K1 and K5 at this path's shapes: B = I + A A^T at v0, its factor's tiles
+    A = sparse._noise_weights(gp, ones_n, x, torch.ones_like(y))[1].sqrt()[None, :] * linalg.trsm_lower(
+        sparse._chol_kuu(gp, ones_s, z, sparse.DEFAULT_JITTER), gp.simil.matrix(ones_s, z, x))
+    B = torch.eye(M_SPARSE, device=dev) + A @ A.T
+    del A
+    rows = kernel_rows("sparse", B, diag_tiles(cb.blocked_cholesky_invs(B, BLOCK)[0]), stepwise=True)
+
+    expect = sparse_expected(got["adam"].iters)
+    wrong = wrong_launches(got["launches"], expect)
+    emit({"phase": "sparse", "n": N_SPARSE, "m": M_SPARSE, "batch": B_SPARSE, "t": T_SPARSE,
+          "adam_steps": got["adam"].iters, "svgp_iters": SVGP_ITERS, "natgrad_iters": NATGRAD_ITERS,
+          "bounds": SPARSE_BOUNDS, "errors": errors,
+          "sgpr_v0": {"f32_kernels": float(got["sgpr"][0]), "f64_plain": float(ref["sgpr"][0])},
+          "adam_f64_elbo_at": elbo_at,
+          "anchor_elbo": {"step_f32": float(e_step), "optimal_f32": float(e_opt), "step_f64": float(e_step64),
+                          "optimal_f64": float(e_opt64)},
+          "traces": traces, "kuu_factor_abs_err_f32_vs_f64": kuu_err, "random_start": random_start,
+          "launches": got["launches"], "launches_expected": expect,
+          "walls_ms_main_run": got["walls_ms"], "walls_ms_f64_plain": ref["walls_ms"], "call_wall_ms": wall,
+          "sgpr_value_and_grad_bound_ms": bound_ms, "sgpr_value_and_grad_bound_by": bound_by,
+          "sgpr_value_and_grad_flops": work("sgpr_value_and_grad", (N_SPARSE, M_SPARSE))[1],
+          "sgpr_value_and_grad_profile": busy, "peak_gib": peaks})
+    if failures:
+        raise AssertionError(f"sparse path disagrees with the f64 plain path: {failures}")
+    if wrong:
+        raise AssertionError(f"sparse launches {wrong}, expected {expect} and no other kernel")
+    return {"launches": total_launches(got["launches"]), "rows": rows}
+
+
+# The model surface at the serving problem's n = 4096 (the slice's data):
+# the Student-t process at nu = 3 (v_nu = log 1), deep kernels and ICM.
+# Bounds set before the first run on the card (values 1e-4, gradients 1e-3,
+# tp_predict 1e-3, identity 1e-6), then to about 10 times what an H100
+# showed (PERF.md): each model's value against f64 (relative) and gradient
+# (relative to its largest entry).  The (8, 8) deep kernel's tanh layers
+# saturate on inputs up to 100, so its K is nearly constant plus the noise,
+# and its f32 value parts from f64 by 1.3e-5.
+SURFACE_BOUNDS = {
+    "tp": (1e-6, 1.2e-6),  # make_tp_logp (8.8e-8, 1.1e-7 measured)
+    "deep_identity": (1.2e-8, 1.3e-6),  # (1.1e-9, 1.3e-7)
+    "rbf": (1.2e-8, 1.3e-6),  # (1.1e-9, 1.3e-7)
+    "deep_mlp": (1.3e-4, 1.3e-3),  # (1.3e-5, 1.3e-4)
+    "icm": (2.5e-7, 2.5e-6),  # (2.2e-8, 2.1e-7)
+    "pred_atol": 1.5e-5,  # tp_predict's mean and std (1.4e-6, 1.6e-7)
+    "identity_rtol": 1e-6,  # deep with identity weights against rbf.scaled(), both f32 on the kernel path (0.0)
+}
+TP_NU = 3.0
+DEEP_SEED = 0
+
+
+def surface_problem(dtype: torch.dtype, device):
+    """The slice's problem, and the ICM problem on its inputs: task 0 the
+    even rows with the slice's y = sin(x/3) + 0.1 N(0, 1), task 1 the odd
+    rows with y = sin(x/3 + 0.5) + 0.1 N(0, 1) (numpy seed 1)."""
+    gp, x, y, v, ts, tn, z = problem(dtype, device)
+    x1 = x[1::2]
+    y1 = torch.sin(x1[:, 0] / 3.0 + 0.5) + 0.1 * torch.as_tensor(
+        np.random.default_rng(1).normal(size=x1.shape[0]), dtype=dtype, device=device)
+    X, Y = multioutput.stack_tasks([x[0::2], x1], [y[0::2], y1])
+    return gp, x, y, v, z, X, Y
+
+
+def surface_models(dtype, device) -> dict:
+    """name -> (gp, v) of the three gp_observe calls: deep with identity
+    weights (one linear layer), the same GP's base rbf.scaled(), deep with
+    the default (8, 8) tanh MLP and random weights, ICM with 2 tasks."""
+    def t(a):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+
+    ident = GP(1, deep.deep(rbf.scaled(), 1, hidden=()), uniform_noise)
+    mlp = GP(1, deep.deep(rbf.scaled(), 1), uniform_noise)
+    icm = GP(2, multioutput.icm(rbf.scaled(), 2), uniform_noise)
+    zeros = np.zeros(3)
+    return {
+        "deep_identity": (ident, t(np.concatenate([deep.identity_weights(1, hidden=()), zeros]))),
+        "rbf": (GP(1, rbf.scaled(), uniform_noise), t(zeros)),
+        "deep_mlp": (mlp, torch.cat([deep.init_deep_v(np.random.default_rng(DEEP_SEED), [0.0, 0.0], 1, dtype=dtype,
+                                                      device=device), t([0.0])])),
+        "icm": (icm, torch.cat([multioutput.init_icm_theta([0.0, 0.0], 2, 1, dtype=dtype, device=device), t([0.0])])),
+    }
+
+
+def run_surface(gp, x, y, v, z, X, Y) -> dict:
+    """The model surface once: make_tp_logp's value and gradient, tp_absorb
+    and tp_predict at the slice's m points, gp_observe's value and gradient
+    on each of :func:`surface_models`; each stage timed and its launches
+    counted from 0."""
+    out, launches, walls = {}, {}, {}
+    out["launches"], out["walls_ms"] = launches, walls
+
+    def stage(name, fn, *a, **k):
+        cb.reset_launch_counts()
+        res = timed_call(walls, name, fn, *a, **k)
+        launches[name] = dict(cb.LAUNCHES)
+        return res
+
+    logp, _ = tprocess.make_tp_logp(gp, x, y)
+    v_tp = torch.cat([torch.zeros(1, dtype=x.dtype, device=x.device), v])  # nu = 2 + e^0
+    out["tp"] = stage("tp_value_and_grad", masked_value_and_grad(logp), v_tp)
+    theta = torch.exp(v)
+    ts, tn = theta[: gp.n_theta_simil], theta[gp.n_theta_simil :]
+    out["tp_predict"] = stage("tp_absorb_predict", lambda: tprocess.tp_predict(
+        gp, TP_NU, tprocess.tp_absorb(gp, TP_NU, ts, tn, x, y), z))
+    for name, (gp_, v_) in surface_models(x.dtype, x.device).items():
+        xs, ys = (X, Y) if name == "icm" else (x, y)
+        out[name] = stage(name, masked_value_and_grad(make_gp_logp(gp_, x=xs, y=ys)), v_)
+    return out
+
+
+def surface_expected() -> dict:
+    """Each stage's launches in :func:`run_surface`: tp_lml factors with K1
+    and its Cholesky pullback takes K5 twice; tp_absorb factors with K1 and
+    tp_predict's TRSM takes K5 once; each gp_observe runs lml_core (K1, the
+    solve both ways, no K5: the pullback's inverse reuses K1's tile
+    inverses)."""
+    solve, solve_t = solve_keys(N)
+    observe = {"fused_cholesky_invs": 1, solve: 1, solve_t: 1}
+    return {"tp_value_and_grad": {"fused_cholesky_invs": 1, "tril_inv_tile": 2},
+            "tp_absorb_predict": {"fused_cholesky_invs": 1, "tril_inv_tile": 1},
+            **{name: observe for name in ("deep_identity", "rbf", "deep_mlp", "icm")}}
+
+
+def phase_surface(dev) -> dict:
+    """gp.tprocess, kernels.deep and kernels.multioutput at n = 4096: the f32
+    kernel path against the f64 plain path on the card, deep with identity
+    weights against its base, each stage's launches, walls, the deep
+    kernel's peak memory, and the kernels at this path's shapes."""
+    args32 = surface_problem(torch.float32, dev)
+    args64 = surface_problem(torch.float64, dev)
+    got = run_surface(*args32)
+    torch.cuda.synchronize()
+    with linalg.force_plain():
+        ref = run_surface(*args64)
+    torch.cuda.synchronize()
+
+    b = SURFACE_BOUNDS
+    errors, failures = {}, []
+    for name in ("tp", "deep_identity", "rbf", "deep_mlp", "icm"):
+        errors[f"{name}_value_rel"] = rel_err(got[name][0], ref[name][0])
+        errors[f"{name}_grad_rel"] = grad_rel_err(got[name][1], ref[name][1])
+        failures += [k for k, bound_ in zip((f"{name}_value_rel", f"{name}_grad_rel"), b[name])
+                     if not errors[k] <= bound_]
+    for label, g, r in zip(("mu", "sigma"), got["tp_predict"], ref["tp_predict"]):
+        errors[f"tp_predict_{label}_abs"] = float((g.double() - r).abs().max())
+        if not errors[f"tp_predict_{label}_abs"] <= b["pred_atol"]:
+            failures.append(f"tp_predict_{label}_abs")
+    # identity weights: the base's value, and the base's gradient in the
+    # base and noise coordinates (after the two weight slots)
+    errors["identity_value_rel"] = rel_err(got["deep_identity"][0], got["rbf"][0])
+    errors["identity_grad_rel"] = grad_rel_err(got["deep_identity"][1][2:], got["rbf"][1])
+    failures += [k for k in ("identity_value_rel", "identity_grad_rel") if not errors[k] <= b["identity_rtol"]]
+
+    gp, x, y, v, z, X, Y = args32
+    models = surface_models(torch.float32, dev)
+    calls = {name: (lambda gp_=gp_, v_=v_, xs=(X if name == "icm" else x), ys=(Y if name == "icm" else y):
+                    masked_value_and_grad(make_gp_logp(gp_, x=xs, y=ys))(v_))
+             for name, (gp_, v_) in models.items()}
+    calls["tp_value_and_grad"] = lambda: masked_value_and_grad(tprocess.make_tp_logp(gp, x, y)[0])(
+        torch.cat([torch.zeros(1, device=dev), v]))
+    wall = {name: wall_ms(fn) for name, fn in calls.items()}
+    peaks = {name: call_peak_gib(fn) for name, fn in calls.items()}
+
+    # the kernels at this path's shapes: K1 on the TP's K (the slice's
+    # covariance), the solves and K5 on its factor
+    theta = torch.exp(v)
+    K = core.masked_cov(gp, theta[: gp.n_theta_simil], theta[gp.n_theta_simil :], x, None)
+    L, invs = cb.blocked_cholesky_invs(K, BLOCK)
+    rows = kernel_rows("surface", K, diag_tiles(L))
+    for key, case in solve_cases(L, invs, y, k4=solves_with_k4(N)).items():
+        if key != "tril_inv_tile":
+            rows["surface", key] = check_kernel("surface", key, *case)
+
+    expect = surface_expected()
+    wrong = wrong_launches(got["launches"], expect)
+    emit({"phase": "surface", "n": N, "m": M, "nu": TP_NU, "icm_tasks": 2, "bounds": SURFACE_BOUNDS,
+          "errors": errors, "values": {name: {"f32_kernels": float(got[name][0]), "f64_plain": float(ref[name][0])}
+                                       for name in ("tp", "deep_identity", "rbf", "deep_mlp", "icm")},
+          "launches": got["launches"], "launches_expected": expect, "walls_ms_main_run": got["walls_ms"],
+          "walls_ms_f64_plain": ref["walls_ms"], "value_and_grad_wall_ms": wall, "peak_gib": peaks})
+    if failures:
+        raise AssertionError(f"model surface disagrees with the f64 plain path: {failures}")
+    if wrong:
+        raise AssertionError(f"surface launches {wrong}, expected {expect} and no other kernel")
+    return {"launches": total_launches(got["launches"]), "rows": rows}
+
+
 def coldstart_child(parts: bool) -> None:
     """The first ``laplace_fit`` of the classify problem in this (fresh)
     process, after the card's context and K1's first launch, which every
@@ -2902,6 +3419,7 @@ def _partial_slice(dev) -> None:
 # (in no whole run) the first laplace_fit of a process taken apart.
 PARTIAL_PHASES = {"kernels": phase_kernels, "k5": phase_k5, "k7": phase_k7, "gate": phase_gate,
                   "slice": _partial_slice, "serve": phase_serve_cache, "classify": phase_classify,
+                  "sparse": phase_sparse, "surface": phase_surface,
                   "train": phase_train, "large": phase_large, "bayes": phase_bayes, "samplers": phase_samplers,
                   "evaluate": lambda dev: check_k7(phase_evaluate(dev)["k7_cases"]),
                   "stamps": phase_stamps, "coldstart": phase_coldstart}
@@ -2935,11 +3453,12 @@ def main() -> int:
     def measured(name, fn, *a):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        _CLEARED_PEAK_GIB[0] = 0.0
         t0 = time.perf_counter()
         out = fn(*a)
         torch.cuda.synchronize()
         seconds[name] = time.perf_counter() - t0
-        peak_gib[name] = torch.cuda.max_memory_allocated() / 2**30
+        peak_gib[name] = max(torch.cuda.max_memory_allocated() / 2**30, _CLEARED_PEAK_GIB[0])
         return out
 
     cb.reset_launch_counts()
@@ -2952,8 +3471,10 @@ def main() -> int:
     large = measured("large", phase_large, dev)
     serve_cache = measured("serve", phase_serve_cache, dev)
     classify_out = measured("classify", phase_classify, dev)
-    kernels.update(serve_cache["rows"])
-    kernels.update(classify_out["rows"])
+    sparse_out = measured("sparse", phase_sparse, dev)
+    surface_out = measured("surface", phase_surface, dev)
+    for out in (serve_cache, classify_out, sparse_out, surface_out):
+        kernels.update(out["rows"])
     bayes_rows = measured("k7", phase_k7, dev)
     # NUTS and HMC on hyperpriors, the longest runs, in worker processes from
     # here on, beside the bayes, samplers and evaluate phases in this process
@@ -2976,6 +3497,7 @@ def main() -> int:
     # count beside the error and times at the shapes that path gives it
     launches = {"serve": serve_launches, "train": train["launches"], "large": large["launches"],
                 "serve_cache": serve_cache["launches"], "classify": classify_out["launches"],
+                "sparse": sparse_out["launches"], "surface": surface_out["launches"],
                 "bayes": bayes_out["launches"], "evaluate": evaluate_out["launches"],
                 "evaluate_hyperpriors": evaluate_out["hyperpriors_launches"], **samplers_out["launches"],
                 "kernels": kernels_launches}

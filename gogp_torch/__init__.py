@@ -3,11 +3,14 @@
 Module layout mirrors ``gogp_tpu/`` one for one; each module names its JAX
 twin, against which the tests hold it.
 
-- ``gogp_torch.kernels`` - pair-function kernels and combinators.
+- ``gogp_torch.kernels`` - pair-function kernels and combinators, deep
+  kernels (``deep``) and multi-output coregionalization (``multioutput``).
 - ``gogp_torch.gp``      - covariance assembly, LML, prediction; serving
   caches (``serve``), streaming appends (``streaming``), exact LOO
-  (``model_selection``), and non-Gaussian likelihoods (``likelihoods``)
-  with the Laplace (``laplace``) and EP (``ep``) approximations.
+  (``model_selection``), non-Gaussian likelihoods (``likelihoods``)
+  with the Laplace (``laplace``) and EP (``ep``) approximations, sparse
+  GPs (``sparse``: SGPR, SVGP, natural gradients) and the Student-t
+  process (``tprocess``).
 - ``gogp_torch.models``  - the flat parameter-vector protocol, log-density
   composition and gradient masks.
 - ``gogp_torch.dists``   - prior log-densities.

@@ -9,7 +9,9 @@ of a ``gogp_tpu.infer.ghmc.GHMCState``, of a
 ``gogp_tpu.infer.tempering.PTFlow``, of the serving caches
 (``gogp_tpu.gp.serve.ServingPosterior`` and ``ServingMixture``), of the
 non-Gaussian posteriors (``gogp_tpu.gp.laplace.LaplacePosterior``,
-``gogp_tpu.gp.ep.EPPosterior``) and of ``gogp_tpu.infer.elliptical.ESSResult``.
+``gogp_tpu.gp.ep.EPPosterior``), of ``gogp_tpu.infer.elliptical.ESSResult``
+and of the sparse GPs (``gogp_tpu.gp.sparse.SGPRPosterior``, ``SVGPState``,
+``SVGPParams``).
 The caller turns them into numpy arrays (``np.asarray``) and these functions
 put them on the device the caller names.  This module does not import JAX.
 """
@@ -25,6 +27,7 @@ from gogp_torch.gp.core import Posterior
 from gogp_torch.gp.ep import EPPosterior
 from gogp_torch.gp.laplace import LaplacePosterior
 from gogp_torch.gp.serve import ServingMixture, ServingPosterior
+from gogp_torch.gp.sparse import SGPRPosterior, SVGPParams, SVGPState
 from gogp_torch.infer.elliptical import ESSResult
 from gogp_torch.infer import adapt
 from gogp_torch.infer.chees import AdamState, ChEESState
@@ -90,6 +93,26 @@ def ess_result_from_numpy(res: Mapping[str, Any] | Any, device, dtype: torch.dty
     f = dict(_fields(res))
     out = _tuple_from_numpy(ESSResult, {**f, "shrinks": np.zeros(0)}, device, dtype)
     return out._replace(shrinks=array_from_numpy(f["shrinks"], device, torch.int64))
+
+
+def sgpr_posterior_from_numpy(post: Mapping[str, Any] | Any, device,
+                              dtype: torch.dtype | None = None) -> SGPRPosterior:
+    """An :class:`SGPRPosterior` from the six fields of the JAX one."""
+    return _tuple_from_numpy(SGPRPosterior, post, device, dtype)
+
+
+def svgp_state_from_numpy(state: Mapping[str, Any] | Any, device,
+                          dtype: torch.dtype | None = None) -> SVGPState:
+    """An :class:`SVGPState` from the three fields of the JAX one."""
+    return _tuple_from_numpy(SVGPState, state, device, dtype)
+
+
+def svgp_params_from_numpy(params: Mapping[str, Any] | Any, device,
+                           dtype: torch.dtype | None = None) -> SVGPParams:
+    """An :class:`SVGPParams` from the JAX one: ``log_theta`` and the nested
+    ``state``."""
+    f = _fields(params)
+    return SVGPParams(array_from_numpy(f["log_theta"], device, dtype), svgp_state_from_numpy(f["state"], device, dtype))
 
 
 def likelihood_theta_from_numpy(theta, device, dtype: torch.dtype | None = None) -> torch.Tensor:

@@ -60,3 +60,26 @@ from gogp_torch.gp.ep import (  # noqa: F401
     ep_predict_prob,
     make_ep_logp,
 )
+from gogp_torch.gp.tprocess import (  # noqa: F401
+    make_tp_logp,
+    tp_absorb,
+    tp_lml,
+    tp_predict,
+)
+from gogp_torch.gp.sparse import (  # noqa: F401
+    SGPRPosterior,
+    SVGPParams,
+    SVGPState,
+    make_sgpr_logp,
+    sgpr_elbo,
+    sgpr_fit,
+    sgpr_predict,
+    svgp_elbo,
+    svgp_fit,
+    svgp_fit_natgrad,
+    svgp_fit_stream,
+    svgp_init,
+    svgp_natgrad_step,
+    svgp_optimal_state,
+    svgp_predict,
+)

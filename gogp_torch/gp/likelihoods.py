@@ -17,7 +17,8 @@ against ``f`` and ``theta`` either shared (1-D) or one vector per leading
 index of ``f`` (shape ``f.shape[:k] + (n_theta,)``): the rows of a batch of
 problems, each with its own parameters.
 
-Consumers: ``gp.laplace``, ``gp.ep`` and ``infer.elliptical``.
+Consumers: ``gp.laplace``, ``gp.ep``, ``infer.elliptical`` and, through
+:meth:`Likelihood.for_svgp`, ``gp.sparse``'s Gauss-Hermite ELBO.
 """
 
 from __future__ import annotations
@@ -86,6 +87,18 @@ class Likelihood:
             gll = gll * mask
             w = w * mask
         return gll, w
+
+    def for_svgp(self, theta) -> Callable[[Tensor, Tensor], Tensor]:
+        """``svgp_elbo``'s ``likelihood(y, f)`` with theta bound: log p at
+        every entry of ``f`` (any shape, ``y`` broadcast against it), by
+        :meth:`pointwise`.  ``theta`` takes ``f``'s dtype at each call."""
+
+        def logp(y, f):
+            th = theta.to(f.dtype) if isinstance(theta, Tensor) else torch.as_tensor(
+                theta, dtype=f.dtype, device=f.device)
+            return self.pointwise(th.reshape(-1), f, y)
+
+        return logp
 
 
 # -- built-in families -----------------------------------------------------

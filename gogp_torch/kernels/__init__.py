@@ -1,4 +1,12 @@
 from gogp_torch.kernels.base import Kernel, NoiseKernel  # noqa: F401
+from gogp_torch.kernels import deep  # noqa: F401
+from gogp_torch.kernels.multioutput import (  # noqa: F401
+    icm,
+    init_icm_theta,
+    lmc,
+    stack_tasks,
+    task_inputs,
+)
 from gogp_torch.kernels.noise import (  # noqa: F401
     constant_noise,
     jitter_only_noise,

@@ -744,3 +744,66 @@ def test_per_row_mask_k7_route_matches_f64_reference(cuda, study_name):
     with linalg.force_plain():
         vg(V32)
     assert cb.LAUNCHES["fused_gp_linv"] == before + 1
+
+
+def _sparse_problem(n, m, device, dtype):
+    """The sparse phase's problem (chip_smoke.py) at n points: inputs on [0,
+    1000], Z = m of them about 1 apart at lengthscale 1."""
+    rng = np.random.default_rng(0)
+    x = np.sort(rng.uniform(0, 1000.0, (n, 1)), axis=0)
+    y = np.sin(x[:, 0] / 3.0) + 0.1 * rng.normal(size=n)
+    gp = GP(ndim=1, simil=rbf.scaled(), noise=uniform_noise)
+    x, y = (torch.as_tensor(a, dtype=dtype, device=device) for a in (x, y))
+    return gp, x, y, x[:: n // m][:m].contiguous()
+
+
+@pytest.mark.cuda
+def test_sgpr_kernel_path_matches_f64_plain(cuda):
+    """SGPR's value and gradient over [log theta | Z] at m = 1024 on the
+    kernel path (K1 for Kuu and B, K5 in each TRSM and pullback) against
+    the plain path in f64."""
+    from gogp_torch.gp import sparse
+    from gogp_torch.models import masked_value_and_grad
+
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        gp, x, y, z = _sparse_problem(8192, 1024, cuda, dtype)
+        v0 = sparse.join_sparse_params(gp, torch.zeros(gp.n_theta, dtype=dtype, device=cuda), z)
+        vg = masked_value_and_grad(sparse.make_sgpr_logp(gp, x, y, 1024))
+        if dtype == torch.float32:
+            cb.reset_launch_counts()
+            out[dtype] = vg(v0)
+            torch.cuda.synchronize()
+            assert (cb.LAUNCHES["fused_cholesky_invs"], cb.LAUNCHES["tril_inv_tile"]) == (2, 8)
+        else:
+            with linalg.force_plain():
+                out[dtype] = vg(v0)
+    (v32, g32), (v64, g64) = out[torch.float32], out[torch.float64]
+    assert abs(float(v32) - float(v64)) <= 1e-4 * abs(float(v64))
+    assert _rel(g32, g64) <= 1e-3
+
+
+@pytest.mark.cuda
+def test_natgrad_step_kernel_path_matches_f64_plain(cuda):
+    """One natural-gradient step at m = 1024 (K1 five times, K5 seven)
+    against the plain path in f64, and its gamma = 1 anchor: the step's
+    ELBO equals the closed-form optimum's."""
+    from gogp_torch.gp import sparse
+
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        gp, x, y, z = _sparse_problem(8192, 1024, cuda, dtype)
+        ones = torch.ones(gp.n_theta_simil, dtype=dtype, device=cuda), torch.ones(1, dtype=dtype, device=cuda)
+        if dtype == torch.float32:
+            cb.reset_launch_counts()
+            out[dtype] = sparse.svgp_natgrad_step(gp, *ones, sparse.svgp_init(gp, z), x, y, 1.0)
+            torch.cuda.synchronize()
+            assert (cb.LAUNCHES["fused_cholesky_invs"], cb.LAUNCHES["tril_inv_tile"]) == (5, 7)
+            e_step = float(sparse.svgp_elbo(gp, *ones, out[dtype], x, y))
+            e_opt = float(sparse.svgp_elbo(gp, *ones, sparse.svgp_optimal_state(gp, *ones, x, y, z), x, y))
+            assert abs(e_step - e_opt) <= 1e-5 * abs(e_opt)
+        else:
+            with linalg.force_plain():
+                out[dtype] = sparse.svgp_natgrad_step(gp, *ones, sparse.svgp_init(gp, z), x, y, 1.0)
+    for got, want in zip(out[torch.float32][1:], out[torch.float64][1:]):
+        assert _rel(got, want) <= 1e-3

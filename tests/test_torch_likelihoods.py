@@ -122,3 +122,19 @@ def test_log_ndtr_matches_jax():
     z = np.concatenate([np.linspace(-35, 35, 141), [0.0, -1e-12, 1e-12]])
     want = np.asarray(jax.scipy.special.log_ndtr(jnp.asarray(z)))
     np.testing.assert_allclose(tlik.log_ndtr(torch.tensor(z)).numpy(), want, rtol=RTOL, atol=1e-15)
+
+
+@pytest.mark.parametrize("name", FAMILIES)
+def test_for_svgp_matches_jax(name):
+    """``for_svgp``'s ``(y, f) -> logp`` on an (n, q) grid of f, as
+    svgp_elbo calls it, against JAX's under the two vmaps svgp_elbo puts
+    around it; theta given as a list takes f's dtype."""
+    theta, kind = FAMILIES[name]
+    jl, tl = getattr(jlik, name), getattr(tlik, name)
+    f, y, _ = _points(kind)
+    grid = f[:, None] + np.linspace(-1.0, 1.0, 5)[None, :]
+    yb = np.broadcast_to(y[:, None], grid.shape)
+    want = jax.vmap(jax.vmap(jl.for_svgp(theta)))(jnp.asarray(yb), jnp.asarray(grid))
+    got = tl.for_svgp(theta)(torch.tensor(yb), torch.tensor(grid))
+    assert got.dtype == torch.float64 and got.shape == grid.shape
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL, atol=ATOL)
