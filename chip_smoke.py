@@ -213,10 +213,48 @@ process per source) and then runs these phases, each printing JSON lines:
               over two 2048-point tasks; against the f64 plain path, with
               each stage's launches, walls and peak memory, and K1, the
               solves and K5 at this path's shapes.
+15. pathwise - (run after surface, before the samplers' workers start, like
+              bo and search) pathwise posterior sampling on the JAX
+              package's pathwise problem (benchmarks/pathwise_ski_tpu.py:68):
+              the slice's data at n = 4096 under rbf.scaled() at theta_simil
+              [1, 2] + uniform_noise at [0.1]; absorb, sample_paths (16 paths,
+              2048 features) and eval_paths at m = 4096 points,
+              thompson_path_scores there, 16 exact joint draws there
+              (serve_sample) for comparison, the mean of 2048 paths at 256
+              points against the posterior mean (a Monte Carlo bound);
+              sample_paths_laplace on the classify problem, paths of
+              icm(rbf.scaled(), 2) on the surface phase's two tasks and
+              sample_paths_svgp on the sparse phase's fitted SVGP state, each
+              with its mean check.  The f32 kernel path against the f64 plain
+              path on the card with the same draws; each stage's K1 and K5
+              launches; walls (median of 5) and peak memory of the paths
+              against the exact draws; the periodic kernel's spectral weights
+              in f32; K1 on the covariance and K5 on its factor's 32 tiles.
+16. bo       - Bayesian optimization at capacity 1024 on a 64 x 64 grid of
+              the Branin function (negated, scaled): bo_run with EI, UCB and
+              exact Thompson (16 + 1008 iterations), batch Thompson (32
+              points, 31 rounds of q = 32), thompson_path_optimize (8
+              restarts, 100 steps) on its final state; each in f32 on the
+              kernel path and in f64 on the plain path with the same draws.
+              Each streamed posterior against one f64 absorb of its points,
+              the first step's scores of each kind, each run's gap to the
+              grid's maximum and the step at which the f32 and f64 runs
+              part, ms per iteration, K5's launches (held to the code's
+              count) and K5 on the final factor's 8 tiles.
+17. search   - greedy kernel search on tests/test_search.py's trend plus
+              periodic data at n = 128: search at its defaults (BIC) in f32
+              on the K7 route (one (8, 128, 128) K7 batch an Adam step) and
+              in f64 on the plain route from the same draws (in a worker
+              process beside this one's searches): the winners, the
+              round-0 fits, the winner's LML at the same v on both routes
+              (its log-thetas reported); then with score "loo" on the K7
+              route; K7 launches equal to each candidate's Adam steps, walls
+              per candidate and per search, K7 on the winner's restart
+              batch.
 
 With ``--phases a,b,...`` (of kernels, k5, k7, gate, stamps, coldstart,
-slice, train, large, serve, classify, sparse, surface, bayes, samplers,
-evaluate; k7 is the
+slice, train, large, serve, classify, sparse, surface, pathwise, bo,
+search, bayes, samplers, evaluate; k7 is the
 bayes phase's kernel checks without its sampler runs, gate times K3 against
 K4 at n = 24576 to 65536, stamps records the stages of K2, K5 and K4's chain
 step and coldstart takes apart a process's first laplace_fit, the last three
@@ -226,7 +264,7 @@ run, after device and build, and the script ends with ``{"ok": false,
 
 With ``--profile``, one more phase follows:
 
-15. profile - one serving slice run, one train and one large value-and-gradient
+18. profile - one serving slice run, one train and one large value-and-gradient
               step, one 64-chain value and gradient of the bayes path and one
               127-prefix value and gradient of the evaluate path, on each
               path under torch.profiler: the device's busy time and idle
@@ -255,8 +293,10 @@ import unittest.mock
 import numpy as np
 import torch
 
-from gogp_torch import GP, make_gp_logp, masked_value_and_grad, matern32, mle, rbf, uniform_noise
-from gogp_torch.gp import core, ep, laplace, likelihoods, model_selection, serve, sparse, streaming, tprocess
+from gogp_torch import (GP, bo, make_gp_logp, masked_value_and_grad, matern32, mle, periodic, rbf, search,
+                        uniform_noise)
+from gogp_torch.gp import (core, ep, laplace, likelihoods, model_selection, pathwise, serve, sparse, streaming,
+                           tprocess)
 from gogp_torch.kernels import deep, multioutput
 from gogp_torch.models.params import gp_observe, gp_posterior
 from gogp_torch.infer import chees, diagnostics, elliptical, ghmc, hmc, nuts, pt_chees, tempering
@@ -986,6 +1026,14 @@ CLASSIFY_KERNELS = ("fused_cholesky_invs", "tril_inv_tile")
 # gradient) and K5 (the TP's Cholesky pullback and tp_predict's TRSM).
 SPARSE_KERNELS = ("fused_cholesky_invs", "tril_inv_tile")
 SURFACE_KERNELS = ("fused_cholesky_invs", *solve_keys(N), "tril_inv_tile")
+# The pathwise path's (gp.pathwise at n = 4096): K1 for every n = 4096
+# factor (and Kuu's at m = 1024), K5 in every cho_solve_mat and blocked
+# TRSM, at 32 tiles.  BO's (capacity 1024): K5 in every TRSM of the
+# streaming posterior, at 8 tiles.  The search's: K7, once per Adam step of
+# each candidate's (8, 128, 128) restart batch.
+PATHWISE_KERNELS = ("fused_cholesky_invs", "tril_inv_tile")
+BO_KERNELS = ("tril_inv_tile",)
+SEARCH_KERNELS = ("fused_gp_linv",)
 # The evaluate path's: K7, once per batched value-and-gradient of the
 # prefix fits, at 127 x 128 x 128 (barebones at EVAL_N) and 43 x 44 x 44
 # (hyperpriors).
@@ -997,6 +1045,7 @@ SAMPLER_PATHS = ("samplers_nuts", "samplers_hmc", "samplers_pt_chees", "samplers
 PATH_KERNELS = {"serve": SERVE_KERNELS, "train": TRAIN_KERNELS, "large": LARGE_KERNELS,
                 "serve_cache": SERVE_CACHE_KERNELS, "classify": CLASSIFY_KERNELS,
                 "sparse": SPARSE_KERNELS, "surface": SURFACE_KERNELS,
+                "pathwise": PATHWISE_KERNELS, "bo": BO_KERNELS, "search": SEARCH_KERNELS,
                 "bayes": BAYES_KERNELS,
                 "evaluate": EVALUATE_KERNELS, "evaluate_hyperpriors": EVALUATE_KERNELS,
                 **{path: ("fused_gp_linv",) for path in SAMPLER_PATHS},
@@ -3024,7 +3073,8 @@ def run_sparse(gp, x, y, z, t, v_fit=None) -> dict:
     out["anchor"] = stage("natgrad_anchor", natgrad_anchor, gp, x, y, z)
     for name, fit, iters in (("svgp_fit", sparse.svgp_fit, SVGP_ITERS),
                              ("svgp_fit_natgrad", sparse.svgp_fit_natgrad, NATGRAD_ITERS)):
-        out[name] = stage(name, fit, gp, x, y, M_SPARSE, iters=iters, batch=B_SPARSE, draws=fit_draws(x.device))[1]
+        out[f"{name}_params"], out[name] = stage(name, fit, gp, x, y, M_SPARSE, iters=iters, batch=B_SPARSE,
+                                                 draws=fit_draws(x.device))
     return out
 
 
@@ -3197,7 +3247,7 @@ def phase_sparse(dev) -> dict:
         raise AssertionError(f"sparse path disagrees with the f64 plain path: {failures}")
     if wrong:
         raise AssertionError(f"sparse launches {wrong}, expected {expect} and no other kernel")
-    return {"launches": total_launches(got["launches"]), "rows": rows}
+    return {"launches": total_launches(got["launches"]), "rows": rows, "svgp": got["svgp_fit_natgrad_params"]}
 
 
 # The model surface at the serving problem's n = 4096 (the slice's data):
@@ -3357,6 +3407,605 @@ def phase_surface(dev) -> dict:
     return {"launches": total_launches(got["launches"]), "rows": rows}
 
 
+# ---------------------------------------------------------------------------
+# Pathwise sampling, Bayesian optimization and kernel search (gp.pathwise,
+# bo, search)
+# ---------------------------------------------------------------------------
+
+# The pathwise path: the JAX package's own pathwise problem
+# (benchmarks/pathwise_ski_tpu.py:68-77, bench_pathwise): the slice's data
+# (n = 4096) under rbf.scaled() at theta_simil [1, 2] + uniform_noise at
+# [0.1]; S = 16 paths of F = 2048 features at m = 4096 points,
+# thompson_path_scores on the same grid and, for comparison, 16 exact joint
+# draws there (serve_sample from a compiled cache, the serve phase's
+# jitter); the mean of 2048 paths at every 16th point against the posterior
+# mean.  Also at n = 4096: sample_paths_laplace on the classify phase's
+# problem, paths of icm(rbf.scaled(), 2) on the surface phase's two
+# 2048-point tasks, and sample_paths_svgp on the sparse phase's fitted SVGP
+# state (m = 1024) at its 4096 test points.  Nothing cut.
+PATH_THETA_SIMIL, PATH_THETA_NOISE = (1.0, 2.0), (0.1,)
+PATH_M, PATH_S, PATH_F, PATH_MEAN_S, PATH_MEAN_STRIDE = 4096, 16, 2048, 2048, 16
+# Bounds of the pathwise path (f32 kernel path) against the f64 plain path
+# on the card with the same draws.  Set before its first run on the card (v
+# and every path 1e-2), then to about 10 times what an H100 showed
+# (PERF.md).
+PATHWISE_BOUNDS = {
+    "v_rtol": 2e-3,  # sample_paths' v, relative to its largest entry (1.7e-4 measured)
+    "paths_atol": 2.5e-3,  # eval_paths at the 4096 points (2.2e-4)
+    "thompson_atol": 1e-3,  # thompson_path_scores on the same grid (8.9e-5)
+    "laplace_atol": 2.5e-4,  # sample_paths_laplace's paths, each precision from its own Newton fit (2.2e-5)
+    "icm_atol": 2e-4,  # the ICM paths at both tasks' points (1.9e-5)
+    "svgp_atol": 1.5e-3,  # sample_paths_svgp's paths at the sparse phase's test points (1.5e-4)
+    # the mean of PATH_MEAN_S paths against the posterior mean: at most
+    # this many of its standard errors (the paths' spread over
+    # sqrt(PATH_MEAN_S)), plus mean_atol for the rounding of the mean and of
+    # mu; the largest of 256 standard normals exceeds 6 with probability 5e-7
+    "mean_se": 6.0,
+    "mean_atol": 1e-3,
+}
+PERIODIC_LENGTHSCALES = (0.5, 0.1, 0.05, 0.03)
+
+
+def seeded_draws(dev, seed: int) -> pathwise.GeneratorDraws:
+    """Draws from a generator on the card seeded ``seed``, made in f64 and
+    cast, so that the f32 and the f64 run of a stage share them."""
+    return pathwise.GeneratorDraws(torch.Generator(device=dev).manual_seed(seed))
+
+
+def pathwise_problem(dtype: torch.dtype, dev, svgp: sparse.SVGPParams) -> dict:
+    """Each pathwise problem's GP, data, hyperparameters and test points."""
+    def t(a):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
+
+    gp, x, y = problem(dtype, dev)[:3]
+    z = t(np.linspace(0, 100, PATH_M)[:, None])
+    gp_c, xc, yc, tsc, tl, _ = classify_problem(dtype, dev)
+    X, Y = surface_problem(dtype, dev)[5:]
+    gp_i, v_i = surface_models(dtype, dev)["icm"]
+    theta_i = torch.exp(v_i)
+    zh = z[::2]
+    gp_s = GP(ndim=1, simil=rbf.scaled(), noise=uniform_noise)
+    theta_s = torch.exp(svgp.log_theta.detach().to(dtype))
+    return {"exact": (gp, x, y, t(PATH_THETA_SIMIL), t(PATH_THETA_NOISE), z),
+            "laplace": (gp_c, xc, yc, tsc, tl, z),
+            "icm": (gp_i, theta_i[: gp_i.n_theta_simil], theta_i[gp_i.n_theta_simil :], X, Y,
+                    torch.cat([multioutput.task_inputs(zh, 0), multioutput.task_inputs(zh, 1)])),
+            "svgp": (gp_s, theta_s[: gp_s.n_theta_simil], sparse.SVGPState(*(f.detach().to(dtype) for f in svgp.state)),
+                     t(np.linspace(0, X_SPARSE, T_SPARSE)[:, None]))}
+
+
+def path_mean(fs: torch.Tensor, mu: torch.Tensor) -> tuple:
+    """(mean of the paths, its standard error, the posterior mean) at each
+    point."""
+    return fs.mean(0), fs.std(0) / fs.shape[0] ** 0.5, mu
+
+
+def run_pathwise(prob: dict, dev) -> dict:
+    """The pathwise path once through the front door, each stage timed and
+    its launches counted from 0; stage k draws from ``seeded_draws(dev, k)``."""
+    out, launches, walls = {}, {}, {}
+    out["launches"], out["walls_ms"] = launches, walls
+
+    def stage(name, fn, *a, **k):
+        cb.reset_launch_counts()
+        res = timed_call(walls, name, fn, *a, **k)
+        launches[name] = dict(cb.LAUNCHES)
+        return res
+
+    gp, x, y, ts, tn, z = prob["exact"]
+    zm = z[::PATH_MEAN_STRIDE]
+    post = stage("absorb", core.absorb, gp, ts, tn, x, y)
+    ps = stage("sample_paths", pathwise.sample_paths, gp, post, seeded_draws(dev, 0), PATH_S, PATH_F)
+    out["v"] = ps.v
+    out["paths"] = stage("eval_paths", pathwise.eval_paths, gp, ps, z)
+    state = bo.BOState(post, x.new_zeros(1), x.new_zeros(()))
+    out["thompson"] = stage("thompson_path_scores", bo.thompson_path_scores, gp, state, z, seeded_draws(dev, 1), PATH_F)
+    out["exact_draws"] = stage("serve_sample", lambda: serve.serve_sample(
+        gp, serve.fit_serving(gp, ts, tn, x, y), z, PATH_S, jitter=SAMPLE_JITTER,
+        generator=torch.Generator(device=dev).manual_seed(2)))
+    out["mean"] = stage("mean", lambda: path_mean(
+        pathwise.eval_paths(gp, pathwise.sample_paths(gp, post, seeded_draws(dev, 3), PATH_MEAN_S, PATH_F), zm),
+        core.predict_from_posterior(gp, post, zm)[0]))
+
+    gp_c, xc, yc, tsc, tl, _ = prob["laplace"]
+    post_c = stage("laplace_fit", laplace.laplace_fit, gp_c, likelihoods.bernoulli_logit, tsc, tl, xc, yc)
+    out["laplace_iters"] = int(post_c.iters)
+    out["laplace"] = stage("laplace_paths", lambda: pathwise.eval_paths(
+        gp_c, pathwise.sample_paths_laplace(gp_c, post_c, seeded_draws(dev, 4), PATH_S, PATH_F), z))
+    out["laplace_mean"] = stage("laplace_mean", lambda: path_mean(pathwise.eval_paths(
+        gp_c, pathwise.sample_paths_laplace(gp_c, post_c, seeded_draws(dev, 5), PATH_MEAN_S, PATH_F), zm),
+        laplace.laplace_predict(gp_c, post_c, zm)[0]))
+
+    gp_i, ts_i, tn_i, X, Y, zi = prob["icm"]
+    zim = zi[::PATH_MEAN_STRIDE]
+    post_i = stage("icm_absorb", core.absorb, gp_i, ts_i, tn_i, X, Y)
+    out["icm"] = stage("icm_paths", lambda: pathwise.eval_paths(
+        gp_i, pathwise.sample_paths(gp_i, post_i, seeded_draws(dev, 6), PATH_S, PATH_F), zi))
+    out["icm_mean"] = stage("icm_mean", lambda: path_mean(pathwise.eval_paths(
+        gp_i, pathwise.sample_paths(gp_i, post_i, seeded_draws(dev, 7), PATH_MEAN_S, PATH_F), zim),
+        core.predict_from_posterior(gp_i, post_i, zim)[0]))
+
+    gp_s, ts_s, state_s, t_s = prob["svgp"]
+    tm = t_s[::PATH_MEAN_STRIDE]
+    out["svgp"] = stage("svgp_paths", lambda: pathwise.eval_paths_sparse(
+        gp_s, pathwise.sample_paths_svgp(gp_s, ts_s, state_s, seeded_draws(dev, 8), PATH_S, PATH_F), t_s))
+    out["svgp_mean"] = stage("svgp_mean", lambda: path_mean(pathwise.eval_paths_sparse(
+        gp_s, pathwise.sample_paths_svgp(gp_s, ts_s, state_s, seeded_draws(dev, 9), PATH_MEAN_S, PATH_F), tm),
+        sparse.svgp_predict(gp_s, ts_s, state_s, tm)[0]))
+    return out
+
+
+def pathwise_expected(laplace_iters: int) -> dict:
+    """Each stage's launches in :func:`run_pathwise`: K1 in every n = 4096
+    absorb (fit_serving's too) and every Newton iteration and the mode
+    (laplace_fit), and for Kuu (m = 1024) in sample_paths_svgp and
+    svgp_predict; K5 twice in every cho_solve_mat (sample_paths and
+    sample_paths_laplace), once in every other blocked TRSM (the
+    predictions) and in fit_serving's tril_inv."""
+    k1, k5 = "fused_cholesky_invs", "tril_inv_tile"
+    return {"absorb": {k1: 1}, "sample_paths": {k5: 2}, "eval_paths": {}, "thompson_path_scores": {k5: 2},
+            "serve_sample": {k1: 1, k5: 1}, "mean": {k5: 3}, "laplace_fit": {k1: laplace_iters + 1},
+            "laplace_paths": {k5: 2}, "laplace_mean": {k5: 3}, "icm_absorb": {k1: 1}, "icm_paths": {k5: 2},
+            "icm_mean": {k5: 3}, "svgp_paths": {k1: 1}, "svgp_mean": {k1: 2, k5: 1}}
+
+
+def periodic_features(dev) -> dict:
+    """The periodic kernel's spectral weights (the 256-point trapezoid of
+    exp(-z) I_k(z), z = 1/l^2) and its features at PATH_F features, in f32
+    against f64 with the same draws, at each of PERIODIC_LENGTHSCALES."""
+    z = torch.linspace(0, 10, 512, dtype=torch.float64, device=dev)[:, None]
+    out = {}
+    for l in PERIODIC_LENGTHSCALES:
+        feats = {}
+        for dtype in (torch.float32, torch.float64):
+            theta = torch.tensor([l, 2.3], dtype=dtype, device=dev)
+            feat = pathwise.sample_features(periodic, theta, seeded_draws(dev, 10), PATH_F, 1)
+            feats[dtype] = (pathwise._bessel_ive(64, 1.0 / (theta[0] * theta[0])), feat,
+                            pathwise.eval_features(feat, z.to(dtype)))
+        (w32, f32, phi32), (w64, f64, phi64) = feats[torch.float32], feats[torch.float64]
+        out[f"l={l}"] = {"z": 1.0 / l**2, "bessel_abs_err": float((w32.double() - w64).abs().max()),
+                         "weight_sum_f64": float(w64[0] + 2 * w64[1:].sum()),
+                         "same_harmonics": bool(torch.equal(torch.round(f32.omega.double() * 2.3 / (2 * np.pi)),
+                                                            torch.round(f64.omega * 2.3 / (2 * np.pi)))),
+                         "features_abs_err": float((phi32.double() - phi64).abs().max())}
+    return out
+
+
+def phase_pathwise(dev, svgp: sparse.SVGPParams | None = None) -> dict:
+    """gp.pathwise at n = 4096: the f32 kernel path against the f64 plain
+    path on the card with the same draws, the Monte Carlo checks of the
+    paths' mean, each stage's K1 and K5 launches, the periodic weights in
+    f32, walls and peak memory against exact joint draws, and K1 and K5 at
+    this path's shapes.  ``svgp``: the sparse phase's fitted SVGP (a partial
+    run without it takes the sparse problem's optimal state at log-theta 0)."""
+    if svgp is None:
+        gp_s, xs, ys, zs, _ = sparse_problem(torch.float32, dev)
+        ones = torch.ones(3, device=dev)
+        svgp = sparse.SVGPParams(torch.zeros(3, device=dev),
+                                 sparse.svgp_optimal_state(gp_s, ones[:2], ones[2:], xs, ys, zs))
+    prob32 = pathwise_problem(torch.float32, dev, svgp)
+    prob64 = pathwise_problem(torch.float64, dev, svgp)
+    got = run_pathwise(prob32, dev)
+    torch.cuda.synchronize()
+    with linalg.force_plain():
+        ref = run_pathwise(prob64, dev)
+    torch.cuda.synchronize()
+
+    b = PATHWISE_BOUNDS
+
+    def abs_err(a, b_):
+        return float((a.double() - b_).abs().max())
+
+    errors = {"v_rel": abs_err(got["v"], ref["v"]) / float(ref["v"].abs().max()),
+              **{f"{name}_abs": abs_err(got[name], ref[name])
+                 for name in ("paths", "thompson", "laplace", "icm", "svgp")}}
+    checks = {"v_rel": "v_rtol", "paths_abs": "paths_atol", "thompson_abs": "thompson_atol",
+              "laplace_abs": "laplace_atol", "icm_abs": "icm_atol", "svgp_abs": "svgp_atol"}
+    failures = [k for k, name in checks.items() if not errors[k] <= b[name]]
+    means = {}
+    for name in ("mean", "laplace_mean", "icm_mean", "svgp_mean"):
+        for label, run in (("f32", got), ("f64", ref)):
+            mean, se, mu = (t.double() for t in run[name])
+            gap = (mean - mu).abs()
+            ratio = float((gap / (b["mean_se"] * se + b["mean_atol"])).max())
+            means[f"{name}_{label}"] = {"max_abs": float(gap.max()), "max_se": float(se.max()),
+                                        "max_over_bound": ratio}
+            if not ratio <= 1.0:
+                failures.append(f"{name}_{label}")
+    finite = {name: bool(torch.isfinite(got[name]).all()) for name in ("paths", "thompson", "laplace", "icm", "svgp")}
+    failures += [f"{name} not finite" for name, ok in finite.items() if not ok]
+    if got["paths"].shape != (PATH_S, PATH_M):
+        failures.append("eval_paths shape")
+
+    # walls (median of 5) on the kernel path and on the plain f32 path, and
+    # peak memory: the paths against 16 exact joint draws at the same points
+    gp, x, y, ts, tn, z = prob32["exact"]
+    post = core.absorb(gp, ts, tn, x, y)
+    ps = pathwise.sample_paths(gp, post, seeded_draws(dev, 0), PATH_S, PATH_F)
+    sp = serve.fit_serving(gp, ts, tn, x, y)
+    state = bo.BOState(post, x.new_zeros(1), x.new_zeros(()))
+    calls = {"absorb": lambda: core.absorb(gp, ts, tn, x, y),
+             "sample_paths": lambda: pathwise.sample_paths(gp, post, seeded_draws(dev, 0), PATH_S, PATH_F),
+             "eval_paths": lambda: pathwise.eval_paths(gp, ps, z),
+             "thompson_path_scores": lambda: bo.thompson_path_scores(gp, state, z, seeded_draws(dev, 1), PATH_F),
+             "fit_serving": lambda: serve.fit_serving(gp, ts, tn, x, y),
+             "serve_sample_exact": lambda: serve.serve_sample(gp, sp, z, PATH_S, jitter=SAMPLE_JITTER,
+                                                              generator=torch.Generator(device=dev).manual_seed(2))}
+    wall = {"kernels_f32": {name: wall_ms(fn) for name, fn in calls.items()}}
+    with linalg.force_plain():
+        wall["plain_f32"] = {name: wall_ms(calls[name]) for name in ("absorb", "sample_paths", "thompson_path_scores")}
+    peaks = {name: call_peak_gib(calls[name]) for name in ("sample_paths", "eval_paths", "serve_sample_exact")}
+    periodic = periodic_features(dev)
+
+    # K1 and K5 at this path's shapes: the covariance, its factor's 32 tiles
+    K = core.masked_cov(gp, ts, tn, x, None)
+    rows = kernel_rows("pathwise", K, diag_tiles(cb.blocked_cholesky_invs(K, BLOCK)[0]))
+
+    expect = pathwise_expected(got["laplace_iters"])
+    wrong = wrong_launches(got["launches"], expect)
+    emit({"phase": "pathwise", "n": N, "m": PATH_M, "paths": PATH_S, "features": PATH_F, "mean_paths": PATH_MEAN_S,
+          "theta_simil": PATH_THETA_SIMIL, "theta_noise": PATH_THETA_NOISE, "bounds": PATHWISE_BOUNDS,
+          "errors": errors, "means": means, "finite": finite,
+          "serve_sample_finite_f32": bool(torch.isfinite(got["exact_draws"]).all()),
+          "laplace_newton_iters": {"f32_kernels": got["laplace_iters"], "f64_plain": ref["laplace_iters"]},
+          "periodic_f32_vs_f64": periodic, "launches": got["launches"], "launches_expected": expect,
+          "walls_ms_main_run": got["walls_ms"], "walls_ms_f64_plain": ref["walls_ms"], "call_wall_ms": wall,
+          "peak_gib": peaks})
+    if failures:
+        raise AssertionError(f"pathwise path disagrees with the f64 plain path: {failures}")
+    if wrong:
+        raise AssertionError(f"pathwise launches {wrong}, expected {expect} and no other kernel")
+    return {"launches": total_launches(got["launches"]), "rows": rows}
+
+
+# The BO path (the JAX package has no BO benchmark, so this is the
+# problem): the Branin function, a standard BO test function, on its usual
+# domain [-5, 10] x [0, 15] mapped to the unit square, negated so that BO
+# maximises and divided by BRANIN_SCALE; a 64 x 64 grid of candidates;
+# rbf.scaled() at theta_simil [1.8, 0.27] (a maximum-likelihood fit to 256
+# grid points, rounded) + uniform_noise at theta 0.1 (a variance of 1e-2;
+# at 1e-4 the batch run's f32 factor went NaN on the card), fixed for every
+# run (the streaming contract); capacity 1024 (a multiple of the
+# 128 block, so that every trsm_lower takes K5 from the first iteration):
+# EI, UCB and exact Thompson from 16 random grid points for 1008 iterations,
+# batch Thompson from 32 points for 31 rounds of q = 32, then
+# thompson_path_optimize (8 restarts, 100 steps) on the batch run's final
+# state.  Each run in f32 on the kernel path and in f64 on the plain path
+# with the same draws.  Nothing cut.
+BRANIN_SCALE = 100.0
+BO_GRID, BO_CAPACITY, BO_INIT, BO_BATCH_INIT, BO_Q = 64, 1024, 16, 32, 32
+BO_ITERS, BO_ROUNDS = BO_CAPACITY - BO_INIT, (BO_CAPACITY - BO_BATCH_INIT) // BO_Q
+BO_KINDS = ("ei", "ucb", "thompson")
+BO_THETA_SIMIL, BO_THETA_NOISE = (1.8, 0.27), (0.1,)
+BO_OPT_RESTARTS, BO_OPT_STEPS = 8, 100
+# Bounds of the BO path.  Set before its first run on the card (the
+# posteriors and first scores 1e-3, the optimizer's grid gap 1e-3), then to
+# about 10 times what an H100 showed at the noise variance 1e-2 (PERF.md).
+BO_BOUNDS = {
+    # each run's streamed posterior at the grid against one f64 absorb of
+    # its points (EI 2.9e-5 / 1.3e-4; exact Thompson's 1008 appends of one
+    # point 4.4e-6 / 4.5e-4, as one f32 absorb of them: 3.9e-6 / 4.1e-4)
+    "post_mu_atol": 5e-4,
+    "post_sigma_atol": 5e-3,
+    "first_scores_atol": 1e-4,  # the first step's scores, f32 against f64 with the same draws (UCB 1.1e-5)
+    # thompson_path_optimize's value may lie at most this below the same
+    # path's maximum over the grid (5.0e-5 below it)
+    "opt_grid_atol": 5e-4,
+}
+
+
+def branin_objective(u: torch.Tensor) -> torch.Tensor:
+    """-branin(x) / BRANIN_SCALE at u in the unit square (x1 = 15 u0 - 5,
+    x2 = 15 u1), over the last axis."""
+    x1, x2 = 15.0 * u[..., 0] - 5.0, 15.0 * u[..., 1]
+    b, c, t = 5.1 / (4 * np.pi**2), 5.0 / np.pi, 1.0 / (8 * np.pi)
+    return -((x2 - b * x1 * x1 + c * x1 - 6.0) ** 2 + 10.0 * (1 - t) * torch.cos(x1) + 10.0) / BRANIN_SCALE
+
+
+def bo_problem(dtype: torch.dtype, dev):
+    """(gp, grid, theta_simil, theta_noise) of the BO path."""
+    g = torch.linspace(0.0, 1.0, BO_GRID, dtype=torch.float64)
+    grid = torch.stack(torch.meshgrid(g, g, indexing="ij"), -1).reshape(-1, 2)
+    return (GP(ndim=2, simil=rbf.scaled(), noise=uniform_noise), grid.to(dev, dtype),
+            torch.tensor(BO_THETA_SIMIL, dtype=dtype, device=dev),
+            torch.tensor(BO_THETA_NOISE, dtype=dtype, device=dev))
+
+
+def batch_bo(gp, grid, ts, tn, draws) -> bo.BOState:
+    """Batch Thompson: BO_BATCH_INIT random grid points, then BO_ROUNDS
+    rounds of acquire_batch_thompson (q = BO_Q) and bo_update."""
+    state = bo.bo_init(gp, ts, tn, BO_CAPACITY, grid.dtype, grid.device)
+    x0 = grid[draws.choice(grid.shape[0], BO_BATCH_INIT, grid)]
+    state = bo.bo_update(gp, state, x0, branin_objective(x0))
+    for _ in range(BO_ROUNDS):
+        idx, _ = bo.acquire_batch_thompson(gp, state, grid, draws, BO_Q)
+        state = bo.bo_update(gp, state, grid[idx], branin_objective(grid[idx]))
+    return state
+
+
+def run_bo(gp, grid, ts, tn, dev) -> dict:
+    """The BO path once, each run timed and its launches counted from 0;
+    run k draws from ``seeded_draws(dev, 20 + k)``."""
+    out, launches, walls = {}, {}, {}
+    out["launches"], out["walls_ms"] = launches, walls
+
+    def stage(name, fn, *a, **k):
+        cb.reset_launch_counts()
+        res = timed_call(walls, name, fn, *a, **k)
+        launches[name] = dict(cb.LAUNCHES)
+        return res
+
+    for k, kind in enumerate(BO_KINDS):
+        out[kind] = stage(kind, bo.bo_run, gp, ts, tn, branin_objective, grid, BO_ITERS, seeded_draws(dev, 20 + k),
+                          kind=kind, n_init=BO_INIT)[0]
+    out["batch"] = stage("batch", batch_bo, gp, grid, ts, tn, seeded_draws(dev, 23))
+    box = (grid.new_zeros(2), grid.new_ones(2))
+    out["optimize"] = stage("optimize", bo.thompson_path_optimize, gp, out["batch"], seeded_draws(dev, 24), box,
+                            BO_OPT_RESTARTS, BO_OPT_STEPS)
+    return out
+
+
+def bo_expected() -> dict:
+    """Each run's K5 launches in :func:`run_bo` (no other kernel): the first
+    update's TRSM, then each iteration's predict and append, and exact
+    Thompson's TRSM of the cross-covariance; each batch round's
+    cho_solve_mat (two) and append; the optimizer's cho_solve_mat."""
+    k5 = "tril_inv_tile"
+    return {"ei": {k5: 1 + 2 * BO_ITERS}, "ucb": {k5: 1 + 2 * BO_ITERS}, "thompson": {k5: 1 + 3 * BO_ITERS},
+            "batch": {k5: 1 + 3 * BO_ROUNDS}, "optimize": {k5: 2}}
+
+
+def bo_first_scores(gp, grid, ts, tn, dev) -> dict:
+    """Every kind's scores at the first step: the state after BO_INIT random
+    grid points (seed 30), each kind's draws from seed 31."""
+    x0 = grid[seeded_draws(dev, 30).choice(grid.shape[0], BO_INIT, grid)]
+    state = bo.bo_update(gp, bo.bo_init(gp, ts, tn, BO_CAPACITY, grid.dtype, grid.device), x0, branin_objective(x0))
+    return {kind: bo.acquire(gp, state, grid, kind, seeded_draws(dev, 31))[1]
+            for kind in (*BO_KINDS, "thompson-path")}
+
+
+def phase_bo(dev) -> dict:
+    """bo at capacity 1024 on the Branin grid: every run in f32 on the
+    kernel path and in f64 on the plain path with the same draws, each
+    streamed posterior against one f64 absorb, the first step's scores,
+    each run's gap to the grid's maximum and first parting step, ms per
+    iteration, K5's launches, and K5 at this path's 8 tiles."""
+    gp, grid, ts, tn = bo_problem(torch.float32, dev)
+    gp64, grid64, ts64, tn64 = bo_problem(torch.float64, dev)
+    got = run_bo(gp, grid, ts, tn, dev)
+    torch.cuda.synchronize()
+    with linalg.force_plain():
+        ref = run_bo(gp64, grid64, ts64, tn64, dev)
+        first64 = bo_first_scores(gp64, grid64, ts64, tn64, dev)
+    first = bo_first_scores(gp, grid, ts, tn, dev)
+    torch.cuda.synchronize()
+
+    b = BO_BOUNDS
+    grid_max = float(branin_objective(grid64).max())
+    errors, runs, failures = {}, {}, []
+    for name in (*BO_KINDS, "batch"):
+        st, st64 = got[name], ref[name]
+        mu, sd = core.predict_from_posterior(gp, st.post, grid)
+        with linalg.force_plain():
+            one = core.absorb(gp64, ts64, tn64, st.post.x.double(), st.post.y.double())
+            mu64, sd64 = core.predict_from_posterior(gp64, one, grid64)
+        errors[f"{name}_post_mu"] = float((mu.double() - mu64).abs().max())
+        errors[f"{name}_post_sigma"] = float((sd.double() - sd64).abs().max())
+        # reported beside them: one f32 absorb of the same points (K1)
+        mu1, sd1 = core.predict_from_posterior(gp, core.absorb(gp, ts, tn, st.post.x, st.post.y), grid)
+        errors[f"{name}_one_absorb_f32_mu"] = float((mu1.double() - mu64).abs().max())
+        errors[f"{name}_one_absorb_f32_sigma"] = float((sd1.double() - sd64).abs().max())
+        failures += [k for k in (f"{name}_post_mu", f"{name}_post_sigma")
+                     if not errors[k] <= b[f"post_{k.rsplit('_', 1)[1]}_atol"]]
+        parted = (st.post.x != st64.post.x.float()).any(-1).nonzero()
+        steps = BO_ITERS if name in BO_KINDS else BO_ROUNDS
+        runs[name] = {"best_y_f32": float(st.best_y), "best_y_f64": float(st64.best_y),
+                      "gap_to_grid_max_f32": grid_max - float(st.best_y),
+                      "gap_to_grid_max_f64": grid_max - float(st64.best_y),
+                      "best_x_f32": st.best_x.tolist(),
+                      "first_parting_row": int(parted[0, 0]) if len(parted) else None,
+                      "ms_per_iteration_f32": got["walls_ms"][name] / steps,
+                      "ms_per_iteration_f64_plain": ref["walls_ms"][name] / steps,
+                      "k5_per_iteration": (got["launches"][name]["tril_inv_tile"] - 1) / steps}
+    for kind, scores in first.items():
+        finite = torch.isfinite(scores)
+        errors[f"first_{kind}_abs"] = float((scores.double() - first64[kind]).abs().max()) if finite.all() else None
+        errors[f"first_{kind}_nan_f32"] = int((~finite).sum())
+        # exact Thompson's f32 draw is NaN where the 4096 x 4096 grid
+        # covariance does not factor in f32 (all of it, as in the JAX twin)
+        ok = (errors[f"first_{kind}_abs"] is not None and errors[f"first_{kind}_abs"] <= b["first_scores_atol"]
+              or kind == "thompson" and not finite.any())
+        if not (ok and torch.isfinite(first64[kind]).all()):
+            failures.append(f"first_{kind}")
+    (x_opt, v_opt), (x64, v64) = got["optimize"], ref["optimize"]
+    ps = pathwise.sample_paths(gp, got["batch"].post, seeded_draws(dev, 24), 1, 512)  # the optimizer's path
+    path_grid_max = float(pathwise.eval_paths(gp, ps, grid).max())
+    # the f64 run is reported, not held: its restarts may climb other local
+    # maxima of the path
+    optimize = {"x_f32": x_opt.tolist(), "value_f32": float(v_opt), "x_f64": x64.tolist(), "value_f64": float(v64),
+                "path_grid_max_f32": path_grid_max}
+    if not float(v_opt) >= path_grid_max - b["opt_grid_atol"]:
+        failures.append("optimize below the path's grid maximum")
+
+    # K5 at this path's shapes: the 8 tiles of the EI run's final factor
+    tiles = diag_tiles(got["ei"].post.chol)
+    eye = torch.eye(BLOCK, device=dev)
+    rows = {("bo", "tril_inv_tile"): check_kernel(
+        "bo", "tril_inv_tile", lambda: cb.tril_inv_tile(tiles), lambda: cb.tril_inv_tile_plain(tiles), tiles.shape,
+        20, lambda: torch.linalg.solve_triangular(tiles, eye, upper=False))}
+
+    expect = bo_expected()
+    wrong = wrong_launches(got["launches"], expect)
+    emit({"phase": "bo", "capacity": BO_CAPACITY, "grid": BO_GRID * BO_GRID, "iterations": BO_ITERS,
+          "batch_rounds": BO_ROUNDS, "q": BO_Q, "theta_simil": BO_THETA_SIMIL, "theta_noise": BO_THETA_NOISE,
+          "branin_scale": BRANIN_SCALE, "grid_max": grid_max, "bounds": BO_BOUNDS, "errors": errors, "runs": runs,
+          "optimize": optimize, "launches": got["launches"], "launches_expected": expect,
+          "walls_ms_main_run": got["walls_ms"], "walls_ms_f64_plain": ref["walls_ms"]})
+    if failures:
+        raise AssertionError(f"BO path disagrees with the f64 plain path: {failures}")
+    if wrong:
+        raise AssertionError(f"bo launches {wrong}, expected {expect} and no other kernel")
+    return {"launches": total_launches(got["launches"]), "rows": rows}
+
+
+# The search path: tests/test_search.py:12-16's trend-plus-periodic
+# generator at n = 128 (numpy seed 0), search at its defaults (bases rbf,
+# matern32, periodic and linear; max_depth 3; 8 restarts; Adam 400 at rate
+# 0.05; BIC) in f32 on the K7 route and in f64 on the plain route from the
+# same draws, then once more with score "loo" on the K7 route alone (its
+# f64 run, 43 s on an H100, cut for the script's time).  Every candidate's
+# restarts are one (8, 128, 128) K7 batch an Adam step (K7's widest n).
+SEARCH_N, SEARCH_SCORES = 128, ("bic", "loo")
+SEARCH_BASES = ("rbf", "matern32", "periodic", "linear")  # search's defaults
+# Bounds of the search path: set before its first run on the card (the
+# winner's LML at the same v 1e-4, its log-thetas 0.1), then to about 10
+# times what an H100 showed (PERF.md).  The winner's K (noise variance 4e-3
+# under a signal variance near 180) is ill-conditioned: at its optimum both
+# f32 routes' L^-1 part from f64 by 5e-2 of the largest entry, and its LML
+# by 1.1.  Its log-thetas are reported, not held: Adam's 400 steps end
+# 0.4 apart on the two routes along the LML's flat directions (a long rbf
+# lengthscale trades against its scale), so the round-0 fits, each base
+# alone and well conditioned, are held instead.
+SEARCH_BOUNDS = {
+    "lml_rtol": 8e-2,  # the f32 winner's LML on the K7 route against the f64 route's at the same v (7.6e-3)
+    "round0_lml_rtol": 2.5e-4,  # each base's fitted LML, f32 K7 route against f64 plain (2.3e-5)
+    "k7_rtol": BAYES_BOUNDS["k7_rtol"],  # K7 against its plain version on the winner's starting batch (1.5e-6)
+}
+
+
+def search_problem(dtype: torch.dtype, dev):
+    rng = np.random.default_rng(0)
+    x = np.sort(rng.uniform(0.0, 8.0, size=(SEARCH_N, 1)), axis=0)
+    y = 0.6 * x[:, 0] + 1.5 * np.sin(2.0 * np.pi * x[:, 0] / 1.7) + 0.1 * rng.normal(size=SEARCH_N)
+    return torch.as_tensor(x, dtype=dtype, device=dev), torch.as_tensor(y, dtype=dtype, device=dev)
+
+
+def run_search(x, y, score: str) -> dict:
+    """One search, with each candidate's fit wrapped to record its Adam
+    steps, its K7 launches and its wall."""
+    fits, steps = [], []
+    fit, adam = search._fit_candidate, mle.adam_batched
+
+    def counted_adam(vg, V0, **kw):
+        res = adam(vg, V0, **kw)
+        steps.append(int(res.iters.max()))
+        return res
+
+    def counted_fit(kernel, *a):
+        k7 = cb.LAUNCHES["fused_gp_linv"]
+        walls = {}
+        v, lml, gp = timed_call(walls, "fit", fit, kernel, *a)
+        fits.append({"kernel": kernel.name, "lml": lml, "adam_steps": steps[-1],
+                     "k7_launches": cb.LAUNCHES["fused_gp_linv"] - k7, "ms": walls["fit"]})
+        return v, lml, gp
+
+    walls = {}
+    with unittest.mock.patch.object(search, "_fit_candidate", counted_fit), \
+            unittest.mock.patch.object(mle, "adam_batched", counted_adam):
+        res = timed_call(walls, "search", search.search, x, y, bases=SEARCH_BASES, score=score,
+                         key=torch.Generator(device=x.device).manual_seed(0))
+    return {"result": res, "fits": fits, "ms": walls["search"]}
+
+
+def search_reference(device: str, score: str) -> dict:
+    """The f64 plain route's search, in a worker process (spawned beside
+    this process's f32 searches): its winner and fits as plain data."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    x64, y64 = search_problem(torch.float64, torch.device(device))
+    with linalg.force_plain():
+        ref = run_search(x64, y64, score)
+    res = ref["result"]
+    return {"name": res.name, "lml": res.lml, "score": res.score, "v_opt": res.v_opt.tolist(),
+            "history": [c.name for c in res.history], "y_mean": res.y_mean, "y_std": res.y_std,
+            "fits": ref["fits"], "ms": ref["ms"]}
+
+
+def phase_search(dev) -> dict:
+    """search at n = 128: the f32 K7 route against the f64 plain route (its
+    BIC search in a worker process beside this one's; winners, the round-0
+    fits, the winner's LML at the same v; its log-thetas reported), K7
+    launches equal to each candidate's Adam steps, walls per candidate and
+    per search, and K7 on the winner's (8, 128, 128) restart batch."""
+    x, y = search_problem(torch.float32, dev)
+    x64, y64 = search_problem(torch.float64, dev)
+    b = SEARCH_BOUNDS
+    report, failures, launches, runs = {}, [], 0, {}
+    with multiprocessing.get_context("spawn").Pool(1) as pool:
+        pending = pool.apply_async(search_reference, (str(dev), SEARCH_SCORES[0]))
+        for score in SEARCH_SCORES:
+            runs[score] = got = run_search(x, y, score)
+            res = got["result"]
+            wrong_k7 = [f for f in got["fits"] if f["k7_launches"] != f["adam_steps"]]
+            failures += [f"{score}: {k}" for k, ok in (
+                ("no periodic in the winner", "periodic" in res.name),
+                (f"K7 launches differ from Adam steps: {wrong_k7}", not wrong_k7)) if not ok]
+            launches += sum(f["k7_launches"] for f in got["fits"])
+            steps = sum(f["adam_steps"] for f in got["fits"])
+            report[score] = {"winner_f32": res.name, "lml_f32": res.lml, "score_f32": res.score,
+                             "v_f32": res.v_opt.tolist(), "history_f32": [c.name for c in res.history],
+                             "candidates": len(got["fits"]), "ms_f32": got["ms"],
+                             "ms_per_candidate_f32": got["ms"] / len(got["fits"]),
+                             "ms_per_adam_step_f32": sum(f["ms"] for f in got["fits"]) / steps,
+                             "fits_f32": got["fits"]}
+        ref = pending.get()
+
+    score = SEARCH_SCORES[0]
+    got = runs[score]
+    winner = res = got["result"]
+    v64 = torch.tensor(ref["v_opt"], dtype=torch.float64, device=dev)
+    # the winner's LML at its v on the K7 route, the plain f32 route and the
+    # f64 route (Adam's reported value is the LML before its last step)
+    gp = GP(ndim=1, simil=res.kernel, noise=uniform_noise)
+    y_norm = (y - res.y_mean) / res.y_std
+    lml32 = float(search.batched_value_and_grad(gp, x, y_norm)(res.v_opt[None])[0][0])
+    with linalg.force_plain():
+        lml32_plain = float(search.batched_value_and_grad(gp, x, y_norm)(res.v_opt[None])[0][0])
+        lml64 = float(gp_observe(gp, res.v_opt.double(), x=x64, y=(y64 - ref["y_mean"]) / ref["y_std"]))
+    bases = len(SEARCH_BASES)
+    round0 = max(abs(f["lml"] - r["lml"]) / abs(r["lml"]) for f, r in zip(got["fits"][:bases], ref["fits"][:bases]))
+    same = res.name == ref["name"]
+    errors = {"lml_rel": abs(lml32 - lml64) / abs(lml64), "lml_rel_plain_f32": abs(lml32_plain - lml64) / abs(lml64),
+              "round0_lml_rel": round0, "v_abs": float((res.v_opt.double() - v64).abs().max()) if same else None}
+    failures += [f"{score}: {k}" for k, ok in (
+        ("winner differs from the f64 route's", same),
+        ("lml_rel", errors["lml_rel"] <= b["lml_rtol"]), ("round0_lml_rel", round0 <= b["round0_lml_rtol"]),
+        ("f64 route launched K7", not any(f["k7_launches"] for f in ref["fits"]))) if not ok]
+    report[score].update({"winner_f64": ref["name"], "lml_f64": ref["lml"], "score_f64": ref["score"],
+                          "lml_at_v_f32_k7": lml32, "lml_at_v_f32_plain": lml32_plain, "lml_at_v_f64_plain": lml64,
+                          "v_f64": ref["v_opt"], "history_f64": ref["history"], "errors": errors,
+                          "ms_f64_plain": ref["ms"], "ms_per_candidate_f64_plain": ref["ms"] / len(ref["fits"]),
+                          "fits_f64_plain": ref["fits"]})
+
+    # K7 at this path's shape: the BIC winner's restart batch at a search's
+    # first starting points (0.7 N(0, 1) on log scale, a generator seeded
+    # 0), against its plain version; and, reported, both against f64 at 8
+    # points around the winner's optimum (0.1 N(0, 1)), where the noise the
+    # fit found leaves K ill-conditioned
+    gp = GP(ndim=1, simil=winner.kernel, noise=uniform_noise)
+    nts, p = gp.n_theta_simil, gp.n_theta
+
+    def covs(V):
+        return torch.func.vmap(lambda v: core.masked_cov(gp, torch.exp(v[:nts]), torch.exp(v[nts:]), x, None))(
+            V).contiguous()
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    K = covs(0.7 * torch.randn((8, p), generator=gen, dtype=torch.float64, device=dev).float())
+    K_opt = covs(winner.v_opt + 0.1 * torch.randn((8, p), generator=gen, dtype=torch.float64, device=dev).float())
+    want = fused_gp.linv_plain(K_opt.double())
+    near_optimum = {name: float((fn(K_opt).double() - want).abs().max() / want.abs().max())
+                    for name, fn in (("k7", fused_gp.fused_gp_linv), ("plain_f32", fused_gp.linv_plain))}
+    emit({"phase": "search", "n": SEARCH_N, "bounds": b, "runs": report,
+          "linv_rel_err_vs_f64_near_optimum": near_optimum})
+    eye = torch.eye(SEARCH_N, device=dev)
+    rows = {("search", "fused_gp_linv"): check_kernel(
+        "search", "fused_gp_linv", lambda: fused_gp.fused_gp_linv(K), lambda: fused_gp.linv_plain(K), K.shape, 50,
+        lambda: torch.linalg.solve_triangular(torch.linalg.cholesky(K), eye, upper=False), rtol=b["k7_rtol"])}
+    if failures:
+        raise AssertionError(f"search path disagrees with the f64 plain route: {failures}")
+    return {"launches": {**{k: 0 for k in cb.LAUNCHES}, "fused_gp_linv": launches}, "rows": rows}
+
+
 def coldstart_child(parts: bool) -> None:
     """The first ``laplace_fit`` of the classify problem in this (fresh)
     process, after the card's context and K1's first launch, which every
@@ -3419,7 +4068,8 @@ def _partial_slice(dev) -> None:
 # (in no whole run) the first laplace_fit of a process taken apart.
 PARTIAL_PHASES = {"kernels": phase_kernels, "k5": phase_k5, "k7": phase_k7, "gate": phase_gate,
                   "slice": _partial_slice, "serve": phase_serve_cache, "classify": phase_classify,
-                  "sparse": phase_sparse, "surface": phase_surface,
+                  "sparse": phase_sparse, "surface": phase_surface, "pathwise": phase_pathwise, "bo": phase_bo,
+                  "search": phase_search,
                   "train": phase_train, "large": phase_large, "bayes": phase_bayes, "samplers": phase_samplers,
                   "evaluate": lambda dev: check_k7(phase_evaluate(dev)["k7_cases"]),
                   "stamps": phase_stamps, "coldstart": phase_coldstart}
@@ -3473,7 +4123,10 @@ def main() -> int:
     classify_out = measured("classify", phase_classify, dev)
     sparse_out = measured("sparse", phase_sparse, dev)
     surface_out = measured("surface", phase_surface, dev)
-    for out in (serve_cache, classify_out, sparse_out, surface_out):
+    pathwise_out = measured("pathwise", phase_pathwise, dev, sparse_out["svgp"])
+    bo_out = measured("bo", phase_bo, dev)
+    search_out = measured("search", phase_search, dev)
+    for out in (serve_cache, classify_out, sparse_out, surface_out, pathwise_out, bo_out, search_out):
         kernels.update(out["rows"])
     bayes_rows = measured("k7", phase_k7, dev)
     # NUTS and HMC on hyperpriors, the longest runs, in worker processes from
@@ -3498,6 +4151,7 @@ def main() -> int:
     launches = {"serve": serve_launches, "train": train["launches"], "large": large["launches"],
                 "serve_cache": serve_cache["launches"], "classify": classify_out["launches"],
                 "sparse": sparse_out["launches"], "surface": surface_out["launches"],
+                "pathwise": pathwise_out["launches"], "bo": bo_out["launches"], "search": search_out["launches"],
                 "bayes": bayes_out["launches"], "evaluate": evaluate_out["launches"],
                 "evaluate_hyperpriors": evaluate_out["hyperpriors_launches"], **samplers_out["launches"],
                 "kernels": kernels_launches}

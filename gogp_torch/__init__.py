@@ -10,7 +10,12 @@ twin, against which the tests hold it.
   (``model_selection``), non-Gaussian likelihoods (``likelihoods``)
   with the Laplace (``laplace``) and EP (``ep``) approximations, sparse
   GPs (``sparse``: SGPR, SVGP, natural gradients) and the Student-t
-  process (``tprocess``).
+  process (``tprocess``), pathwise posterior sampling (``pathwise``:
+  random-feature priors conditioned by Matheron's rule).
+- ``gogp_torch.bo``      - Bayesian optimization on the streaming posterior
+  (EI, UCB, exact and pathwise Thompson, batch Thompson).
+- ``gogp_torch.search``  - greedy compositional kernel-structure search, each
+  candidate's restarts one batched fit (K7 on the card).
 - ``gogp_torch.models``  - the flat parameter-vector protocol, log-density
   composition and gradient masks.
 - ``gogp_torch.dists``   - prior log-densities.

@@ -9,9 +9,10 @@ of a ``gogp_tpu.infer.ghmc.GHMCState``, of a
 ``gogp_tpu.infer.tempering.PTFlow``, of the serving caches
 (``gogp_tpu.gp.serve.ServingPosterior`` and ``ServingMixture``), of the
 non-Gaussian posteriors (``gogp_tpu.gp.laplace.LaplacePosterior``,
-``gogp_tpu.gp.ep.EPPosterior``), of ``gogp_tpu.infer.elliptical.ESSResult``
-and of the sparse GPs (``gogp_tpu.gp.sparse.SGPRPosterior``, ``SVGPState``,
-``SVGPParams``).
+``gogp_tpu.gp.ep.EPPosterior``), of ``gogp_tpu.infer.elliptical.ESSResult``,
+of the sparse GPs (``gogp_tpu.gp.sparse.SGPRPosterior``, ``SVGPState``,
+``SVGPParams``), of the pathwise samples (``gogp_tpu.gp.pathwise.PathFeatures``,
+``PathState``, ``SparsePathState``) and of ``gogp_tpu.bo.BOState``.
 The caller turns them into numpy arrays (``np.asarray``) and these functions
 put them on the device the caller names.  This module does not import JAX.
 """
@@ -23,9 +24,11 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
+from gogp_torch.bo import BOState
 from gogp_torch.gp.core import Posterior
 from gogp_torch.gp.ep import EPPosterior
 from gogp_torch.gp.laplace import LaplacePosterior
+from gogp_torch.gp.pathwise import PathFeatures, PathState, SparsePathState
 from gogp_torch.gp.serve import ServingMixture, ServingPosterior
 from gogp_torch.gp.sparse import SGPRPosterior, SVGPParams, SVGPState
 from gogp_torch.infer.elliptical import ESSResult
@@ -113,6 +116,39 @@ def svgp_params_from_numpy(params: Mapping[str, Any] | Any, device,
     ``state``."""
     f = _fields(params)
     return SVGPParams(array_from_numpy(f["log_theta"], device, dtype), svgp_state_from_numpy(f["state"], device, dtype))
+
+
+def path_features_from_numpy(feat: Mapping[str, Any] | Any, device,
+                             dtype: torch.dtype | None = None) -> PathFeatures:
+    """A :class:`PathFeatures` from the JAX one: ``omega``, ``phase``, ``a``
+    and ``task_load`` (None where the kernel is single-output)."""
+    f = _fields(feat)
+    load = f.get("task_load")
+    return PathFeatures(*(array_from_numpy(f[name], device, dtype) for name in ("omega", "phase", "a")),
+                        None if load is None else array_from_numpy(load, device, dtype))
+
+
+def path_state_from_numpy(ps: Mapping[str, Any] | Any, device, dtype: torch.dtype | None = None) -> PathState:
+    """A :class:`PathState` from the JAX one, its ``feat`` nested."""
+    f = _fields(ps)
+    return PathState(path_features_from_numpy(f["feat"], device, dtype),
+                     *(array_from_numpy(f[name], device, dtype) for name in PathState._fields[1:]))
+
+
+def sparse_path_state_from_numpy(ps: Mapping[str, Any] | Any, device,
+                                 dtype: torch.dtype | None = None) -> SparsePathState:
+    """A :class:`SparsePathState` from the JAX one, its ``feat`` nested."""
+    f = _fields(ps)
+    return SparsePathState(path_features_from_numpy(f["feat"], device, dtype),
+                           *(array_from_numpy(f[name], device, dtype) for name in SparsePathState._fields[1:]))
+
+
+def bo_state_from_numpy(state: Mapping[str, Any] | Any, device, dtype: torch.dtype | None = None) -> BOState:
+    """A :class:`BOState` from the JAX one: its streaming ``post`` (a
+    :class:`Posterior`), ``best_x`` and ``best_y``."""
+    f = _fields(state)
+    return BOState(posterior_from_numpy(f["post"], device, dtype), array_from_numpy(f["best_x"], device, dtype),
+                   array_from_numpy(f["best_y"], device, dtype))
 
 
 def likelihood_theta_from_numpy(theta, device, dtype: torch.dtype | None = None) -> torch.Tensor:

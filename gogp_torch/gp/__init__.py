@@ -19,6 +19,19 @@ from gogp_torch.gp.model_selection import (  # noqa: F401
     loo_from_posterior,
     loo_score,
 )
+from gogp_torch.gp.pathwise import (  # noqa: F401
+    PathFeatures,
+    PathState,
+    SparsePathState,
+    eval_paths,
+    eval_paths_sparse,
+    eval_prior_paths,
+    prior_paths,
+    sample_features,
+    sample_paths,
+    sample_paths_laplace,
+    sample_paths_svgp,
+)
 from gogp_torch.gp.serve import (  # noqa: F401
     ServingMixture,
     ServingPosterior,

@@ -212,9 +212,9 @@ def _zoom_linesearch(objective, x, d, f, g, searching):
     on the whole batch, at most ``_MAX_LINE_SEARCH``.  A row that fails
     takes its safe point, the lowest trial of sufficient decrease, at
     optax's step length (optax's ``_try_safe_step``), where that point is
-    no higher than f.  Only where there is no such point does the port part
-    from optax: the row takes no step, where optax would step to its last
-    trial, even one above f or not finite.  Returns each row's step length
+    no higher than f.  Only where there is no such point does the port
+    part from optax: the row takes no step, where optax would step to its
+    last trial, even one above f or not finite.  Returns each row's step length
     and the value and gradient there (0, f and g where the search failed
     without a safe point)."""
     slope0 = (g * d).sum(-1)
