@@ -252,9 +252,61 @@ process per source) and then runs these phases, each printing JSON lines:
               per candidate and per search, K7 on the winner's restart
               batch.
 
+18. iterative - (run after search, before the samplers' workers start, like
+              toeplitz, ski and large_n_bayes) the iterative engine on the
+              large path's problem at n = 16384: lml_iterative's value and
+              gradient at the JAX defaults (16 probes, CG 100, Lanczos 32) at
+              precond_rank 0 and 32, in f32 against f64 on the same probes
+              and against the exact lml (f64 plain); lml_iterative_matfree
+              (panel 2048) against lml_iterative on the same probes;
+              predict_iterative at m = 1024 against the exact predict;
+              walls against the exact path's value and gradient (K2, the
+              gate's solves and K5, held to the code's count), each CG
+              solve's iterations and final relative residual, the
+              preconditioner's pivots in f32 and f64; then one value and
+              gradient of lml_iterative_matfree at n = 65536 (panel 2048,
+              precond_rank 32) on the ski phase's problem, its wall and
+              peak memory (held under 6 GiB), beside lml_ski's value.
+19. toeplitz - lml_toeplitz at n = 16384 on a regular grid over [0, 400]
+              (y = sin(x/3) + 0.1 N(0, 1)) at ranks 0 and 32, f32 against
+              f64, against lml_iterative on the same probes and against the
+              exact lml; predict_toeplitz against the exact predict; then
+              one value and gradient at n = 2^20
+              (benchmarks/toeplitz_tpu.py's top size): walls, CG iterations,
+              peak memory.
+20. ski      - SKI on bench_ski's problem (benchmarks/pathwise_ski_tpu.py:
+              120-168): n = 65536 sorted uniform inputs on [0, 1000], y =
+              sin(x/20) + 0.1 N(0, 1), rbf.scaled() at [1, 8] +
+              uniform_noise at [0.1], grid 4096, 8 probes, CG 60, Lanczos
+              24: lml_ski's value and gradient with each W^T form
+              (scatter, sorted, matmul) in f32 against f64 and against each
+              other on the same probes, matrix-free beside them;
+              predict_ski at m = 1024 against f64 and against
+              predict_iterative at x[::4]; in 2-D one value and gradient at
+              n = 262144 on a 512 x 512 grid (matern32.scaled() at [1, 5]),
+              f32 against f64 and the exact lml at n = 16384 on 64 x 64;
+              sample_paths_ski at n = 131072 (16 paths, 2048 features, grid
+              8192, "sorted", CG 100) evaluated at 4096 points, f32 against
+              f64 on the same draws, the paths' mean against predict_ski's
+              mu within a Monte Carlo bound.  At these CG budgets f32 and
+              f64 part (reported); f32 is held by each operator piece
+              against f64 on one vector at each size, and by the 2-D
+              value, predict_ski and the paths (both forms) again with CG
+              run to convergence.
+21. large_n_bayes - ChEES on the SKI surrogate (benchmarks/large_n_bayes.py
+              --ski): bench.py's noisy sine at n = 65536 on [0, 100], N(0,
+              1) priors on the log-thetas, grid 4096, 16 probes, CG 100,
+              Lanczos 32, one probe draw for the run; one batched value and
+              gradient of 8 chains timed, the MLE warm start (Adam, 10
+              chunks of 20 steps at 0.05), then 8 chains in lockstep for the
+              cut's transitions: ms per value and gradient, acceptance, step
+              size, ESS, R-hat, ESS/s, finite_frac.
+              These four phases hold every engine call's launches of the
+              port's kernels to 0.
+
 With ``--phases a,b,...`` (of kernels, k5, k7, gate, stamps, coldstart,
 slice, train, large, serve, classify, sparse, surface, pathwise, bo,
-search, bayes, samplers, evaluate; k7 is the
+search, iterative, toeplitz, ski, large_n_bayes, bayes, samplers, evaluate; k7 is the
 bayes phase's kernel checks without its sampler runs, gate times K3 against
 K4 at n = 24576 to 65536, stamps records the stages of K2, K5 and K4's chain
 step and coldstart takes apart a process's first laplace_fit, the last three
@@ -264,7 +316,7 @@ run, after device and build, and the script ends with ``{"ok": false,
 
 With ``--profile``, one more phase follows:
 
-18. profile - one serving slice run, one train and one large value-and-gradient
+22. profile - one serving slice run, one train and one large value-and-gradient
               step, one 64-chain value and gradient of the bayes path and one
               127-prefix value and gradient of the evaluate path, on each
               path under torch.profiler: the device's busy time and idle
@@ -282,6 +334,7 @@ import contextlib
 import importlib
 import io
 import json
+import math
 import multiprocessing
 import pathlib
 import statistics
@@ -293,14 +346,17 @@ import unittest.mock
 import numpy as np
 import torch
 
-from gogp_torch import (GP, bo, make_gp_logp, masked_value_and_grad, matern32, mle, periodic, rbf, search,
+from gogp_torch import (GP, bo, dists, make_gp_logp, masked_value_and_grad, matern32, mle, periodic, rbf, search,
                         uniform_noise)
 from gogp_torch.gp import (core, ep, laplace, likelihoods, model_selection, pathwise, serve, sparse, streaming,
                            tprocess)
 from gogp_torch.kernels import deep, multioutput
 from gogp_torch.models.params import gp_observe, gp_posterior
 from gogp_torch.infer import chees, diagnostics, elliptical, ghmc, hmc, nuts, pt_chees, tempering
-from gogp_torch.ops import _build, fused_gp, linalg
+from gogp_torch.gp import ski as gski
+from gogp_torch.ops import _build, fused_gp, iterative, linalg
+from gogp_torch.ops import ski as ski_ops
+from gogp_torch.ops import toeplitz as toeplitz_ops
 from gogp_torch.ops import cholesky_blocked as cb
 from gogp_torch.tutorial import bayes, classify
 from gogp_torch.tutorial import evaluate as tev
@@ -4006,6 +4062,686 @@ def phase_search(dev) -> dict:
     return {"launches": {**{k: 0 for k in cb.LAUNCHES}, "fused_gp_linv": launches}, "rows": rows}
 
 
+# ---------------------------------------------------------------------------
+# The large-n engines: ops/iterative.py (CG, SLQ, pivoted PCG), the dense and
+# matrix-free LMLs and predict_iterative; ops/toeplitz.py with lml_toeplitz
+# and predict_toeplitz; ops/ski.py and gp/ski.py; sample_paths_ski; ChEES on
+# the SKI surrogate.  They reach no TPU kernel in the JAX package and launch
+# none of the port's: the phases hold every engine call's launches to 0.
+# Every run is f32 with TF32 off, beside its f64 twin on the card with the
+# same probes and draws (GeneratorDraws draws in f64 and casts).  The bounds
+# were written before the phases' first run on the card (PERF.md).
+# ---------------------------------------------------------------------------
+
+ESTIMATOR = dict(num_probes=16, cg_iters=100, lanczos_iters=32)  # the JAX defaults
+ITER_RANKS = (0, 32)
+N_FREE, FREE_PANEL, FREE_RANK = 65536, 2048, 32
+ITER_SEED = 0
+ITER_BOUNDS = {
+    "f32_value_rtol": 1e-4,  # lml_iterative in f32 against f64, same probes
+    "f32_grad_rtol": 1e-3,  # its gradient, relative to the largest entry
+    # the estimator against the exact lml (f64 plain) at 16 probes: the CPU
+    # measured up to 3.1e-3 (value and gradient) at n = 4096 and 6.7e-3
+    # (value, rank 32) at n = 1024 (PERF.md)
+    "estimator_value_rtol": 2e-2,
+    "estimator_grad_rtol": 3e-2,
+    # with a preconditioner, f32 and f64 pick its pivots among ties of the
+    # residual diagonal (constant at the start: a stationary K) that they
+    # break apart, so their N(0, P) probes pass through different L: the two
+    # are then held at the estimator's own bounds (the CPU: 6.3e-4 apart at
+    # n = 1024)
+    "ranked_f32_value_rtol": 2e-2,
+    "ranked_f32_grad_rtol": 3e-2,
+    "matfree_value_rtol": 1e-4,  # lml_iterative_matfree against lml_iterative, same probes, f32
+    "matfree_grad_rtol": 1e-3,
+    "predict_atol": 1e-3,  # predict_iterative (f32) against the exact predict in f64
+    "matfree_peak_gib": 6.0,  # n = 65536, panel 2048: a dense f32 K would take 16 GiB
+}
+TOEPLITZ_BOUNDS = {
+    "f32_value_rtol": 1e-4, "f32_grad_rtol": 1e-3,  # lml_toeplitz in f32 against f64
+    "ranked_f32_value_rtol": 2e-2, "ranked_f32_grad_rtol": 3e-2,  # with a preconditioner: ITER_BOUNDS
+    "dense_value_rtol": 1e-4, "dense_grad_rtol": 1e-3,  # against lml_iterative on the same probes, f32
+    "predict_atol": 1e-3,  # predict_toeplitz (f32) against the exact predict in f64
+}
+N_TOEPLITZ_BIG = 2**20
+# The SKI problem (benchmarks/pathwise_ski_tpu.py:120-168, bench_ski).  Its
+# covariance (rbf lengthscale 8 at 65.5 points a unit, noise variance 1e-2)
+# has a condition number near 1e5, so 60 CG iterations stop short in f32:
+# on the CPU at full size f32 sat 1.3e-3 (value) and 3.2e-2 (gradient) off
+# f64, and the scatter and sorted forms 1.3e-6 and 1.8e-2 apart.
+N_SKI, G_SKI, SKI_THETA_SIMIL, SKI_THETA_NOISE = 65536, 4096, (1.0, 8.0), (0.1,)
+SKI_ESTIMATOR = dict(num_probes=8, cg_iters=60, lanczos_iters=24)
+SKI_METHODS = ("scatter", "sorted", "matmul")
+# predict_ski against predict_iterative at x[::SKI_PRED_STRIDE] (n = 16384):
+# predict_iterative at n = 65536, m = 1024 would take about a minute (200
+# CG iterations, each 8.8 TFLOP of matmul and 4.3e9 kernel entries)
+SKI_PRED_STRIDE = 4
+N_SKI2D, G_SKI2D, N_SKI2D_CHECK, G_SKI2D_CHECK = 262144, 512, 16384, 64
+N_SKIPATH, G_SKIPATH, SKIPATH_S, SKIPATH_F, SKIPATH_M = 131072, 8192, 16, 2048, 4096
+# The SKI solves at the twin's settings stop short of convergence: lml_ski's
+# CG 60, predict_ski's 200 and sample_paths_ski's 100 end at true residuals
+# of 0.1-5 |b| on these problems (condition near 1e5), in f64 as in f32, and
+# the two dtypes' unconverged iterates part.  On the CPU at a quarter of the
+# paths' problem (n = 32768 on [0, 250], grid 2048) the f32 paths sat 1.5
+# from f64's at CG 100 with either W^T form, and the JAX twin's f32 CG
+# parted from its f64 as far (1.1e-2 of the solution against the port's
+# 1.1e-2); 2-D SKI at n = 16384, g = 64 x 64 parted by 8.7e-3 in value at CG
+# 60.  So those gaps are reported, and correctness in f32 is held by
+#   - each piece of the operator in f32 against f64 on the same inputs and
+#     the same vector ([y | 8 Rademacher probes]): the grid matvec, W, each
+#     W^T form and the whole operator, at each problem's full size (CPU:
+#     1e-7 to 5e-7; the sorted form's cumsum 7.8e-6 at n = 65536 and 1.4e-5
+#     at 131072), and the f32-built operator against the f64-built one
+#     (CPU: 3e-6, from x's own f32 rounding);
+#   - the same runs with CG given CONVERGED_CG iterations at tol 1e-6, where
+#     f64 converges (CPU: 954 iterations in 2-D, 272 for the paths) and f32
+#     stops at its rounding floor (true residual 1e-3): 2-D value 4.8e-4 and
+#     gradient 6.8e-6 apart, the paths 3.4e-3 (sorted) and 2.9e-3 (scatter),
+#     predict_ski mu 1.3e-3 and sigma 8.1e-5.
+CONVERGED_CG = 3000
+SKI_BOUNDS = {
+    "f32_value_rtol": 1e-2, "f32_grad_rtol": 2e-1,  # each 1-D method in f32 against f64, CG 60
+    "methods_value_rtol": 1e-4, "methods_grad_rtol": 1e-1,  # the three W^T forms in f32
+    "op_arith_rtol": 5e-6,  # each operator piece's f32 arithmetic, of the f64 result's largest entry
+    "wt_sorted_arith_rtol": 2e-4,  # the sorted W^T's (its cumsum's differences)
+    "op_f32_rtol": 3e-5,  # the f32-built operator against the f64-built one
+    "converged_value_rtol": 5e-3, "converged_grad_rtol": 1e-4,  # 2-D lml_ski at CONVERGED_CG
+    "converged_paths_abs": 3e-2,  # sample_paths_ski at CONVERGED_CG, either form
+    "converged_mu_abs": 1e-2, "converged_sigma_abs": 1e-3,  # predict_ski at CONVERGED_CG
+    "path_mean_se": 6.0,  # the 16 paths' mean (f64, CG 100) within 6 standard errors (+ 5e-2) of predict_ski's mu
+    "path_mean_atol": 5e-2,
+}
+# ChEES on the SKI surrogate (benchmarks/large_n_bayes.py --ski): bench.py's
+# noisy sine at n = 65536 on [0, 100], rbf.scaled() + uniform_noise, N(0, 1)
+# priors on the log-thetas, grid 4096, 16 probes, CG 100, Lanczos 32, one
+# probe draw for the whole run, 8 chains in lockstep; the MLE warm start
+# (Adam, 10 chunks of 20 steps at 0.05), spread 0.05, step 0.01, trajectory
+# 0.1, at most 64 leapfrog steps.  The W^T form is "scatter": the twin's
+# default, "matmul", builds (n, g) one-hots here (PERF.md).  Cut
+# from 256 + 256 transitions to 10 + 8, so that the phase stays near 100 s:
+# a batched value and gradient of the 8 chains took 199 ms on an H100, a
+# transition about 24 of them (PERF.md §4).
+N_LNB, G_LNB, LNB_X = 65536, 4096, 100.0
+LNB_CHAINS, LNB_MAX_STEPS, LNB_SPREAD, LNB_STEP, LNB_TRAJ = 8, 64, 0.05, 0.01, 0.1
+LNB_ADAM_CHUNKS, LNB_ADAM_STEPS, LNB_ADAM_RATE = 10, 20, 0.05
+LNB_WARMUP, LNB_SAMPLES, LNB_SEED, LNB_PROBE_SEED = 10, 8, 0, 777
+LNB_METHOD = "scatter"
+
+
+def theta_vg(fn, v: torch.Tensor):
+    """(value, d value / d v) of ``fn(theta_simil, theta_noise)`` at
+    log-theta ``v`` ((3,), or (B, 3) for a batched engine)."""
+    v = v.detach().clone().requires_grad_(True)
+    th = torch.exp(v)
+    value = fn(th[..., :2], th[..., 2:])
+    (g,) = torch.autograd.grad(value.sum(), v)
+    return value.detach(), g
+
+
+@contextlib.contextmanager
+def cg_log():
+    """Each ``iterative.cg_solve`` inside: its iterations, budget and the
+    final relative residual |B - A X| / |B| of its worst column (one more
+    matvec, whose time is logged apart)."""
+    log, solve = [], iterative.cg_solve
+
+    def logged(A, B, max_iters=100, tol=1e-6, precond=None):
+        X, iters = solve(A, B, max_iters, tol, precond)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mv = A if callable(A) else (lambda V: A @ V)
+        Bm, Xm = (B, X) if B.dim() > 1 else (B[:, None], X[:, None])
+        with torch.no_grad():
+            rel = float(((Bm - mv(Xm)).norm(dim=-2) / Bm.norm(dim=-2).clamp_min(1e-30)).max())
+        torch.cuda.synchronize()
+        log.append({"iters": iters if isinstance(iters, int) else iters.tolist(), "max_iters": max_iters,
+                    "tol": tol, "columns": Bm.shape[-1], "rel_residual": rel,
+                    "check_ms": (time.perf_counter() - t0) * 1e3})
+        return X, iters
+
+    with unittest.mock.patch.object(iterative, "cg_solve", logged):
+        yield log
+
+
+def traced_call(fn):
+    """``fn()`` once: (its result, wall ms without the residual checks, peak
+    GiB, the CG log)."""
+    torch.cuda.synchronize()
+    _CLEARED_PEAK_GIB[0] = max(_CLEARED_PEAK_GIB[0], torch.cuda.max_memory_allocated() / 2**30)
+    torch.cuda.reset_peak_memory_stats()
+    with cg_log() as log:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 - sum(e["check_ms"] for e in log)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    _CLEARED_PEAK_GIB[0] = max(_CLEARED_PEAK_GIB[0], peak)
+    return out, wall, peak, log
+
+
+def launched() -> dict:
+    return {k: n for k, n in cb.LAUNCHES.items() if n}
+
+
+def vg_errors(got, want) -> dict:
+    """Value error relative to |want|, gradient's relative to its largest
+    entry."""
+    return {"value_rel": rel_err(got[0], want[0]), "grad_rel": grad_rel_err(got[1], want[1])}
+
+
+def gate(failures: list, label: str, errs: dict, bounds: dict, names: dict) -> None:
+    failures += [f"{label}: {k} {errs[k]:.3g} > {bounds[b]:.3g}" for k, b in names.items() if not errs[k] <= bounds[b]]
+
+
+def ranked_bounds(rank: int) -> dict:
+    """The f32-against-f64 bound names of a run at ``rank``."""
+    pre = "ranked_" if rank else ""
+    return {"value_rel": f"{pre}f32_value_rtol", "grad_rel": f"{pre}f32_grad_rtol"}
+
+
+def pivots(K: torch.Tensor, noise_var: float, rank: int) -> list:
+    """The preconditioner's pivots on K: each column's largest |L| entry is
+    its pivot's (Cauchy-Schwarz on the residual)."""
+    return torch.argmax(iterative.pivoted_precond(K, rank, noise_var).L.abs(), 0).tolist()
+
+
+def finite(*ts) -> bool:
+    return all(bool(torch.isfinite(t).all()) for t in ts)
+
+
+def phase_iterative(dev) -> dict:
+    """The iterative engine on the large path's problem at n = 16384 (f32
+    against f64 with the same probes, against the exact lml and predict,
+    matrix-free against dense, walls against the exact path), then
+    matrix-free at n = 65536 on the SKI problem."""
+    b = ITER_BOUNDS
+    gp, x, y, v0, z = large_problem(N_LARGE, torch.float32, dev)
+    _, x64, y64, v64, z64 = large_problem(N_LARGE, torch.float64, dev)
+    failures, out = [], {"n": N_LARGE, "estimator": ESTIMATOR, "bounds": b}
+
+    def dense(xx, yy, rank):
+        return lambda ts, tn: core.lml_iterative(gp, ts, tn, xx, yy, seeded_draws(dev, ITER_SEED),
+                                                 precond_rank=rank, **ESTIMATOR)
+
+    def matfree(xx, yy, rank, panel=FREE_PANEL, est=ESTIMATOR):
+        return lambda ts, tn: core.lml_iterative_matfree(gp, ts, tn, xx, yy, seeded_draws(dev, ITER_SEED),
+                                                         panel=panel, precond_rank=rank, **est)
+
+    def exact(xx, yy):
+        return lambda ts, tn: core.lml(gp, ts, tn, xx, yy)
+
+    cb.reset_launch_counts()
+    runs, cg = {}, {}
+    for rank in ITER_RANKS:
+        runs[rank], wall, peak, cg[f"rank{rank}"] = traced_call(lambda: theta_vg(dense(x, y, rank), v0))
+        out[f"dense_rank{rank}_first_call"] = {"wall_ms": wall, "peak_gib": peak}
+    runs["matfree"], wall, peak, cg["matfree_rank0"] = traced_call(lambda: theta_vg(matfree(x, y, 0), v0))
+    out["matfree_first_call"] = {"wall_ms": wall, "peak_gib": peak, "panel": FREE_PANEL}
+    th = torch.exp(v0)
+    pred, wall, peak, cg["predict_iterative"] = traced_call(
+        lambda: core.predict_iterative(gp, th[:2], th[2:], x, y, z))
+    out["predict_iterative_first_call"] = {"wall_ms": wall, "peak_gib": peak}
+    if launched():
+        failures.append(f"the iterative engine launched {launched()}")
+
+    # the exact path: the kernel path in f32 (K2 per factor, the gate's
+    # solves, K5 in the predict) and the plain path in f64
+    nb = N_LARGE // BLOCK
+    fwd, bwd = solve_keys(N_LARGE)
+    cb.reset_launch_counts()
+    exact32 = theta_vg(exact(x, y), v0)
+    out["exact_vg_launches"] = launched()
+    want = {"chol_inv_tile": nb, fwd: 1, bwd: 1}
+    failures += [f"exact vg: {k} {cb.LAUNCHES[k]} != {n}" for k, n in want.items()
+                 if k in LARGE_KERNELS and cb.LAUNCHES[k] != n]
+    cb.reset_launch_counts()
+    pred_exact32 = core.predict(gp, th[:2], th[2:], x, y, z)
+    if "chol_inv_tile" in LARGE_KERNELS and cb.LAUNCHES["chol_inv_tile"] != nb:
+        failures.append(f"exact predict: K2 {cb.LAUNCHES['chol_inv_tile']} != {nb}")
+    if "tril_inv_tile" in LARGE_KERNELS and cb.LAUNCHES["tril_inv_tile"] < 1:
+        failures.append("exact predict: no K5 launch")
+    out["exact_predict_launches"] = launched()
+    th64 = torch.exp(v64)
+    with linalg.force_plain():
+        exact64 = theta_vg(exact(x64, y64), v64)
+        pred_exact64 = core.predict(gp, th64[:2], th64[2:], x64, y64, z64)
+    ref = {rank: theta_vg(dense(x64, y64, rank), v64) for rank in ITER_RANKS}
+    nv = float(th[2] ** 2)
+    piv32 = pivots(core.masked_cov(gp, th[:2], th[2:], x, None), nv, ITER_RANKS[-1])
+    piv64 = pivots(core.masked_cov(gp, th64[:2], th64[2:], x64, None), nv, ITER_RANKS[-1])
+    out["pivots"] = {"f32": piv32, "f64": piv64, "first_difference": next(
+        (j for j, (p, q) in enumerate(zip(piv32, piv64)) if p != q), None)}
+
+    errors = {}
+    for rank in ITER_RANKS:
+        errors[f"rank{rank}_f32_vs_f64"] = vg_errors(runs[rank], ref[rank])
+        errors[f"rank{rank}_f32_vs_exact"] = vg_errors(runs[rank], exact64)
+        errors[f"rank{rank}_f64_vs_exact"] = vg_errors(ref[rank], exact64)
+        gate(failures, f"rank {rank} f32", errors[f"rank{rank}_f32_vs_f64"], b, ranked_bounds(rank))
+        gate(failures, f"rank {rank} estimator", errors[f"rank{rank}_f64_vs_exact"], b,
+             {"value_rel": "estimator_value_rtol", "grad_rel": "estimator_grad_rtol"})
+    errors["exact_f32_kernels_vs_f64"] = vg_errors(exact32, exact64)
+    errors["matfree_vs_dense_f32"] = vg_errors(runs["matfree"], runs[0])
+    gate(failures, "matfree", errors["matfree_vs_dense_f32"], b,
+         {"value_rel": "matfree_value_rtol", "grad_rel": "matfree_grad_rtol"})
+    for label, (mu, sd) in (("predict_iterative", pred), ("predict_exact_f32_kernels", pred_exact32)):
+        errors[label] = {"mu_abs": float((mu.double() - pred_exact64[0]).abs().max()),
+                         "sigma_abs": float((sd.double() - pred_exact64[1]).abs().max())}
+    gate(failures, "predict_iterative", errors["predict_iterative"], b,
+         {"mu_abs": "predict_atol", "sigma_abs": "predict_atol"})
+    if not finite(*runs[0], *runs[ITER_RANKS[-1]], *pred):
+        failures.append("non-finite iterative value, gradient or prediction")
+
+    # walls, median of 5: the dense engine at each rank, matrix-free,
+    # predict_iterative, against the exact path's value and gradient and
+    # predict on the kernel path
+    walls = {f"dense_rank{rank}_vg": wall_ms(lambda: theta_vg(dense(x, y, rank), v0)) for rank in ITER_RANKS}
+    walls["exact_vg_kernels"] = wall_ms(lambda: theta_vg(exact(x, y), v0))
+    walls["matfree_vg"] = wall_ms(lambda: theta_vg(matfree(x, y, 0), v0), reps=1)
+    walls["predict_iterative"] = wall_ms(lambda: core.predict_iterative(gp, th[:2], th[2:], x, y, z), reps=1)
+    walls["predict_exact_kernels"] = wall_ms(lambda: core.predict(gp, th[:2], th[2:], x, y, z), reps=3)
+    out.update(errors=errors, walls_ms=walls, cg=cg,
+               values={"rank0_f32": float(runs[0][0]), "rank32_f32": float(runs[ITER_RANKS[-1]][0]),
+                       "exact_f64": float(exact64[0]), "rank0_f64": float(ref[0][0])},
+               grads={"rank0_f32": runs[0][1].tolist(), "exact_f64": exact64[1].tolist()})
+
+    # matrix-free at n = 65536 on the SKI problem: one value and gradient,
+    # its memory against the 16 GiB a dense K would take, beside lml_ski
+    gps, xs, ys = ski_problem(N_FREE, torch.float32, dev)
+    vs = ski_log_theta(dev, torch.float32)
+    cb.reset_launch_counts()
+    big, wall, peak, log = traced_call(lambda: theta_vg(
+        lambda ts, tn: core.lml_iterative_matfree(gps, ts, tn, xs, ys, seeded_draws(dev, ITER_SEED),
+                                                  panel=FREE_PANEL, precond_rank=FREE_RANK, **ESTIMATOR), vs))
+    ski_value = theta_vg(lambda ts, tn: gski.lml_ski(gps, ts, tn, xs, ys, seeded_draws(dev, ITER_SEED), G_SKI,
+                                                    method="scatter", **ESTIMATOR), vs)
+    if launched():
+        failures.append(f"matrix-free or SKI at n = {N_FREE} launched {launched()}")
+    out["matfree_n65536"] = {"n": N_FREE, "panel": FREE_PANEL, "precond_rank": FREE_RANK, "wall_ms": wall,
+                             "peak_gib": peak, "cg": log, "value": float(big[0]), "grad": big[1].tolist(),
+                             "lml_ski_value": float(ski_value[0]), "lml_ski_grad": ski_value[1].tolist(),
+                             "value_rel_to_ski": rel_err(big[0], ski_value[0])}
+    if not peak <= b["matfree_peak_gib"]:
+        failures.append(f"matrix-free peak {peak:.2f} GiB > {b['matfree_peak_gib']}")
+    if not finite(*big):
+        failures.append("matrix-free at n = 65536 not finite")
+    emit({"phase": "iterative", **out})
+    if failures:
+        raise AssertionError(f"iterative phase: {failures}")
+    return {}
+
+
+def toeplitz_problem(n: int, dtype, dev, span: float):
+    """A regular grid of n points on [0, span], y = sin(x/3) + 0.1 N(0, 1)
+    (numpy seed 0), rbf.scaled() + uniform_noise at log-theta 0."""
+    x = np.linspace(0.0, span, n)
+    y = np.sin(x / 3.0) + 0.1 * np.random.default_rng(0).normal(size=n)
+    gp = GP(ndim=1, simil=rbf.scaled(), noise=uniform_noise)
+
+    def t(a):
+        return torch.as_tensor(a, dtype=dtype, device=dev)
+
+    return gp, t(x[:, None]), t(y), torch.zeros(gp.n_theta, dtype=dtype, device=dev)
+
+
+def phase_toeplitz(dev) -> dict:
+    """lml_toeplitz and predict_toeplitz on a regular grid over the large
+    problem's range at n = 16384 (f32 against f64, against the dense
+    iterative engine on the same probes, against the exact lml), then one
+    value and gradient at n = 2^20 (benchmarks/toeplitz_tpu.py's top size)."""
+    b = TOEPLITZ_BOUNDS
+    gp, x, y, v0 = toeplitz_problem(N_LARGE, torch.float32, dev, X_LARGE)
+    _, x64, y64, v64 = toeplitz_problem(N_LARGE, torch.float64, dev, X_LARGE)
+    z = torch.linspace(0.0, X_LARGE, M_LARGE, device=dev)
+    failures, errors, cg, runs = [], {}, {}, {}
+
+    def toep(xx, yy, rank):
+        return lambda ts, tn: core.lml_toeplitz(gp, ts, tn, xx, yy, seeded_draws(dev, ITER_SEED),
+                                                precond_rank=rank, **ESTIMATOR)
+
+    def dense(xx, yy, rank):
+        return lambda ts, tn: core.lml_iterative(gp, ts, tn, xx, yy, seeded_draws(dev, ITER_SEED),
+                                                 precond_rank=rank, **ESTIMATOR)
+
+    cb.reset_launch_counts()
+    th = torch.exp(v0)
+    for rank in ITER_RANKS:
+        runs[rank], _, _, cg[f"rank{rank}"] = traced_call(lambda: theta_vg(toep(x, y, rank), v0))
+        runs[f"dense{rank}"] = theta_vg(dense(x, y, rank), v0)
+    pred, _, _, cg["predict_toeplitz"] = traced_call(lambda: core.predict_toeplitz(gp, th[:2], th[2:], x, y, z))
+    th64 = torch.exp(v64)
+    with linalg.force_plain():
+        exact64 = theta_vg(lambda ts, tn: core.lml(gp, ts, tn, x64, y64), v64)
+        pred64 = core.predict(gp, th64[:2], th64[2:], x64, y64, z.double())
+    for rank in ITER_RANKS:
+        ref = theta_vg(toep(x64, y64, rank), v64)
+        errors[f"rank{rank}_f32_vs_f64"] = vg_errors(runs[rank], ref)
+        errors[f"rank{rank}_vs_dense_f32"] = vg_errors(runs[rank], runs[f"dense{rank}"])
+        errors[f"rank{rank}_f64_vs_exact"] = vg_errors(ref, exact64)
+        gate(failures, f"rank {rank} f32", errors[f"rank{rank}_f32_vs_f64"], b, ranked_bounds(rank))
+        gate(failures, f"rank {rank} dense", errors[f"rank{rank}_vs_dense_f32"], b,
+             {"value_rel": "dense_value_rtol", "grad_rel": "dense_grad_rtol"})
+    errors["predict_toeplitz"] = {"mu_abs": float((pred[0].double() - pred64[0]).abs().max()),
+                                  "sigma_abs": float((pred[1].double() - pred64[1]).abs().max())}
+    gate(failures, "predict_toeplitz", errors["predict_toeplitz"], b,
+         {"mu_abs": "predict_atol", "sigma_abs": "predict_atol"})
+    walls = {f"toeplitz_rank{rank}_vg": wall_ms(lambda: theta_vg(toep(x, y, rank), v0)) for rank in ITER_RANKS}
+    walls["predict_toeplitz"] = wall_ms(lambda: core.predict_toeplitz(gp, th[:2], th[2:], x, y, z))
+
+    # n = 2^20: x = linspace(0, n/40), y = sin(x/2) + 0.1 N(0, 1), as
+    # benchmarks/toeplitz_tpu.py builds it
+    n = N_TOEPLITZ_BIG
+    xb = torch.linspace(0.0, n / 40.0, n, dtype=torch.float64)
+    yb = torch.sin(xb / 2.0) + 0.1 * torch.as_tensor(np.random.default_rng(0).normal(size=n))
+    xb, yb = xb[:, None].float().to(dev), yb.float().to(dev)
+    big, wall, peak, cg["n2p20"] = traced_call(lambda: theta_vg(toep(xb, yb, 0), v0))
+    walls["n2p20_vg_first_call"] = wall
+    walls["n2p20_vg"] = wall_ms(lambda: theta_vg(toep(xb, yb, 0), v0), reps=3)
+    if launched():
+        failures.append(f"the Toeplitz path launched {launched()}")
+    if not finite(*runs[0], *pred, *big):
+        failures.append("non-finite Toeplitz value, gradient or prediction")
+    emit({"phase": "toeplitz", "n": N_LARGE, "n_big": n, "estimator": ESTIMATOR, "bounds": b, "errors": errors,
+          "walls_ms": walls, "cg": cg, "peak_gib_n2p20": peak,
+          "values": {"rank0_f32": float(runs[0][0]), "exact_f64": float(exact64[0]), "n2p20_f32": float(big[0])},
+          "grad_n2p20": big[1].tolist()})
+    if failures:
+        raise AssertionError(f"toeplitz phase: {failures}")
+    return {}
+
+
+def ski_problem(n: int, dtype, dev, span: float = 1000.0, period: float = 20.0):
+    """bench_ski's problem: n sorted uniform inputs on [0, span], y =
+    sin(x/period) + 0.1 N(0, 1) (numpy seed 0), rbf.scaled() + uniform_noise."""
+    rng = np.random.default_rng(0)
+    x = np.sort(rng.uniform(0.0, span, (n, 1)), axis=0)
+    y = np.sin(x[:, 0] / period) + 0.1 * rng.normal(size=n)
+    gp = GP(ndim=1, simil=rbf.scaled(), noise=uniform_noise)
+    return gp, torch.as_tensor(x, dtype=dtype, device=dev), torch.as_tensor(y, dtype=dtype, device=dev)
+
+
+def ski_log_theta(dev, dtype) -> torch.Tensor:
+    return torch.log(torch.tensor([*SKI_THETA_SIMIL, *SKI_THETA_NOISE], dtype=dtype, device=dev))
+
+
+def ski2d_problem(n: int, dtype, dev):
+    """bench_ski2d's problem: n points uniform on [0, 100]^2, y = sin(x0/10)
+    cos(x1/8) + 0.1 N(0, 1) (numpy seed 0), matern32.scaled() at [1, 5] +
+    uniform_noise at [0.1]."""
+    rng = np.random.default_rng(0)
+    x = rng.uniform(0.0, 100.0, (n, 2))
+    y = np.sin(x[:, 0] / 10) * np.cos(x[:, 1] / 8) + 0.1 * rng.normal(size=n)
+    gp = GP(ndim=2, simil=matern32.scaled(), noise=uniform_noise)
+    v = torch.log(torch.tensor([1.0, 5.0, 0.1], dtype=dtype, device=dev))
+    return gp, torch.as_tensor(x, dtype=dtype, device=dev), torch.as_tensor(y, dtype=dtype, device=dev), v
+
+
+def operator_errors(gp, log_theta, x, y, dims, methods, b, failures, label) -> dict:
+    """The SKI operator's f32 pieces on x against f64 on one vector, [y | 8
+    Rademacher probes]: each piece's arithmetic on the same f32 inputs (the
+    grid matvec, W, each W^T form, the whole operator), and the f32-built
+    operator against the one built from x in f64.  Errors are of the f64
+    result's largest entry; each is gated."""
+    x64, th, th64 = x.double(), torch.exp(log_theta.float()), torch.exp(log_theta.double())
+    V = torch.cat([y[:, None], seeded_draws(x.device, ITER_SEED).rademacher((x.shape[0], 8), y)], 1)
+    V64 = V.double()
+    g0, hs = gski._grid_geometry(x, dims)
+    idx, w = ski_ops.cubic_interp_nd(x, g0, hs, dims)
+    c, noise = gski._grid_cov(gp, th[:2], g0, hs, dims), gp.noise.vector(th[2:], x)
+    g = math.prod(dims)
+    grid_mv = toeplitz_ops.toeplitz_matvec_fn if len(dims) == 1 else (lambda cc: ski_ops.bttb_matvec_fn(cc, 2))
+    U = V[torch.arange(g, device=x.device) % x.shape[0]]  # a (g, 9) grid-space block
+    with torch.no_grad():
+        errs = {"grid_matvec": grad_rel_err(grid_mv(c)(U), grid_mv(c.double())(U.double())),
+                "interp": grad_rel_err(ski_ops.interp(idx, w, U), ski_ops.interp(idx, w.double(), U.double()))}
+        wt64 = ski_ops.interp_t(idx, w.double(), g, V64)
+        full64 = ski_ops.ski_matvec_fn(c.double(), idx, w.double(), noise.double(), "scatter")(V64)
+        built64 = gski._ski_operator(gp, th64[:2], th64[2:], x64, dims, "scatter")(V64)
+        wt = {"scatter": ski_ops.interp_t, "sorted": ski_ops.interp_t_sorted, "matmul": ski_ops.interp_t_matmul}
+        for m in methods:
+            errs[f"wt_{m}"] = grad_rel_err(wt[m](idx, w, g, V), wt64)
+            errs[f"op_{m}"] = grad_rel_err(ski_ops.ski_matvec_fn(c, idx, w, noise, m)(V), full64)
+            errs[f"op_{m}_built_f32"] = grad_rel_err(gski._ski_operator(gp, th[:2], th[2:], x, dims, m)(V), built64)
+    for k, e in errs.items():
+        bound = b["op_f32_rtol"] if k.endswith("_built_f32") else (
+            b["wt_sorted_arith_rtol"] if k == "wt_sorted" else b["op_arith_rtol"])
+        if not e <= bound:
+            failures.append(f"{label} operator {k}: {e:.3g} > {bound:.3g}")
+    return errs
+
+
+def phase_ski(dev) -> dict:
+    """SKI at n = 65536 (each W^T form in f32 and f64 on the same probes,
+    matrix-free beside them, predict_ski against predict_iterative), in 2-D
+    at n = 262144, and sample_paths_ski at n = 131072."""
+    b = SKI_BOUNDS
+    gp, x, y = ski_problem(N_SKI, torch.float32, dev)
+    _, x64, y64 = ski_problem(N_SKI, torch.float64, dev)
+    v, v64 = ski_log_theta(dev, torch.float32), ski_log_theta(dev, torch.float64)
+    failures, errors, cg, walls, peaks = [], {}, {}, {}, {}
+
+    def lml(xx, yy, method, n_grid=G_SKI, est=SKI_ESTIMATOR, g_=gp):
+        return lambda ts, tn: gski.lml_ski(g_, ts, tn, xx, yy, seeded_draws(dev, ITER_SEED), n_grid, method=method,
+                                           **est)
+
+    cb.reset_launch_counts()
+    got, ref = {}, {}
+    for m in SKI_METHODS:
+        got[m], _, peaks[m], cg[m] = traced_call(lambda: theta_vg(lml(x, y, m), v))
+        ref[m] = theta_vg(lml(x64, y64, m), v64)
+        errors[f"{m}_f32_vs_f64"] = vg_errors(got[m], ref[m])
+        gate(failures, f"{m} f32", errors[f"{m}_f32_vs_f64"], b, {"value_rel": "f32_value_rtol",
+                                                                  "grad_rel": "f32_grad_rtol"})
+        errors[f"{m}_vs_scatter_f32"] = vg_errors(got[m], got["scatter"])
+        gate(failures, f"{m} against scatter", errors[f"{m}_vs_scatter_f32"], b,
+             {"value_rel": "methods_value_rtol", "grad_rel": "methods_grad_rtol"})
+        walls[f"lml_ski_{m}_vg"] = wall_ms(lambda: theta_vg(lml(x, y, m), v))
+    emit({"phase": "ski_methods", "errors": errors, "walls_ms": walls, "peak_gib": peaks, "cg": cg,
+          "values": {m: float(got[m][0]) for m in SKI_METHODS}, "grads": {m: got[m][1].tolist() for m in SKI_METHODS}})
+    # bench_ski's anchor: matrix-free on the same probes (the same Rademacher
+    # draws as lml_ski's at precond_rank 0), panel 2048
+    free, walls["matfree_vg_first_call"], peaks["matfree"], cg["matfree"] = traced_call(lambda: theta_vg(
+        lambda ts, tn: core.lml_iterative_matfree(gp, ts, tn, x, y, seeded_draws(dev, ITER_SEED), panel=FREE_PANEL,
+                                                  **SKI_ESTIMATOR), v))
+    errors["matfree_vs_scatter_f32"] = vg_errors(free, got["scatter"])
+
+    # predict_ski (its default, "sorted") at m = 1024: f32 against f64 at n =
+    # 65536, and against predict_iterative at x[::4]
+    th, th64 = torch.exp(v), torch.exp(v64)
+    z = torch.linspace(0.0, 1000.0, M, device=dev)
+    pred, walls["predict_ski"], _, cg["predict_ski"] = traced_call(
+        lambda: gski.predict_ski(gp, th[:2], th[2:], x, y, z, G_SKI))
+    pred64 = gski.predict_ski(gp, th64[:2], th64[2:], x64, y64, z.double(), G_SKI)
+    errors["predict_ski_f32_vs_f64"] = {"mu_abs": float((pred[0].double() - pred64[0]).abs().max()),
+                                        "sigma_abs": float((pred[1].double() - pred64[1]).abs().max())}
+    xs, ys = x[::SKI_PRED_STRIDE], y[::SKI_PRED_STRIDE]
+    pred_s = gski.predict_ski(gp, th[:2], th[2:], xs, ys, z, G_SKI)
+    pred_it, walls["predict_iterative_n16384"], _, cg["predict_iterative_n16384"] = traced_call(
+        lambda: core.predict_iterative(gp, th[:2], th[2:], xs, ys, z, panel=FREE_PANEL))
+    errors["predict_ski_vs_iterative_n16384"] = {
+        "mu_abs": float((pred_s[0] - pred_it[0]).abs().max()), "sigma_abs": float((pred_s[1] - pred_it[1]).abs().max())}
+
+    # predict_ski with CG run to convergence: f32 against f64 at every 16th
+    # of the 1024 points
+    zc = z[::16]
+    conv = {}
+    for label, (xx, yy, tt) in (("f32", (x, y, th)), ("f64", (x64, y64, th64))):
+        conv[label], walls[f"predict_ski_converged_{label}"], _, cg[f"predict_ski_converged_{label}"] = traced_call(
+            lambda: gski.predict_ski(gp, tt[:2], tt[2:], xx, yy, zc.to(tt.dtype), G_SKI, cg_iters=CONVERGED_CG))
+    errors["predict_ski_converged_f32_vs_f64"] = {
+        "mu_abs": float((conv["f32"][0].double() - conv["f64"][0]).abs().max()),
+        "sigma_abs": float((conv["f32"][1].double() - conv["f64"][1]).abs().max())}
+    for k, bound in (("mu_abs", "converged_mu_abs"), ("sigma_abs", "converged_sigma_abs")):
+        if not errors["predict_ski_converged_f32_vs_f64"][k] <= b[bound]:
+            failures.append(f"predict_ski converged {k} {errors['predict_ski_converged_f32_vs_f64'][k]:.3g}")
+    errors["operator_n65536"] = operator_errors(gp, v, x, y, (G_SKI,), SKI_METHODS, b, failures, "1-D")
+
+    # 2-D: one value and gradient at n = 262144 on a 512 x 512 grid (wall,
+    # peak) and its operator against f64; f32 against f64 at n = 16384 on 64
+    # x 64 at the twin's CG 60 (reported) and converged (held), with the
+    # exact lml there
+    gp2, x2, y2, v2 = ski2d_problem(N_SKI2D, torch.float32, dev)
+    big2, walls["ski2d_vg_first_call"], peaks["ski2d"], cg["ski2d"] = traced_call(
+        lambda: theta_vg(lml(x2, y2, "scatter", (G_SKI2D, G_SKI2D), g_=gp2), v2))
+    walls["ski2d_vg"] = wall_ms(lambda: theta_vg(lml(x2, y2, "scatter", (G_SKI2D, G_SKI2D), g_=gp2), v2), reps=3)
+    errors["operator_2d_n262144"] = operator_errors(gp2, v2, x2, y2, (G_SKI2D, G_SKI2D), ("scatter",), b, failures,
+                                                    "2-D")
+    small32 = ski2d_problem(N_SKI2D_CHECK, torch.float32, dev)
+    small64 = ski2d_problem(N_SKI2D_CHECK, torch.float64, dev)
+    s32 = theta_vg(lml(small32[1], small32[2], "scatter", (G_SKI2D_CHECK,) * 2, g_=gp2), small32[3])
+    s64 = theta_vg(lml(small64[1], small64[2], "scatter", (G_SKI2D_CHECK,) * 2, g_=gp2), small64[3])
+    errors["ski2d_f32_vs_f64"] = vg_errors(s32, s64)
+    est_c = dict(SKI_ESTIMATOR, cg_iters=CONVERGED_CG)
+    s32c, walls["ski2d_converged_f32"], _, cg["ski2d_converged_f32"] = traced_call(lambda: theta_vg(
+        lml(small32[1], small32[2], "scatter", (G_SKI2D_CHECK,) * 2, est_c, gp2), small32[3]))
+    s64c, walls["ski2d_converged_f64"], _, cg["ski2d_converged_f64"] = traced_call(lambda: theta_vg(
+        lml(small64[1], small64[2], "scatter", (G_SKI2D_CHECK,) * 2, est_c, gp2), small64[3]))
+    errors["ski2d_converged_f32_vs_f64"] = vg_errors(s32c, s64c)
+    gate(failures, "2-D converged f32", errors["ski2d_converged_f32_vs_f64"], b,
+         {"value_rel": "converged_value_rtol", "grad_rel": "converged_grad_rtol"})
+
+    # sample_paths_ski at n = 131072: 16 paths, 2048 features, grid 8192,
+    # "sorted", CG 100, evaluated at 4096 points; f32 against f64 on the
+    # same draws (reported); the paths' mean against predict_ski's mu (f64)
+    # at all 4096 points, 1024 at a time (each CG column freezes on its own,
+    # so the chunks give the one call's answer), held for the f64 paths and
+    # reported for the f32; then both W^T forms with CG run to convergence,
+    # f32 against f64 (held)
+    gpp, xp, yp = ski_problem(N_SKIPATH, torch.float32, dev)
+    _, xp64, yp64 = ski_problem(N_SKIPATH, torch.float64, dev)
+    zp = torch.linspace(0.0, 1000.0, SKIPATH_M, device=dev)
+    errors["operator_n131072"] = operator_errors(gpp, v, xp, yp, (G_SKIPATH,), ("sorted", "scatter"), b, failures,
+                                                 "paths")
+    kw = dict(num_features=SKIPATH_F, grid_size=G_SKIPATH, cg_iters=100, method="sorted")
+    ps, walls["sample_paths_ski_first_call"], peaks["sample_paths_ski"], cg["sample_paths_ski"] = traced_call(
+        lambda: pathwise.sample_paths_ski(gpp, th[:2], th[2:], xp, yp, seeded_draws(dev, 1), SKIPATH_S, **kw))
+    fs = pathwise.eval_paths(gpp, ps, zp)
+    ps64 = pathwise.sample_paths_ski(gpp, th64[:2], th64[2:], xp64, yp64, seeded_draws(dev, 1), SKIPATH_S, **kw)
+    fs64 = pathwise.eval_paths(gpp, ps64, zp.double())
+    walls["sample_paths_ski"] = wall_ms(
+        lambda: pathwise.sample_paths_ski(gpp, th[:2], th[2:], xp, yp, seeded_draws(dev, 1), SKIPATH_S, **kw), reps=3)
+    walls["eval_paths"] = wall_ms(lambda: pathwise.eval_paths(gpp, ps, zp))
+    errors["paths_f32_vs_f64_abs"] = float((fs.double() - fs64).abs().max())
+    errors["paths_f64_max_abs"] = float(fs64.abs().max())
+    mu_p, walls["predict_ski_path_mean_f64"], peaks["predict_ski_path_mean_f64"], _ = traced_call(lambda: torch.cat(
+        [gski.predict_ski(gpp, th64[:2], th64[2:], xp64, yp64, zz, G_SKIPATH)[0] for zz in zp.double().split(M)]))
+    for label, paths in (("f64", fs64), ("f32", fs)):
+        paths = paths.double()
+        se = paths.std(0) / SKIPATH_S**0.5
+        gap = (paths.mean(0) - mu_p).abs()
+        errors[f"path_mean_{label}"] = {"max_abs": float(gap.max()), "max_se": float(se.max()), "over_bound": float(
+            (gap / (b["path_mean_se"] * se + b["path_mean_atol"])).max())}
+    if not errors["path_mean_f64"]["over_bound"] <= 1.0:
+        failures.append(f"path mean (f64) {errors['path_mean_f64']['over_bound']:.3g} of its bound")
+    for m in ("sorted", "scatter"):
+        kc = dict(kw, cg_iters=CONVERGED_CG, method=m)
+        paths_c = {}
+        for label, (xx, yy, tt) in (("f32", (xp, yp, th)), ("f64", (xp64, yp64, th64))):
+            psc, walls[f"sample_paths_ski_converged_{m}_{label}"], _, cg[f"paths_converged_{m}_{label}"] = traced_call(
+                lambda: pathwise.sample_paths_ski(gpp, tt[:2], tt[2:], xx, yy, seeded_draws(dev, 1), SKIPATH_S, **kc))
+            paths_c[label] = pathwise.eval_paths(gpp, psc, zp.to(tt.dtype)).double()
+        errors[f"paths_converged_{m}_f32_vs_f64_abs"] = float((paths_c["f32"] - paths_c["f64"]).abs().max())
+        if not errors[f"paths_converged_{m}_f32_vs_f64_abs"] <= b["converged_paths_abs"]:
+            failures.append(f"converged {m} paths f32 {errors[f'paths_converged_{m}_f32_vs_f64_abs']:.3g} from f64")
+    engine_launches = launched()
+    if engine_launches:
+        failures.append(f"the SKI path launched {engine_launches}")
+    with linalg.force_plain():
+        exact2 = theta_vg(lambda ts, tn: core.lml(gp2, ts, tn, small64[1], small64[2]), small64[3])
+    errors["ski2d_f64_vs_exact"] = vg_errors(s64, exact2)
+    if not finite(*got["scatter"], *pred, *big2, fs):
+        failures.append("non-finite SKI value, gradient, prediction or path")
+    emit({"phase": "ski", "n": N_SKI, "grid": G_SKI, "estimator": SKI_ESTIMATOR, "bounds": b, "errors": errors,
+          "walls_ms": walls, "peak_gib": peaks, "cg": cg,
+          "values": {m: float(got[m][0]) for m in SKI_METHODS} | {"matfree": float(free[0]),
+                                                                  "ski2d_n262144": float(big2[0])},
+          "grads": {m: got[m][1].tolist() for m in SKI_METHODS} | {"matfree": free[1].tolist()},
+          "ski2d_check": {"n": N_SKI2D_CHECK, "grid": G_SKI2D_CHECK, "f32": float(s32[0]), "f64": float(s64[0]),
+                          "f32_converged": float(s32c[0]), "f64_converged": float(s64c[0]),
+                          "exact_f64": float(exact2[0])}})
+    if failures:
+        raise AssertionError(f"ski phase: {failures}")
+    return {}
+
+
+def lnb_logp(gp, x, y, dev):
+    """The SKI surrogate's log-joint over (chains, 3) log-thetas: one batched
+    lml_ski with the run's fixed probes, plus N(0, 1) priors."""
+
+    def logp(V):
+        th = torch.exp(V)
+        draws = seeded_draws(dev, LNB_PROBE_SEED)
+        lml = gski.lml_ski(gp, th[:, :2], th[:, 2:], x, y, draws, G_LNB, method=LNB_METHOD, **ESTIMATOR)
+        return lml + dists.normal_logp(0.0, 1.0, V).sum(-1)
+
+    return logp
+
+
+def phase_large_n_bayes(dev) -> dict:
+    """ChEES on the SKI surrogate at n = 65536 (benchmarks/large_n_bayes.py
+    --ski): one batched value and gradient of 8 chains timed, the MLE warm
+    start, then LNB_WARMUP + LNB_SAMPLES transitions in lockstep."""
+    gp, x, y = ski_problem(N_LNB, torch.float32, dev, span=LNB_X, period=3.0)
+    logp = lnb_logp(gp, x, y, dev)
+    calls = [0]
+
+    def counted(V):
+        calls[0] += 1
+        return logp(V)
+
+    vg = hmc.value_and_grad(counted, None)
+    cb.reset_launch_counts()
+    V8 = torch.zeros(LNB_CHAINS, 3, device=dev)
+    (lp8, g8), vg_first_ms, vg_peak, cg8 = traced_call(lambda: vg(V8))
+    vg_ms = wall_ms(lambda: vg(V8))
+    vg1_ms = wall_ms(lambda: vg(V8[:1]))
+
+    # the MLE warm start: Adam from 0, 10 chunks of 20 steps
+    t0 = time.perf_counter()
+    v_cur = torch.zeros(3, device=dev)
+    for _ in range(LNB_ADAM_CHUNKS):
+        opt = mle.adam(lambda v: tuple(t[0] for t in vg(v[None])), v_cur, iters=LNB_ADAM_STEPS, rate=LNB_ADAM_RATE)
+        v_cur = opt.x
+    torch.cuda.synchronize()
+    mle_s = time.perf_counter() - t0
+    emit({"phase": "large_n_bayes_setup", "vg_ms": {"chains8": vg_ms, "chains8_first_call": vg_first_ms,
+                                                    "chain1": vg1_ms}, "vg_peak_gib": vg_peak, "vg_cg": cg8,
+          "mle": {"v": v_cur.tolist(), "value": float(opt.value), "wall_s": mle_s}})
+    gen = torch.Generator(device=dev).manual_seed(LNB_SEED + 1)
+    x0 = v_cur[None, :] + LNB_SPREAD * torch.randn((LNB_CHAINS, 3), generator=gen, device=dev)
+    calls[0] = 0
+    t0 = time.perf_counter()
+    res = chees.run_chees(counted, x0, torch.Generator(device=dev).manual_seed(LNB_SEED), num_warmup=LNB_WARMUP,
+                          num_samples=LNB_SAMPLES, init_step_size=LNB_STEP, init_traj_length=LNB_TRAJ,
+                          max_num_steps=LNB_MAX_STEPS)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    pos = res.positions  # (samples, chains, 3)
+    summ = _posterior_summary(pos)
+    finite_frac = float(torch.isfinite(res.logps).double().mean())
+    out = {"n": N_LNB, "grid": G_LNB, "method": LNB_METHOD, "chains": LNB_CHAINS, "warmup": LNB_WARMUP,
+           "samples": LNB_SAMPLES, "estimator": ESTIMATOR,
+           "vg_ms": {"chains8": vg_ms, "chains8_first_call": vg_first_ms, "chain1": vg1_ms},
+           "vg_peak_gib": vg_peak, "vg_cg": cg8, "mle": {"v": v_cur.tolist(), "value": float(opt.value),
+                                                         "wall_s": mle_s},
+           "run_wall_s": run_s, "transitions": LNB_WARMUP + LNB_SAMPLES, "vg_calls": calls[0],
+           "ms_per_vg_in_run": 1e3 * run_s / max(calls[0], 1),
+           "accept_sampling": float(res.accept_probs.mean()), "step_size": float(res.state.step_size),
+           "traj_length": float(torch.exp(res.state.log_traj)), "min_bulk_ess": summ["min_bulk_ess"],
+           "max_bulk_rhat": summ["max_bulk_rhat"], "posterior_mean": summ["mean"].tolist(),
+           "ess_per_s_run": summ["min_bulk_ess"] / run_s, "finite_frac": finite_frac,
+           "launches": launched()}
+    emit({"phase": "large_n_bayes", **out})
+    failures = []
+    if launched():
+        failures.append(f"launched {launched()}")
+    if not (finite_frac == 1.0 and finite(pos, lp8, g8)):
+        failures.append("non-finite chains")
+    if failures:
+        raise AssertionError(f"large_n_bayes phase: {failures}")
+    return {}
+
+
 def coldstart_child(parts: bool) -> None:
     """The first ``laplace_fit`` of the classify problem in this (fresh)
     process, after the card's context and K1's first launch, which every
@@ -4069,7 +4805,8 @@ def _partial_slice(dev) -> None:
 PARTIAL_PHASES = {"kernels": phase_kernels, "k5": phase_k5, "k7": phase_k7, "gate": phase_gate,
                   "slice": _partial_slice, "serve": phase_serve_cache, "classify": phase_classify,
                   "sparse": phase_sparse, "surface": phase_surface, "pathwise": phase_pathwise, "bo": phase_bo,
-                  "search": phase_search,
+                  "search": phase_search, "iterative": phase_iterative, "toeplitz": phase_toeplitz,
+                  "ski": phase_ski, "large_n_bayes": phase_large_n_bayes,
                   "train": phase_train, "large": phase_large, "bayes": phase_bayes, "samplers": phase_samplers,
                   "evaluate": lambda dev: check_k7(phase_evaluate(dev)["k7_cases"]),
                   "stamps": phase_stamps, "coldstart": phase_coldstart}
@@ -4126,6 +4863,9 @@ def main() -> int:
     pathwise_out = measured("pathwise", phase_pathwise, dev, sparse_out["svgp"])
     bo_out = measured("bo", phase_bo, dev)
     search_out = measured("search", phase_search, dev)
+    for name, phase in (("iterative", phase_iterative), ("toeplitz", phase_toeplitz), ("ski", phase_ski),
+                        ("large_n_bayes", phase_large_n_bayes)):
+        measured(name, phase, dev)
     for out in (serve_cache, classify_out, sparse_out, surface_out, pathwise_out, bo_out, search_out):
         kernels.update(out["rows"])
     bayes_rows = measured("k7", phase_k7, dev)

@@ -1,7 +1,6 @@
 """Pathwise posterior sampling: random-feature priors + Matheron update.
 
-PyTorch twin of ``gogp_tpu/gp/pathwise.py`` (all but its SKI route,
-``sample_paths_ski``).  Decoupled sampling (Wilson et al. 2020) compiles S
+PyTorch twin of ``gogp_tpu/gp/pathwise.py``.  Decoupled sampling (Wilson et al. 2020) compiles S
 posterior sample-FUNCTIONS that evaluate anywhere in O(F + n) per point:
 
     f_post(z) = f_prior(z) + k(z, X) K^{-1} (y - f_prior(X) - eps)
@@ -10,7 +9,9 @@ with ``f_prior`` a random-Fourier-feature draw from the kernel's spectral
 measure (Bochner) and ``eps ~ N(0, noise)``.  Conditioning reuses the
 posterior's cached factor: one ``linalg.cho_solve_mat`` (two blocked TRSMs,
 K5 for their tile inverses, on the card in f32 at n >= 1024), no new
-factorization; every evaluation is two matmuls.
+factorization; every evaluation is two matmuls.  :func:`sample_paths_ski`
+conditions without a factor: one batched CG against the SKI operator
+(``gp.ski``), for n where no dense K exists.
 
 Spectral measures come from the kernel's ``spec`` tag (kernels/base.py), as
 in the JAX twin: ``rbf``, ``matern`` (a chi^2 scale mixture), the
@@ -23,14 +24,9 @@ and ``icm`` leaves under sums (LMC) and ``scaled``.  A kernel without a
 spec raises; use ``gp.serve.serve_sample`` for those.
 
 Random numbers: the JAX twin draws from a key that it splits down the spec
-tree.  Here every function takes a :class:`PathDraws` in the key's place:
-an object that splits as the key does (``split``) and draws the same
-primitives (normal, uniform, gamma, bernoulli, categorical, rademacher, a
-choice without replacement).  :class:`GeneratorDraws` draws from a
-``torch.Generator`` (in float64, cast to the caller's dtype, so that f32 and
-f64 runs from one seed share their draws); the CPU tests hand in JAX's own
-draws through the same interface.  A ``torch.Generator`` may stand in for a
-``PathDraws``; None means a generator on the inputs' device seeded 0.
+tree.  Here every function takes a ``PathDraws`` (``ops.draws``, re-exported
+here) in the key's place; a ``torch.Generator`` may stand in for one, and
+None means a generator on the inputs' device seeded 0.
 
 Inputs: a 1-D ``z`` is a column of 1-D points, as everywhere in the port
 (the JAX twin's ``atleast_2d`` makes it one point).
@@ -39,14 +35,16 @@ Inputs: a 1-D ``z`` is a column of 1-D points, as everywhere in the port
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Protocol
+from typing import NamedTuple
 
 import torch
 
 from gogp_torch.gp.core import GP, Posterior, _like, _points
+from gogp_torch.gp.ski import _resolve_dims, _ski_operator
 from gogp_torch.gp.sparse import DEFAULT_JITTER, _chol_kuu
 from gogp_torch.kernels.base import Kernel
-from gogp_torch.ops import linalg
+from gogp_torch.ops import iterative, linalg
+from gogp_torch.ops.draws import GeneratorDraws, PathDraws, as_draws
 
 Tensor = torch.Tensor
 
@@ -56,74 +54,6 @@ _TWO_PI = 6.283185307179586
 # for the exponentially-scaled Bessel weights exp(-z) I_k(z).
 _PERIODIC_HARMONICS = 64
 _BESSEL_QUAD_POINTS = 256
-
-
-class PathDraws(Protocol):
-    """The draws hook: the JAX twin's key, split and drawn from alike.  Each
-    draw is made on ``ref``'s device in ``ref``'s dtype."""
-
-    def split(self, num: int) -> tuple["PathDraws", ...]: ...
-
-    def normal(self, shape, ref: Tensor) -> Tensor: ...
-
-    def uniform(self, shape, ref: Tensor) -> Tensor: ...  # on [0, 1)
-
-    def gamma(self, a: Tensor, shape, ref: Tensor) -> Tensor: ...  # unit rate, ``a`` broadcasting to shape
-
-    def bernoulli(self, p: float, shape, ref: Tensor) -> Tensor: ...  # bool
-
-    def categorical(self, logits: Tensor, shape) -> Tensor: ...  # int64 indices into logits
-
-    def rademacher(self, shape, ref: Tensor) -> Tensor: ...
-
-    def choice(self, n: int, k: int, ref: Tensor) -> Tensor: ...  # k of range(n), without replacement
-
-
-class GeneratorDraws:
-    """:class:`PathDraws` from one ``torch.Generator``: every split shares
-    it, each draw made when asked for, in float64 on the generator's device
-    (best the inputs' own) and cast to ``ref``'s device and dtype."""
-
-    def __init__(self, rng: torch.Generator):
-        self.rng = rng
-
-    def split(self, num: int) -> tuple["GeneratorDraws", ...]:
-        return (self,) * num
-
-    def _f64(self) -> dict:
-        return dict(generator=self.rng, dtype=torch.float64, device=self.rng.device)
-
-    def normal(self, shape, ref: Tensor) -> Tensor:
-        return torch.randn(shape, **self._f64()).to(ref.device, ref.dtype)
-
-    def uniform(self, shape, ref: Tensor) -> Tensor:
-        return torch.rand(shape, **self._f64()).to(ref.device, ref.dtype)
-
-    def gamma(self, a: Tensor, shape, ref: Tensor) -> Tensor:
-        a = torch.broadcast_to(torch.as_tensor(a, dtype=torch.float64, device=self.rng.device), shape)
-        return torch._standard_gamma(a.contiguous(), generator=self.rng).to(ref.device, ref.dtype)
-
-    def bernoulli(self, p: float, shape, ref: Tensor) -> Tensor:
-        return (torch.rand(shape, **self._f64()) < p).to(ref.device)
-
-    def categorical(self, logits: Tensor, shape) -> Tensor:
-        probs = torch.softmax(logits.to(torch.float64), dim=-1)
-        return torch.multinomial(probs, math.prod(shape), replacement=True, generator=self.rng).reshape(shape)
-
-    def rademacher(self, shape, ref: Tensor) -> Tensor:
-        bits = torch.randint(0, 2, shape, generator=self.rng, device=self.rng.device)
-        return (2 * bits - 1).to(ref.device, ref.dtype)
-
-    def choice(self, n: int, k: int, ref: Tensor) -> Tensor:
-        return torch.randperm(n, generator=self.rng, device=self.rng.device)[:k].to(ref.device)
-
-
-def as_draws(draws, ref: Tensor) -> PathDraws:
-    """``draws`` as a :class:`PathDraws`: a ``torch.Generator`` wrapped in
-    :class:`GeneratorDraws`, None a generator on ``ref``'s device seeded 0."""
-    if draws is None:
-        draws = torch.Generator(device=ref.device).manual_seed(0)
-    return GeneratorDraws(draws) if isinstance(draws, torch.Generator) else draws
 
 
 def _bessel_ive(orders: int, z: Tensor) -> Tensor:
@@ -389,6 +319,29 @@ def eval_paths(gp: GP, ps: PathState, z) -> Tensor:
     return prior + (kstar.T @ ps.v).T
 
 
+def sample_paths_ski(gp: GP, theta_simil, theta_noise, x, y, draws, num_paths: int, num_features: int = 1024,
+                     grid_size: int | tuple = 2048, cg_iters: int = 200, tol: float = 1e-6,
+                     method: str | None = None) -> PathState:
+    """Posterior sample-functions without a factorization: the Matheron
+    solve is one batched CG of the S residuals against the SKI operator
+    (``gp.ski``), O(cg_iters (n 4^d + N log N)).  The :func:`eval_paths`
+    contract, mask all ones.  ``method`` defaults to "scatter" (any input
+    order); "sorted" needs 1-D inputs sorted."""
+    x = _points(x)
+    n, d = x.shape
+    dims = _resolve_dims(grid_size, d)
+    ts = _like(theta_simil, x).reshape(gp.n_theta_simil)
+    tn = _like(theta_noise, x).reshape(gp.n_theta_noise)
+    kp, ke = as_draws(draws, x).split(2)
+    feat, w = prior_paths(gp.simil, ts, kp, num_paths, num_features, gp.ndim)
+    f_train = eval_prior_paths(feat, w, x)  # (S, n)
+    eps = torch.sqrt(gp.noise.vector(tn, x))[None, :] * ke.normal(f_train.shape, f_train)
+    resid = _like(y, x)[None, :] - f_train - eps  # (S, n)
+    mv = _ski_operator(gp, ts, tn, x, dims, "scatter" if method is None else method)
+    v, _ = iterative.cg_solve(mv, resid.T, cg_iters, tol)  # (n, S)
+    return PathState(feat, w, v, ts, x, torch.ones(n, dtype=x.dtype, device=x.device))
+
+
 def sample_paths_laplace(gp: GP, post, draws, num_paths: int, num_features: int = 1024) -> PathState:
     """Posterior sample-functions of the LATENT f from a fitted Laplace
     posterior (``gp.laplace.LaplacePosterior``, one problem).
@@ -478,5 +431,6 @@ __all__ = [
     "sample_features",
     "sample_paths",
     "sample_paths_laplace",
+    "sample_paths_ski",
     "sample_paths_svgp",
 ]
