@@ -89,17 +89,18 @@ process per source) and then runs these phases, each printing JSON lines:
               (counted by wrapping ``chees.run_chees``), with 50 finite
               forecast rows; one transition from its sampler's final state
               on both routes with the same draws; the same command line
-              under force_plain at 128 + 128 transitions (none of its calls
+              under force_plain at 128 + 128 transitions (in a whole run in
+              a worker beside this process's; none of its calls
               may launch K7).
 
 9. samplers - the other engines and options of the command line, each
               through ``bayes.main`` in process on the card's default
               route with its run function wrapped to count the
               log-joint's calls and its launch counts set to 0 just
-              before.  On hyperpriors, each in a worker process (5 at a
-              time, started before the bayes phase's runs and running
-              beside them, the other samplers runs and the evaluate
-              phase): NUTS (the JAX package's default command) and HMC at
+              before.  Each in a worker process (5 at a time, started
+              before the bayes phase's runs and running beside them and the
+              evaluate phase, with the bayes phase's plain-route run and
+              the exact leg's sampler): on hyperpriors NUTS (the JAX package's default command) and HMC at
               the JAX command line's defaults (4 chains, 400 + 512
               transitions, trees up to depth 10, trajectories up to 1024
               steps; NUTS at 200 warmup transitions); PT-ChEES at its
@@ -110,10 +111,10 @@ process per source) and then runs these phases, each printing JSON lines:
               128 + 128 (the race's probe 4 arms x 64 chains, 32
               transitions); tempering.run_pt_nuts (no command line runs it
               on one device) at 8 replicas, depth 6, 128 + 128 sweeps,
-              through ``pt_nuts_main``.  In this process: ADVI on
-              hyperpriors (1600 steps of 8 draws), HMC (cut to 20 + 32
-              transitions) beside ADVI on anynoise, full-rank ADVI and SMC
-              (512 particles) on barebones.  NUTS's trees (leapfrog steps
+              through ``pt_nuts_main``; ADVI on hyperpriors (1600 steps
+              of 8 draws), HMC (cut to 20 + 32 transitions) and ADVI on
+              anynoise, full-rank ADVI and SMC (512 particles) on
+              barebones.  NUTS's trees (leapfrog steps
               per transition, depths and their spread across chains,
               divergences); for every MCMC run ms per transition and per
               value and gradient, ESS, ESS/s and R-hat; each NUTS and HMC
@@ -302,11 +303,41 @@ process per source) and then runs these phases, each printing JSON lines:
               cut's transitions: ms per value and gradient, acceptance, step
               size, ESS, R-hat, ESS/s, finite_frac.
               These four phases hold every engine call's launches of the
-              port's kernels to 0.
+              port's kernels to 0.  They run alone (beside the samplers'
+              workers they and the workers took about twice as long); the
+              ski phase's f64 reference of the paths' mean is predict_ski's
+              mu from its CG on y alone (without the variance's columns).
+22. large_n_bayes_exact - the exact leg of benchmarks/large_n_bayes.py (its
+              default, :45-63, 132-240): bench.py's noisy sine at n = 1024,
+              8 chains, N(0, 1) priors, the batched log-joint
+              ``torch.func.vmap`` of gp_observe plus the priors, as
+              tutorial/bayes.py builds one, on the batched route (the
+              library's batched Cholesky, one K5 launch over the 64 diagonal
+              tiles, K4 over the batch both ways).  With no worker beside
+              it: the MLE warm start (Adam 300 at 0.05 under force_plain),
+              K2, K4 both ways and K5 against their plain versions at this
+              path's shapes, one batched value and gradient of the 8 chains
+              on the kernel route and under force_plain at "tensorfloat32"
+              and "float32" (walls; errors against f64 on the plain route;
+              the launches of one call, K5 and K4 once each way).  Then, in
+              a whole run in a worker beside the samplers': ChEES (step 0.01,
+              trajectory 0.1, spread 0.05, at most 64 steps) for 256 + 256
+              transitions at "tensorfloat32", and the predictive mixture of
+              the chains' last draws at 256 points (the stepwise driver, K2
+              once per block column over the 8 draws, and the blocked TRSM)
+              against f64; acceptance, step, ESS, R-hat, the NaN fraction;
+              launches held: K5 and K4 both ways once per value and
+              gradient, K2 once per block column, no K1.
+23. utils    - a ServingPosterior at n = 4096 through utils.save and
+              utils.restore, serving bit-identical answers; utils.timed of
+              one request batch beside this script's event and wall times
+              of it; 100 batches of 4096 rows of a packed 65536-row
+              dataset from the native loader and the Python stream,
+              bit-identical.
 
 With ``--phases a,b,...`` (of kernels, k5, k7, gate, stamps, coldstart,
 slice, train, large, serve, classify, sparse, surface, pathwise, bo,
-search, iterative, toeplitz, ski, large_n_bayes, bayes, samplers, evaluate; k7 is the
+search, iterative, toeplitz, ski, large_n_bayes, large_n_bayes_exact, utils, bayes, samplers, evaluate; k7 is the
 bayes phase's kernel checks without its sampler runs, gate times K3 against
 K4 at n = 24576 to 65536, stamps records the stages of K2, K5 and K4's chain
 step and coldstart takes apart a process's first laplace_fit, the last three
@@ -316,7 +347,7 @@ run, after device and build, and the script ends with ``{"ok": false,
 
 With ``--profile``, one more phase follows:
 
-22. profile - one serving slice run, one train and one large value-and-gradient
+24. profile - one serving slice run, one train and one large value-and-gradient
               step, one 64-chain value and gradient of the bayes path and one
               127-prefix value and gradient of the evaluate path, on each
               path under torch.profiler: the device's busy time and idle
@@ -358,7 +389,9 @@ from gogp_torch.ops import _build, fused_gp, iterative, linalg
 from gogp_torch.ops import ski as ski_ops
 from gogp_torch.ops import toeplitz as toeplitz_ops
 from gogp_torch.ops import cholesky_blocked as cb
-from gogp_torch.tutorial import bayes, classify
+from gogp_torch.utils import dataio
+from gogp_torch import utils as gutils
+from gogp_torch.tutorial import bayes, classify, plot
 from gogp_torch.tutorial import evaluate as tev
 from gogp_torch.tutorial import io as tio
 
@@ -483,17 +516,18 @@ def work(key: str, shape) -> tuple[float, float]:
         # factorizations with their pullbacks, about 7 m^3
         n, m = shape
         return 4 * (2 * n + 2 * m + 3), 10 * m * m * n + 7 * m**3
-    if key == "chol_inv_tile":  # the tile in; L and inv(L) out
-        return 4 * 3 * b * b, 2 * b**3 / 3
+    count = math.prod(shape[:-2])  # a stack's matrices or tiles (1 for one)
+    if key == "chol_inv_tile":  # each tile in; L and inv(L) out
+        return count * 4 * 3 * b * b, count * 2 * b**3 / 3
     if key == "chol_tile":
         return 4 * 2 * b * b, b**3 / 3
     if key == "tril_inv_tile":
-        count = shape[0] if len(shape) == 3 else 1
         return 4 * 2 * count * b * b, count * b**3 / 3
     # K3 and K4: the strictly lower block triangle and the tile inverses,
-    # y in, x out; a multiply-add per float of L and of the inverses
-    n = shape[0]
-    return 4 * (n * (n - b) / 2 + n * b + 2 * n), n * (n - b) + 2 * n * b
+    # y in, x out; a multiply-add per float of L and of the inverses; a
+    # batch of solves that many times
+    n = shape[-1]
+    return count * 4 * (n * (n - b) / 2 + n * b + 2 * n), count * (n * (n - b) + 2 * n * b)
 
 
 def bound(key: str, shape) -> tuple[float, str]:
@@ -902,9 +936,8 @@ def synthetic_factor(n: int, dev):
 
 
 def diag_tiles(L: torch.Tensor) -> torch.Tensor:
-    """The (n/b, b, b) stack of L's diagonal tiles, contiguous."""
-    n = L.shape[0]
-    return L.view(n // BLOCK, BLOCK, n // BLOCK, BLOCK).diagonal(dim1=0, dim2=2).permute(2, 0, 1).contiguous()
+    """The (..., n/b, b, b) stack of L's diagonal tiles, contiguous."""
+    return cb._diag_tiles(L, BLOCK).contiguous()
 
 
 def phase_gate(dev) -> None:
@@ -972,8 +1005,8 @@ def col_rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
 
 
 def phase_k5(dev) -> dict:
-    """K5 at each path's count of tiles (train 12, serve 32, large 128, on
-    each path's own factor) and at K5_FAR_COUNT synthetic tiles, at every
+    """K5 at each path's count of tiles (train 12, serve 32,
+    large_n_bayes_exact 64, large 128, on each path's own factors) and at K5_FAR_COUNT synthetic tiles, at every
     split of K5_SPLITS against its plain version, with device times of each
     split, of the wrapper, of the plain version and of ``solve_triangular``;
     then K5 on ill-conditioned tiles against f64.  Returns {count: ms by
@@ -983,6 +1016,7 @@ def phase_k5(dev) -> dict:
         "train": diag_tiles(cb.fused_cholesky_invs(train_cov(N_TRAIN, dev))[0]),
         "serve": diag_tiles(cb.blocked_cholesky_invs(core.masked_cov(gp, ts, tn, x, None), BLOCK)[0]),
         "large": diag_tiles(cb.blocked_cholesky_invs(large_cov(N_LARGE, dev), BLOCK)[0]),
+        "large_n_bayes_exact": diag_tiles(torch.linalg.cholesky(lnbx_covs(dev)).contiguous()).reshape(-1, BLOCK, BLOCK),
         f"count={K5_FAR_COUNT}": diag_tiles(synthetic_factor(K5_FAR_COUNT * BLOCK, dev)[0]),
     }
     eye = torch.eye(BLOCK, device=dev)
@@ -1065,6 +1099,9 @@ TRAIN_KERNELS = ("fused_cholesky_invs", *solve_keys(N_TRAIN), "tril_inv_tile")
 LARGE_KERNELS = ("chol_inv_tile", *solve_keys(N_LARGE), "tril_inv_tile")
 # The bayes path's: K7, once per value-and-gradient of the chain batch.
 BAYES_KERNELS = ("fused_gp_linv",)
+# the exact leg of large_n_bayes: K4 both ways and K5 on each batched value
+# and gradient, K2 (and K5) in the predictive mixture
+LNBX_KERNELS = ("chol_inv_tile", "trsv2d_lower", "trsv2d_lower_t", "tril_inv_tile")
 # K6 is on no path, and neither is the solver the gate leaves no path's size
 # to (K3 as measured, K4 from n = 1024 on): their entries count their
 # launches in the kernels phase.
@@ -1102,7 +1139,7 @@ PATH_KERNELS = {"serve": SERVE_KERNELS, "train": TRAIN_KERNELS, "large": LARGE_K
                 "serve_cache": SERVE_CACHE_KERNELS, "classify": CLASSIFY_KERNELS,
                 "sparse": SPARSE_KERNELS, "surface": SURFACE_KERNELS,
                 "pathwise": PATHWISE_KERNELS, "bo": BO_KERNELS, "search": SEARCH_KERNELS,
-                "bayes": BAYES_KERNELS,
+                "bayes": BAYES_KERNELS, "large_n_bayes_exact": LNBX_KERNELS,
                 "evaluate": EVALUATE_KERNELS, "evaluate_hyperpriors": EVALUATE_KERNELS,
                 **{path: ("fused_gp_linv",) for path in SAMPLER_PATHS},
                 "kernels": ("chol_tile", *OFF_PATH_SOLVES)}
@@ -1430,6 +1467,27 @@ def run_main(warmup: int, samples: int) -> dict:
             "calls": {"init_and_warmup": mark["calls"], "sampling": calls[0] - mark["calls"]}}
 
 
+def plain_route_run() -> dict:
+    """The bayes phase's command line on the plain route, cut to
+    PLAIN_WARMUP + PLAIN_SAMPLES, as plain data (its draws on the CPU) with
+    its K7 launches (none may happen)."""
+    before = cb.LAUNCHES["fused_gp_linv"]
+    with linalg.force_plain():
+        run = run_main(PLAIN_WARMUP, PLAIN_SAMPLES)
+    samples = run["samples"]
+    run["samples"] = {"positions": samples.positions.cpu(), "accept_probs": samples.accept_probs.cpu()}
+    return {**run, "k7_launches": cb.LAUNCHES["fused_gp_linv"] - before}
+
+
+def bayes_plain_worker() -> dict:
+    """:func:`plain_route_run` in a worker process (spawned, as
+    :func:`sampler_worker`), beside the K7 route's run in the main process."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.library()
+    return plain_route_run()
+
+
 def _posterior_summary(pos: torch.Tensor) -> dict:
     """Diagnostics of (draws, chains, dim) positions, in f64."""
     by_chain = pos.permute(1, 0, 2).double()
@@ -1440,9 +1498,10 @@ def _posterior_summary(pos: torch.Tensor) -> dict:
             "max_bulk_rhat": max_rhat, "converged_rhat_1.01": converged, **diagnostics.diagnose(by_chain)}
 
 
-def phase_bayes(dev, rows: dict | None = None) -> dict:
+def phase_bayes(dev, rows: dict | None = None, plain_pending=None) -> dict:
     # 1. K7 against its plain version at the path's shapes (``rows``, where
-    # phase_k7 ran already)
+    # phase_k7 ran already); ``plain_pending``: the plain route's command
+    # line running in a worker (a whole run), else it runs here
     rows = phase_k7(dev) if rows is None else rows
 
     # 2. the value and gradient of the log-joint the sampler runs, K7 route
@@ -1483,16 +1542,14 @@ def phase_bayes(dev, rows: dict | None = None) -> dict:
 
     # the command line on the plain route, cut to PLAIN_WARMUP +
     # PLAIN_SAMPLES: no K7 launch
-    before = cb.LAUNCHES["fused_gp_linv"]
-    with linalg.force_plain():
-        plain_run = run_main(PLAIN_WARMUP, PLAIN_SAMPLES)
-    plain_launches = cb.LAUNCHES["fused_gp_linv"] - before
-    ppos, pacc = plain_run["samples"].positions, plain_run["samples"].accept_probs
+    plain_run = plain_route_run() if plain_pending is None else plain_pending.get()
+    plain_launches = plain_run["k7_launches"]
+    ppos, pacc = (plain_run["samples"][k].to(dev) for k in ("positions", "accept_probs"))
     plain = _posterior_summary(ppos)
     gap = (k7["mean"] - plain["mean"]) / torch.sqrt(k7["mcse"] ** 2 + plain["mcse"] ** 2)
 
-    def route(run, summ, warmup):
-        walls, accepts, lines = run["walls"], run["samples"].accept_probs, run["lines"]
+    def route(run, summ, warmup, accepts):
+        walls, lines = run["walls"], run["lines"]
         transitions = warmup + accepts.shape[0]
         rows = np.array([[float(v) for v in line.split(",")] for line in lines[:-1]])
         return {"argv": run["argv"], "main_wall_s": run["wall_s"], "wall_s": walls, "vg_calls": run["calls"],
@@ -1511,9 +1568,9 @@ def phase_bayes(dev, rows: dict | None = None) -> dict:
         "same_accept_decisions": same_accepts, "transition_leapfrog_steps": n_steps,
         "transition_accepted": int(accepted["k7"].sum()), "launches": launches, "vg_calls": vg_calls,
         "plain_route_k7_launches": plain_launches,
-        "k7_route": {**route(k7_run, k7, BAYES_WARMUP), "step_size": float(final.step_size),
+        "k7_route": {**route(k7_run, k7, BAYES_WARMUP, acc), "step_size": float(final.step_size),
                      "traj_length": float(torch.exp(final.log_traj)), "inv_mass": final.inv_mass.tolist()},
-        "plain_route": route(plain_run, plain, PLAIN_WARMUP),
+        "plain_route": route(plain_run, plain, PLAIN_WARMUP, pacc),
         "mean_gap_in_mcse": gap.tolist(),
     }
     emit(report)
@@ -1586,7 +1643,8 @@ SAMPLER_RUNS = (
     ("advi_full", ["barebones", "--engine", "advi-full", "selfcheck"]),
     ("smc", ["barebones", "--engine", "smc", "selfcheck"]),
 )
-SAMPLER_WORKERS = ("pt_chees", "nuts", "pt_nuts", "chees_race", "chees_pops", "hmc", "ghmc")
+SAMPLER_WORKERS = ("pt_chees", "nuts", "pt_nuts", "chees_race", "chees_pops", "hmc", "anynoise_hmc", "ghmc",
+                   "anynoise_advi", "advi", "advi_full", "smc")
 SAMPLER_POOL = 5
 # The function each engine runs, wrapped to count its log-joint's calls
 # (ChEES with --pops: run_chees_pops).
@@ -2030,13 +2088,19 @@ def check_start(logp, free, chains: int, step: float, inv_mass: torch.Tensor, de
                           inv_mass=inv_mass.to(start.inv_mass).expand_as(start.inv_mass).clone())
 
 
-def start_sampler_workers():
+def start_sampler_workers(lnbx_x0: list | None = None):
     """The SAMPLER_WORKERS runs of the samplers path, each in a worker
-    process, SAMPLER_POOL at a time in SAMPLER_WORKERS' order: (the pool,
-    {label: its pending report})."""
+    process, SAMPLER_POOL at a time in SAMPLER_WORKERS' order, after (with
+    ``lnbx_x0``, in a whole run) the bayes phase's plain-route command line,
+    which that phase waits for, and the exact leg's sampler from
+    ``lnbx_x0``: (the pool, {label: its pending report}, {"bayes_plain":
+    ..., "lnbx": ...} pending or {})."""
     pool = multiprocessing.get_context("spawn").Pool(SAMPLER_POOL)
     argvs = dict(SAMPLER_RUNS)
-    return pool, {label: pool.apply_async(sampler_worker, (label, argvs[label])) for label in SAMPLER_WORKERS}
+    others = {} if lnbx_x0 is None else {"bayes_plain": pool.apply_async(bayes_plain_worker),
+                                         "lnbx": pool.apply_async(lnbx_worker, (lnbx_x0,))}
+    pending = {label: pool.apply_async(sampler_worker, (label, argvs[label])) for label in SAMPLER_WORKERS}
+    return pool, pending, others
 
 
 def sampler_runs_here() -> dict:
@@ -2045,7 +2109,7 @@ def sampler_runs_here() -> dict:
 
 
 def phase_samplers(dev) -> dict:
-    pool, pending = start_sampler_workers()
+    pool, pending, _ = start_sampler_workers()
     with pool:
         return finish_samplers(dev, sampler_runs_here(), pending)
 
@@ -2381,6 +2445,20 @@ def phase_evaluate(dev) -> dict:
                         f"{plain_call} under force_plain (want 1 and 0)")
     if not seq_err <= EVAL_BOUNDS["sequential"]:
         failures.append(f"sequential against batched: {seq_err:.3e} > {EVAL_BOUNDS['sequential']}")
+    # the forecast CSV the command line prints (barebones, f32), read back
+    # by tutorial.plot's loader (numpy only: the card's machine has no
+    # matplotlib to plot it), row for row to the CSV's six decimals
+    rows = np.asarray(runs32["barebones"]["result"].rows)
+    buf = io.StringIO()
+    tio.write_forecast_rows(buf, rows)
+    buf.seek(0)
+    fx, fy, fmu, fsd = plot.load_forecast(buf)
+    csv_err = float(np.abs(np.stack([fx[:, 0], fy, fmu, fsd], 1) - rows[:, :4]).max()) if fx.shape == (
+        rows.shape[0], 1) else float("inf")
+    emit({"phase": "evaluate", "check": "forecast_csv", "study": "barebones", "rows": rows.shape[0],
+          "max_abs_err": csv_err})
+    if not csv_err <= 1e-6:
+        failures.append(f"the forecast CSV read back by plot.load_forecast is {csv_err:.3e} off its rows")
 
     if failures:
         raise AssertionError(f"evaluate path: {failures}")
@@ -4510,6 +4588,20 @@ def operator_errors(gp, log_theta, x, y, dims, methods, b, failures, label) -> d
     return errs
 
 
+def ski_mean(gp, theta_simil, theta_noise, x, y, z, grid_size: int) -> torch.Tensor:
+    """predict_ski's mu (its defaults: the "sorted" W^T in 1-D, CG 200 at
+    tol 1e-6) without its variance's columns: the same operator and CG on y
+    alone (each CG column runs and stops on its own, so y's column gives the
+    whole call's alpha), then mu = Kstar^T alpha, M points at a time."""
+    x = gski._points(x)
+    ts, tn, _ = gski._thetas(gp, theta_simil, theta_noise, x)
+    order = torch.argsort(x[:, 0], stable=True)
+    x, y = x[order], gski._like(y, x)[order]
+    mv = gski._ski_operator(gp, ts, tn, x, gski._resolve_dims(grid_size, 1), "sorted")
+    alpha = iterative.cg_solve(mv, y[:, None], 200, 1e-6)[0][:, 0]
+    return torch.cat([gp.simil.matrix(ts, x, gski._points(zz)).T @ alpha for zz in z.split(M)])
+
+
 def phase_ski(dev) -> dict:
     """SKI at n = 65536 (each W^T form in f32 and f64 on the same probes,
     matrix-free beside them, predict_ski against predict_iterative), in 2-D
@@ -4623,8 +4715,8 @@ def phase_ski(dev) -> dict:
     walls["eval_paths"] = wall_ms(lambda: pathwise.eval_paths(gpp, ps, zp))
     errors["paths_f32_vs_f64_abs"] = float((fs.double() - fs64).abs().max())
     errors["paths_f64_max_abs"] = float(fs64.abs().max())
-    mu_p, walls["predict_ski_path_mean_f64"], peaks["predict_ski_path_mean_f64"], _ = traced_call(lambda: torch.cat(
-        [gski.predict_ski(gpp, th64[:2], th64[2:], xp64, yp64, zz, G_SKIPATH)[0] for zz in zp.double().split(M)]))
+    mu_p, walls["predict_ski_path_mean_f64"], peaks["predict_ski_path_mean_f64"], _ = traced_call(
+        lambda: ski_mean(gpp, th64[:2], th64[2:], xp64, yp64, zp.double(), G_SKIPATH))
     for label, paths in (("f64", fs64), ("f32", fs)):
         paths = paths.double()
         se = paths.std(0) / SKIPATH_S**0.5
@@ -4742,6 +4834,300 @@ def phase_large_n_bayes(dev) -> dict:
     return {}
 
 
+# The exact leg of benchmarks/large_n_bayes.py (:45-63, 132-240, its
+# default): ChEES over the 3 log-thetas of bench.py's noisy sine at n = 1024
+# (x sorted uniform on [0, 100] in f32, y = sin(x/3) + 0.1 N(0, 1) from numpy
+# seed 0), rbf.scaled() + uniform_noise, N(0, 1) priors, 8 chains.  The
+# batched log-joint is ``torch.func.vmap`` of gp_observe plus the priors, as
+# tutorial/bayes.py builds one: on the card it takes the batched route (the
+# library's batched Cholesky, one K5 launch over the 8 x 8 diagonal tiles, K4
+# over the batch both ways), at the twin's default precision "tensorfloat32".
+# The MLE warm start is Adam 300 at 0.05 on the plain route (the twin's
+# force_xla); then spread 0.05, step 0.01, trajectory 0.1, at most 64
+# leapfrog steps, 256 + 256 transitions; the predictive mixture of the
+# chains' last draws at 256 points runs the stepwise driver (K2 over the 8
+# draws, once per block column) and the blocked TRSM (K5).
+N_LNBX, LNBX_CHAINS, LNBX_SEED, LNBX_M = 1024, 8, 0, 256
+LNBX_WARMUP, LNBX_SAMPLES = 256, 256
+LNBX_ADAM_ITERS, LNBX_ADAM_RATE = 300, 0.05
+LNBX_PRECISION = "tensorfloat32"
+# Bounds: 10x the errors that tests/batched_bounds.py shows on the CPU at
+# the phase's full size and at its starting positions (f32 against f64 on
+# the plain route; TF32 emulated by cutting the blocked drivers' matmul
+# inputs to 10 mantissa bits; each kernel's algorithm against its plain
+# version in f32 at the phase's shapes), in brackets.  The first bounds,
+# from another 8 positions and with TF32 rounded to nearest, put the
+# gradient at "tensorfloat32" at 3.0e-3; an H100 showed 4.9e-3 (PERF.md).
+LNBX_BOUNDS = {
+    "value_rtol": 1.3e-4,  # each chain's log-joint, both precisions (1.24e-5)
+    "grad_f32_rtol": 4.8e-3,  # the gradient at "float32", of its largest entry (4.75e-4)
+    "grad_tf32_rtol": 5.3e-2,  # at "tensorfloat32" (5.29e-3, emulated)
+    "k4_rtol": 4.8e-5,  # K4 both ways on the 8 factors (4.78e-6, 4.66e-6)
+    "k5_rtol": 2.0e-5,  # K5 on the 64 diagonal tiles (1.93e-6)
+    "k2_rtol": 1.4e-3,  # K2 on the 8 first diagonal tiles: factor 3.87e-5, inverse 1.37e-4
+    "mixture_mu_atol": 2.9e-4,  # the mixture's mean (2.90e-5)
+    "mixture_sigma_atol": 2.9e-4,  # and std (2.84e-5)
+}
+# The launches of one batched value and gradient on the kernel route.
+LNBX_CALL_LAUNCHES = {"tril_inv_tile": 1, "trsv2d_lower": 1, "trsv2d_lower_t": 1}
+
+
+def lnbx_problem(dtype: torch.dtype, dev):
+    """large_n_bayes.py's build_problem (:45-63): x in f32 (both dtypes hold
+    the same inputs), y from the f32 x."""
+    rng = np.random.default_rng(0)
+    x = np.sort(rng.uniform(0, 100, (N_LNBX, 1)), axis=0).astype(np.float32)
+    y = np.sin(x[:, 0].astype(np.float64) / 3.0) + 0.1 * rng.normal(size=N_LNBX)
+    gp = GP(ndim=1, simil=rbf.scaled(), noise=uniform_noise)
+    return gp, torch.as_tensor(x, dtype=dtype, device=dev), torch.as_tensor(y.astype(np.float32), dtype=dtype,
+                                                                             device=dev)
+
+
+def lnbx_covs(dev, V: torch.Tensor | None = None) -> torch.Tensor:
+    """The exact leg's (chains, n, n) covariances at log-thetas V (f32);
+    by default the chains' spread around 0."""
+    gp, x, _ = lnbx_problem(torch.float32, dev)
+    if V is None:
+        V = LNB_SPREAD * torch.randn((LNBX_CHAINS, 3), generator=torch.Generator(device=dev).manual_seed(0),
+                                     device=dev)
+    return torch.func.vmap(lambda t: core.masked_cov(gp, t[:2], t[2:], x, None))(torch.exp(V))
+
+
+def lnbx_positions(v_mle: torch.Tensor) -> torch.Tensor:
+    """The chains' starting positions: the MLE plus LNB_SPREAD N(0, 1) from
+    numpy (seed LNBX_SEED + 1), the same draws on any device, so that the
+    CPU runs behind LNBX_BOUNDS (tests/batched_bounds.py) start where the
+    card does."""
+    eps = np.random.default_rng(LNBX_SEED + 1).normal(size=(LNBX_CHAINS, 3))
+    return v_mle[None, :] + LNB_SPREAD * torch.as_tensor(eps, dtype=v_mle.dtype, device=v_mle.device)
+
+
+def lnbx_logp(gp, x, y, precision=None):
+    """The batched log-joint as tutorial/bayes.py builds one:
+    ``torch.func.vmap`` of gp_observe plus N(0, 1) priors."""
+
+    def one(v):
+        return gp_observe(gp, v, x=x, y=y, precision=precision) + dists.normal_logp(0.0, 1.0, v).sum()
+
+    return torch.func.vmap(one)
+
+
+def lnbx_kernel_cases(x, y, V) -> dict:
+    """K2, K4 both ways and K5 at the shapes this path gives them, on the
+    covariances of the positions V: key -> (kernel, plain, shape, reps,
+    library, rtol)."""
+    Ks = lnbx_covs(x.device, V)
+    L = torch.linalg.cholesky(Ks).contiguous()
+    tiles = diag_tiles(L)  # (8, 8, 128, 128): the LML core's one K5 launch
+    invs = cb.tril_inv_tile_plain(tiles).contiguous()
+    y8 = y.expand(V.shape[0], -1).contiguous()
+    z = cb.trsv_lower_plain(L, y8).contiguous()
+    first = Ks[:, :BLOCK, :BLOCK].contiguous()  # the stepwise driver's first K2 launch over the 8 draws
+    eye = torch.eye(BLOCK, device=x.device)
+    b = LNBX_BOUNDS
+    return {
+        "chol_inv_tile": (lambda: cb.cholesky_inv_tile(first), lambda: cb.cholesky_inv_tile_plain(first), first.shape,
+                          50, lambda: torch.linalg.solve_triangular(torch.linalg.cholesky(first), eye, upper=False),
+                          b["k2_rtol"]),
+        "trsv2d_lower": (lambda: cb.trsv2d_lower(L, y8, invs, BLOCK), lambda: cb.trsv_lower_plain(L, y8), L.shape, 20,
+                         lambda: torch.linalg.solve_triangular(L, y8[..., None], upper=False), b["k4_rtol"]),
+        "trsv2d_lower_t": (lambda: cb.trsv2d_lower_t(L, z, invs, BLOCK), lambda: cb.trsv_lower_t_plain(L, z), L.shape,
+                           20, lambda: torch.linalg.solve_triangular(L.mT, z[..., None], upper=True), b["k4_rtol"]),
+        "tril_inv_tile": (lambda: cb.tril_inv_tile(tiles), lambda: cb.tril_inv_tile_plain(tiles), tiles.shape, 20,
+                          lambda: torch.linalg.solve_triangular(tiles, eye, upper=False), b["k5_rtol"]),
+    }
+
+
+def phase_large_n_bayes_exact(dev) -> dict:
+    """The exact leg of large_n_bayes.py, its parts that time the card (no
+    worker beside them): the MLE warm start, the chains' starting positions,
+    K2, K4 both ways and K5 against their plain versions at this path's
+    shapes, one batched value and gradient of the 8 chains on the kernel
+    route and under force_plain at both precisions (walls, errors against
+    f64 on the plain route, the launches of one call).  Returns the rows and
+    the starting positions for :func:`lnbx_sampler`."""
+    failures = []
+    b = LNBX_BOUNDS
+    gp, x, y = lnbx_problem(torch.float32, dev)
+    _, x64, y64 = lnbx_problem(torch.float64, dev)
+    # the MLE warm start on the plain route, f32
+    t0 = time.perf_counter()
+    with linalg.force_plain():
+        vg1 = hmc.value_and_grad(lnbx_logp(gp, x, y), None)
+        opt = mle.adam(lambda v: tuple(t[0] for t in vg1(v[None])), torch.zeros(3, device=dev),
+                       iters=LNBX_ADAM_ITERS, rate=LNBX_ADAM_RATE)
+    torch.cuda.synchronize()
+    mle_s = time.perf_counter() - t0
+    x0 = lnbx_positions(opt.x)
+
+    rows = {}
+    for key, (kernel, plain, shape, reps, library, rtol) in lnbx_kernel_cases(x, y, x0).items():
+        rows["large_n_bayes_exact", key] = check_kernel("large_n_bayes_exact", key, kernel, plain, shape, reps,
+                                                        library, rtol=rtol)
+
+    with linalg.force_plain():
+        want_v, want_g = hmc.value_and_grad(lnbx_logp(gp, x64, y64), None)(x0.double())
+    errors, vg_ms, launches = {}, {}, {}
+    for precision in ("tensorfloat32", "float32"):
+        vg = hmc.value_and_grad(lnbx_logp(gp, x, y, precision), None)
+        cb.reset_launch_counts()
+        v, g = vg(x0)
+        torch.cuda.synchronize()
+        launches[precision] = {k: n for k, n in cb.LAUNCHES.items() if n}
+        errors[precision] = {"value_rel": float(((v.double() - want_v).abs() / want_v.abs()).max()),
+                             "grad_rel": float((g.double() - want_g).abs().max() / want_g.abs().max())}
+        vg_ms[f"kernels_{precision}"] = wall_ms(lambda: vg(x0), reps=21)
+        with linalg.force_plain():
+            vg_ms[f"plain_{precision}"] = wall_ms(lambda: vg(x0), reps=21)
+        if launches[precision] != LNBX_CALL_LAUNCHES:
+            failures.append(f"one value and gradient at {precision} launched {launches[precision]}, "
+                            f"expected {LNBX_CALL_LAUNCHES}")
+        grad_bound = b["grad_tf32_rtol" if precision == "tensorfloat32" else "grad_f32_rtol"]
+        if not (errors[precision]["value_rel"] <= b["value_rtol"] and errors[precision]["grad_rel"] <= grad_bound):
+            failures.append(f"value and gradient at {precision} off f64: {errors[precision]}")
+    emit({"phase": "large_n_bayes_exact_setup", "n": N_LNBX, "chains": LNBX_CHAINS, "bounds": b,
+          "mle": {"v": opt.x.tolist(), "value": float(opt.value), "wall_s": mle_s}, "x0": x0.tolist(),
+          "vg_ms": vg_ms, "errors": errors, "launches_one_call": launches})
+    if failures:
+        raise AssertionError(f"large_n_bayes_exact phase: {failures}")
+    return {"rows": rows, "x0": x0.tolist()}
+
+
+def lnbx_sampler(dev, x0: list) -> dict:
+    """The exact leg's main path from ``x0``: ChEES over the 8 chains for
+    LNBX_WARMUP + LNBX_SAMPLES transitions on the kernel route at
+    LNBX_PRECISION, then the predictive mixture of the chains' last draws at
+    LNBX_M points against f64 on the plain route, the launch counts of both
+    set to 0 just before and held (K5 and K4 both ways once per value and
+    gradient, K5 once and K2 once per block column in the mixture, no K1).
+    Reports acceptance, step size, ESS, R-hat and the NaN fraction; a chain
+    that does not mix is reported, not held.  Returns the report and the
+    launch counts."""
+    failures = []
+    gp, x, y = lnbx_problem(torch.float32, dev)
+    _, x64, y64 = lnbx_problem(torch.float64, dev)
+    logp = lnbx_logp(gp, x, y, LNBX_PRECISION)
+    calls = [0]
+
+    def counted(V):
+        calls[0] += 1
+        return logp(V)
+
+    x0 = torch.tensor(x0, device=dev)
+    cb.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = chees.run_chees(counted, x0, torch.Generator(device=dev).manual_seed(LNBX_SEED), num_warmup=LNBX_WARMUP,
+                          num_samples=LNBX_SAMPLES, init_step_size=LNB_STEP, init_traj_length=LNB_TRAJ,
+                          max_num_steps=LNB_MAX_STEPS)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    sampler_launches = dict(cb.LAUNCHES)
+    last = res.positions[-1]  # (chains, 3)
+    z = torch.linspace(0.0, 100.0, LNBX_M, device=dev)
+    mix = core.predict_mixture(gp, last, x, y, z)
+    torch.cuda.synchronize()
+    launches = dict(cb.LAUNCHES)
+    with linalg.force_plain():
+        mix64 = core.predict_mixture(gp, last.double(), x64, y64, z.double())
+    expect = {k: 0 for k in launches} | {"trsv2d_lower": calls[0], "trsv2d_lower_t": calls[0],
+                                         "tril_inv_tile": calls[0] + 1, "chol_inv_tile": N_LNBX // BLOCK}
+    if launches != expect:
+        failures.append(f"launched {launches}, expected {expect} ({calls[0]} value-and-gradient calls)")
+    if sampler_launches["chol_inv_tile"] or sampler_launches["fused_cholesky_invs"]:
+        failures.append(f"the sampler launched K1 or K2: {sampler_launches}")
+    err = {"mu_abs": float((mix[0].double() - mix64[0]).abs().max()),
+           "sigma_abs": float((mix[1].double() - mix64[1]).abs().max())}
+    if not (err["mu_abs"] <= LNBX_BOUNDS["mixture_mu_atol"] and err["sigma_abs"] <= LNBX_BOUNDS["mixture_sigma_atol"]):
+        failures.append(f"mixture off f64: {err}")
+    summ = _posterior_summary(res.positions)
+    finite_frac = float(torch.isfinite(res.logps).double().mean())
+    if not (finite_frac == 1.0 and finite(res.positions, *mix)):
+        failures.append("non-finite chains or mixture")
+    out = {"phase": "large_n_bayes_exact", "n": N_LNBX, "chains": LNBX_CHAINS, "warmup": LNBX_WARMUP,
+           "samples": LNBX_SAMPLES, "precision": LNBX_PRECISION, "run_wall_s": run_s, "vg_calls": calls[0],
+           "ms_per_vg_in_run": 1e3 * run_s / max(calls[0], 1),
+           "accept_sampling": float(res.accept_probs.mean()), "step_size": float(res.state.step_size),
+           "traj_length": float(torch.exp(res.state.log_traj)), "min_bulk_ess": summ["min_bulk_ess"],
+           "max_bulk_rhat": summ["max_bulk_rhat"], "posterior_mean": summ["mean"].tolist(),
+           "ess_per_s_run": summ["min_bulk_ess"] / run_s, "finite_frac": finite_frac, "nan_frac": 1.0 - finite_frac,
+           "mixture_errors": err, "launches": launches}
+    emit(out)
+    if failures:
+        raise AssertionError(f"large_n_bayes_exact phase: {failures}")
+    return {"report": out, "launches": launches}
+
+
+def lnbx_worker(x0: list) -> dict:
+    """:func:`lnbx_sampler` in a worker process (spawned, as
+    :func:`sampler_worker`), its JSON line kept for the main process to
+    print."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.library()
+    lines = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(lines):
+            out = lnbx_sampler(torch.device("cuda", 0), x0)
+    except Exception as e:  # with its lines so far: a worker's stdout is this buffer
+        raise RuntimeError(f"{type(e).__name__}: {e}\n{lines.getvalue()}") from None
+    return {**out, "stdout": lines.getvalue()}
+
+
+def _partial_large_n_bayes_exact(dev) -> dict:
+    setup = phase_large_n_bayes_exact(dev)
+    return {**setup, **lnbx_sampler(dev, setup["x0"])}
+
+
+# The utilities on the card: a ServingPosterior at the serving problem's n
+# checkpointed and restored; ``utils.timed`` of one request batch beside
+# this script's own device time of it; 100 batches of 4096 rows from a
+# packed 65536-row dataset, native loader against the Python stream.
+UTILS_N_ROWS, UTILS_BATCH, UTILS_BATCHES = 65536, 4096, 100
+
+
+def phase_utils(dev) -> dict:
+    failures = []
+    work_dir = pathlib.Path(__file__).resolve().parent / "build" / "chip_smoke_utils"
+    work_dir.mkdir(parents=True, exist_ok=True)
+    gp, x, y, _, ts, tn, z = problem(torch.float32, dev)
+    walls = {}
+    sp = timed_call(walls, "fit_serving", serve.fit_serving, gp, ts, tn, x, y)
+    want = serve.serve_predict(gp, sp, z)
+    t0 = time.perf_counter()
+    gutils.save(work_dir / "serving.pt", sp)
+    back = gutils.restore(work_dir / "serving.pt", like=sp)
+    torch.cuda.synchronize()
+    walls["checkpoint_round_trip"] = (time.perf_counter() - t0) * 1e3
+    got = serve.serve_predict(gp, back, z)
+    identical = type(back) is serve.ServingPosterior and all(torch.equal(a, b) for a, b in zip(back, sp)) and all(
+        torch.equal(a, b) for a, b in zip(got, want))
+    if not identical:
+        failures.append("the restored ServingPosterior does not serve the same answers")
+    timed = {"utils_timed_ms": gutils.timed(lambda: serve.serve_predict(gp, sp, z), reps=21),
+             "event_ms": event_ms(lambda: serve.serve_predict(gp, sp, z), 21),
+             "wall_ms": wall_ms(lambda: serve.serve_predict(gp, sp, z), reps=21)}
+    rng = np.random.default_rng(0)
+    xd = rng.uniform(0, 100, (UTILS_N_ROWS, 1))
+    path = work_dir / "rows.ggpd"
+    dataio.pack_dataset(path, xd, np.sin(xd[:, 0] / 3.0) + 0.1 * rng.normal(size=UTILS_N_ROWS))
+    streams = {}
+    for label, use_native in (("native", True), ("python", False)):
+        t0 = time.perf_counter()
+        with dataio.MinibatchStream(path, batch=UTILS_BATCH, seed=1, native=use_native) as st:
+            batches = [next(st) for _ in range(UTILS_BATCHES)]
+        streams[label] = (batches, time.perf_counter() - t0)
+    same = all(a[0].tobytes() == b[0].tobytes() and a[1].tobytes() == b[1].tobytes()
+               for a, b in zip(streams["native"][0], streams["python"][0]))
+    if not same:
+        failures.append("the native loader's batches differ from the Python stream's")
+    emit({"phase": "utils", "n": N, "checkpoint_identical": identical, "walls_ms": walls, "timed": timed,
+          "stream": {"rows": UTILS_N_ROWS, "batch": UTILS_BATCH, "batches": UTILS_BATCHES, "bit_identical": same,
+                     "native_s": streams["native"][1], "python_s": streams["python"][1]}})
+    if failures:
+        raise AssertionError(f"utils phase: {failures}")
+    return {}
+
+
 def coldstart_child(parts: bool) -> None:
     """The first ``laplace_fit`` of the classify problem in this (fresh)
     process, after the card's context and K1's first launch, which every
@@ -4807,6 +5193,7 @@ PARTIAL_PHASES = {"kernels": phase_kernels, "k5": phase_k5, "k7": phase_k7, "gat
                   "sparse": phase_sparse, "surface": phase_surface, "pathwise": phase_pathwise, "bo": phase_bo,
                   "search": phase_search, "iterative": phase_iterative, "toeplitz": phase_toeplitz,
                   "ski": phase_ski, "large_n_bayes": phase_large_n_bayes,
+                  "large_n_bayes_exact": _partial_large_n_bayes_exact, "utils": phase_utils,
                   "train": phase_train, "large": phase_large, "bayes": phase_bayes, "samplers": phase_samplers,
                   "evaluate": lambda dev: check_k7(phase_evaluate(dev)["k7_cases"]),
                   "stamps": phase_stamps, "coldstart": phase_coldstart}
@@ -4863,21 +5250,28 @@ def main() -> int:
     pathwise_out = measured("pathwise", phase_pathwise, dev, sparse_out["svgp"])
     bo_out = measured("bo", phase_bo, dev)
     search_out = measured("search", phase_search, dev)
+    # the large-n engines, GPU-bound: with workers beside them they and the
+    # workers each took about twice as long (PERF.md), so they run alone
     for name, phase in (("iterative", phase_iterative), ("toeplitz", phase_toeplitz), ("ski", phase_ski),
                         ("large_n_bayes", phase_large_n_bayes)):
         measured(name, phase, dev)
-    for out in (serve_cache, classify_out, sparse_out, surface_out, pathwise_out, bo_out, search_out):
+    lnbx = measured("large_n_bayes_exact", phase_large_n_bayes_exact, dev)
+    measured("utils", phase_utils, dev)
+    for out in (serve_cache, classify_out, sparse_out, surface_out, pathwise_out, bo_out, search_out, lnbx):
         kernels.update(out["rows"])
     bayes_rows = measured("k7", phase_k7, dev)
-    # NUTS and HMC on hyperpriors, the longest runs, in worker processes from
-    # here on, beside the bayes, samplers and evaluate phases in this process
-    # (every run is host-bound); the phases that time kernels run with no
-    # worker beside them
-    pool, pending = start_sampler_workers()
+    # Every sampler run (each host-bound) in worker processes from here on,
+    # with the bayes phase's plain-route command line and the exact leg's
+    # sampler, beside the bayes phase's K7 route and the evaluate phase in
+    # this process; the phases that time kernels run with no worker beside
+    # them
+    pool, pending, others = start_sampler_workers(lnbx["x0"])
     with pool:
-        bayes_out = measured("bayes", phase_bayes, dev, bayes_rows)
+        bayes_out = measured("bayes", phase_bayes, dev, bayes_rows, others["bayes_plain"])
         here = measured("samplers", sampler_runs_here)
         evaluate_out = measured("evaluate", phase_evaluate, dev)
+        lnbx_out = measured("large_n_bayes_exact_wait", others["lnbx"].get)
+        print(lnbx_out["stdout"], end="", flush=True)
         samplers_out = measured("samplers_workers", finish_samplers, dev, here, pending)
     kernels.update(bayes_out["rows"])
     kernels.update(samplers_out["rows"])
@@ -4892,7 +5286,8 @@ def main() -> int:
                 "serve_cache": serve_cache["launches"], "classify": classify_out["launches"],
                 "sparse": sparse_out["launches"], "surface": surface_out["launches"],
                 "pathwise": pathwise_out["launches"], "bo": bo_out["launches"], "search": search_out["launches"],
-                "bayes": bayes_out["launches"], "evaluate": evaluate_out["launches"],
+                "bayes": bayes_out["launches"], "large_n_bayes_exact": lnbx_out["launches"],
+                "evaluate": evaluate_out["launches"],
                 "evaluate_hyperpriors": evaluate_out["hyperpriors_launches"], **samplers_out["launches"],
                 "kernels": kernels_launches}
     emit({"kernels": [

@@ -20,7 +20,9 @@
 //
 // The tile is read and written through leading dimensions, so the blocked
 // driver factors the diagonal tile in place inside the n x n matrix and
-// writes inv(L) straight into its stack of tile inverses.  A non-positive
+// writes inv(L) straight into its stack of tile inverses.  A stack of tiles
+// (the same diagonal tile of each matrix of a (B, n, n) stack) is one
+// launch, one CTA a tile, each tile through its own batch stride.  A non-positive
 // pivot gives NaN, as on the TPU; the front door's jitter loop sees it.
 #include <cuda_runtime.h>
 
@@ -28,21 +30,26 @@
 
 namespace {
 
+// One CTA a tile: tile blockIdx.x of a stack lies sa (sl, sv) floats after
+// the one before it.
 template <int B>
 __global__ void __launch_bounds__(gogp::kTileThreads)
-    chol_inv_tile_kernel(const float* a, int lda, float* l_out, int ldl, float* v_out, int ldv) {
+    chol_inv_tile_kernel(const float* a, int lda, long long sa, float* l_out, int ldl, long long sl,
+                         float* v_out, int ldv, long long sv) {
   extern __shared__ __align__(16) float smem[];
-  gogp::chol_inv_tile_body<B>(a, lda, l_out, ldl, v_out, ldv, smem);
+  const long long t = blockIdx.x;
+  gogp::chol_inv_tile_body<B>(a + t * sa, lda, l_out + t * sl, ldl, v_out + t * sv, ldv, smem);
 }
 
 template <int B>
-int launch(const float* a, int lda, float* l, int ldl, float* v, int ldv, cudaStream_t stream) {
+int launch(const float* a, int lda, long long sa, float* l, int ldl, long long sl, float* v, int ldv,
+           long long sv, int count, cudaStream_t stream) {
   constexpr int smem = gogp::kTileSmemFloats<B> * static_cast<int>(sizeof(float));
   static_assert(smem <= gogp::kMaxSharedBytes, "tile does not fit shared memory");
   cudaError_t err = cudaFuncSetAttribute(chol_inv_tile_kernel<B>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  chol_inv_tile_kernel<B><<<1, gogp::kTileThreads, smem, stream>>>(a, lda, l, ldl, v, ldv);
+  chol_inv_tile_kernel<B><<<count, gogp::kTileThreads, smem, stream>>>(a, lda, sa, l, ldl, sl, v, ldv, sv);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -54,7 +61,18 @@ extern "C" int gogp_chol_inv_tile(const float* a, int lda, float* l, int ldl,
                                   float* v, int ldv, int b, cudaStream_t stream) {
   if (b != gogp::kTile || lda < b || ldl < b || ldv < b)
     return static_cast<int>(cudaErrorInvalidValue);
-  return launch<gogp::kTile>(a, lda, l, ldl, v, ldv, stream);
+  return launch<gogp::kTile>(a, lda, 0, l, ldl, 0, v, ldv, 0, 1, stream);
+}
+
+// A stack of count tiles in one launch, one CTA a tile: tile t of a starts
+// at a + t * sa, of l at l + t * sl, of v at v + t * sv (floats).  So the
+// stepwise driver factors the diagonal tiles of a (B, n, n) stack in place,
+// B at a time, and writes their inverses into its (B, nb, b, b) stack.
+extern "C" int gogp_chol_inv_tiles(const float* a, int lda, long long sa, float* l, int ldl, long long sl,
+                                   float* v, int ldv, long long sv, int b, int count, cudaStream_t stream) {
+  if (b != gogp::kTile || lda < b || ldl < b || ldv < b || count < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch<gogp::kTile>(a, lda, sa, l, ldl, sl, v, ldv, sv, count, stream);
 }
 
 // The stage stamps of K2's last launch, for measurement: the pairs (stage *

@@ -40,7 +40,8 @@
 // over `split` CTAs (1, 2 or 4) by block column: block column q of inv(L)
 // needs only L's rows and columns from 32 q on and no other block column, so
 // each CTA solves its own.  gogp_tril_inv_tiles takes the split that
-// chip_smoke.py measured fastest at the stack's count (kSplit4MaxCount).
+// chip_smoke.py measured fastest at the stack's count (kSplit4MaxCount,
+// kSplit2MaxCount).
 //
 // A NaN in L flows into V (1 / 0 gives inf, and 0 * inf NaN); no CTA returns
 // early.  Built with -DGOGP_TILE_STAMPS, thread 0 records clock64() at each
@@ -199,11 +200,12 @@ __global__ void __launch_bounds__(kThreads)
   GOGP_STAMP(kStampStore, 0);
 }
 
-// The most tiles a stack may have for the split of 4 to be taken, from the
-// times chip_smoke.py measured on an H100 (PERF.md): split 4 was the fastest
-// at 12 and 32 tiles (by 10%), one CTA a tile at 128 and 200; split 2 was
-// never the fastest.
+// The most tiles a stack may have for the split of 4, and of 2, to be
+// taken, from the times chip_smoke.py measured on an H100 (PERF.md): split
+// 4 was the fastest at 12 and 32 tiles (by 10%), split 2 at 64 (a batch of 8
+// factors at n = 1024, by 6% in three runs), one CTA a tile at 128 and 200.
 constexpr int kSplit4MaxCount = 32;
+constexpr int kSplit2MaxCount = 64;
 
 int launch(const float* l, float* v, int count, int b, int split, cudaStream_t stream) {
   if (b != B || count < 1 || (split != 1 && split != 2 && split != 4)) return static_cast<int>(cudaErrorInvalidValue);
@@ -220,7 +222,7 @@ int launch(const float* l, float* v, int count, int b, int split, cudaStream_t s
 // l and v: (count, b, b), row-major; b must be the tile size.  Only the lower
 // triangle of each tile is read.
 extern "C" int gogp_tril_inv_tiles(const float* l, float* v, int count, int b, cudaStream_t stream) {
-  const int split = count <= kSplit4MaxCount ? 4 : 1;
+  const int split = count <= kSplit4MaxCount ? 4 : count <= kSplit2MaxCount ? 2 : 1;
   return launch(l, v, count, b, split, stream);
 }
 

@@ -40,6 +40,15 @@
 // smallest unfinished ticket runs and waits for nothing unfinished: the
 // launch cannot hang, however many CTAs fit on the card.
 //
+// A batch of solves (L (batch, n, n), y and x (batch, n), invs (batch, nb,
+// b, b)) is one launch: the tickets take step row r of every solve before
+// step row r + 1 of any, and within a row each solve's segments, then its
+// chain item.  An item still waits only on items of smaller tickets (rows
+// before its own, and its own solve's segments of its row), so the argument
+// above holds; each solve has its own done and ready flags and slots.  At
+// n = 1024 one solve is a chain of nb = 8 items: the batch's chains side by
+// side are what gives the SMs work.
+//
 // Coherence: x and the segments' sums are written and read by CTAs of the
 // same launch.  A writer's threads store, meet at a barrier, and one thread
 // publishes with a release at device scope; a reader's thread spins on
@@ -186,8 +195,8 @@ constexpr int kSegment = 8;  // tiles of a segment item
 
 struct Workspace {
   int* ticket;     // 1
-  int* done;       // nb: finished segments of each step row
-  int* ready;      // nb: step row r has written its block of x
+  int* done;       // batch x nb: finished segments of each step row
+  int* ready;      // batch x nb: step row r has written its block of x
   float* partial;  // one B-float slot per item
 };
 
@@ -296,35 +305,47 @@ __device__ __forceinline__ void release_flag(int* flag, bool count) {
 
 template <bool kTranspose>
 __global__ void __launch_bounds__(kThreads, 1)
-    trsv2d_kernel(const float* __restrict__ L, const float* __restrict__ y,
-                  const float* __restrict__ invs, float* x, int n, Workspace w) {
+    trsv2d_kernel(const float* __restrict__ L_all, const float* __restrict__ y_all,
+                  const float* __restrict__ invs_all, float* x_all, int n, int batch, Workspace w) {
   extern __shared__ __align__(16) float smem[];
   const DiagSmem ds = diag_smem(smem);
-  __shared__ int s_row, s_item;
+  __shared__ int s_row, s_elem, s_item;
   const int tid = threadIdx.x;
   const int nb = n / B;
-  const long long items = first_item(nb);
+  const long long items = first_item(nb);  // of one solve
   const size_t ld = static_cast<size_t>(n);
 
   for (;;) {
     if (tid == 0) {
-      const int t = atomicAdd(w.ticket, 1);
-      int r = -1;
-      if (t < items) {  // the last row whose first item is <= t
+      // Ticket t: step row r of every solve (batch (segments(r) + 1) tickets)
+      // after the rows before it, element e's items within the row.
+      const long long t = atomicAdd(w.ticket, 1);
+      int r = -1, e = 0, j = 0;
+      if (t < batch * items) {  // the last row whose first ticket is <= t
         int lo = 0, hi = nb - 1;
         while (lo < hi) {
           const int mid = (lo + hi + 1) / 2;
-          if (first_item(mid) <= t) lo = mid; else hi = mid - 1;
+          if (batch * first_item(mid) <= t) lo = mid; else hi = mid - 1;
         }
         r = lo;
+        const long long local = t - batch * first_item(r), per = segments(r) + 1;
+        e = static_cast<int>(local / per);
+        j = static_cast<int>(local % per);
       }
       s_row = r;
-      s_item = r >= 0 ? static_cast<int>(t - first_item(r)) : 0;
+      s_elem = e;
+      s_item = j;
     }
     __syncthreads();
     // Every item below passes a barrier before thread 0 writes these again.
-    const int r = s_row, j = s_item;
+    const int r = s_row, e = s_elem, j = s_item;
     if (r < 0) break;
+    const float* L = L_all + static_cast<size_t>(e) * ld * ld;
+    const float* y = y_all + static_cast<size_t>(e) * ld;
+    const float* invs = invs_all + static_cast<size_t>(e) * nb * B * B;
+    float* x = x_all + static_cast<size_t>(e) * ld;
+    int* done = w.done + static_cast<size_t>(e) * nb;
+    int* ready = w.ready + static_cast<size_t>(e) * nb;
     const int out = kTranspose ? nb - 1 - r : r;
     const auto block_in = [&](int c) { return kTranspose ? nb - 1 - c : c; };
     const auto tile_at = [&](int c) {
@@ -332,7 +353,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       return kTranspose ? L + in * B * ld + o * B : L + o * B * ld + in * B;
     };
     const auto x_at = [&](int c) { return x + static_cast<size_t>(block_in(c)) * B; };
-    float* slots = w.partial + static_cast<size_t>(first_item(r)) * B;
+    float* slots = w.partial + static_cast<size_t>(e * items + first_item(r)) * B;
     const int segs = segments(r);
     Sum sum;
     zero(sum);
@@ -340,9 +361,9 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (j < segs) {
       // Segment j: tiles [j kSegment, min((j + 1) kSegment, r - 1)).
       const int c0 = j * kSegment, c1 = min(c0 + kSegment, r - 1);
-      consume_tiles<kTranspose>(sum, c0, c1, ld, tile_at, x_at, w.ready);
+      consume_tiles<kTranspose>(sum, c0, c1, ld, tile_at, x_at, ready);
       reduce_rows<kTranspose>(slots + static_cast<size_t>(j) * B, sum, ds.red, false);
-      release_flag(w.done + r, true);
+      release_flag(done + r, true);
       continue;
     }
 
@@ -352,7 +373,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (r > 0) load_tile(a, tile_at(r - 1), ld);
     stage_diag(ds, invs + static_cast<size_t>(out) * B * B, y + static_cast<size_t>(out) * B);
     if (segs > 0) {
-      if (tid == 0) wait_until(w.done + r, segs);
+      if (tid == 0) wait_until(done + r, segs);
       __syncthreads();
       if (tid < B) {  // the thread that staged resid[tid]
         float s = 0.0f;
@@ -362,7 +383,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
     STAMP(r, kPartials);
     if (r > 0) {
-      if (tid == 0) wait_until(w.ready + r - 1, 1);
+      if (tid == 0) wait_until(ready + r - 1, 1);
       STAMP(r, kSeen);
     }
     __syncthreads();  // inv and resid are staged; block r - 1 of x is published
@@ -403,18 +424,19 @@ __global__ void __launch_bounds__(kThreads, 1)
     __syncthreads();  // x's block is written in full before it is published
     STAMP(r, kBarrier);
     if (tid == 0) {
-      AtomicInt(w.ready[r]).store(1, cuda::memory_order_release);
+      AtomicInt(ready[r]).store(1, cuda::memory_order_release);
       STAMP(r, kReleased);
     }
   }
 }
 
 int launch(bool transpose, const float* L, const float* y, const float* invs, float* x,
-           int* counters, float* partial, int n, int b, cudaStream_t stream) {
-  if (b != B || n < B || n % B != 0) return static_cast<int>(cudaErrorInvalidValue);
+           int* counters, float* partial, int n, int b, int batch, cudaStream_t stream) {
+  if (b != B || n < B || n % B != 0 || batch < 1) return static_cast<int>(cudaErrorInvalidValue);
   const int nb = n / B;
-  if (first_item(nb) > INT_MAX / 2) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaMemsetAsync(counters, 0, (1 + 2 * static_cast<size_t>(nb)) * sizeof(int), stream);
+  if (batch * first_item(nb) > INT_MAX / 2) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err =
+      cudaMemsetAsync(counters, 0, (1 + 2 * static_cast<size_t>(nb) * batch) * sizeof(int), stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   auto kernel = transpose ? trsv2d_kernel<true> : trsv2d_kernel<false>;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
@@ -423,9 +445,11 @@ int launch(bool transpose, const float* L, const float* y, const float* invs, fl
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, kSmemBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long long grid = std::min<long long>(static_cast<long long>(sms) * std::max(per_sm, 1), first_item(nb));
-  const Workspace w{counters, counters + 1, counters + 1 + nb, partial};
-  kernel<<<static_cast<unsigned>(grid), kThreads, kSmemBytes, stream>>>(L, y, invs, x, n, w);
+  const long long grid =
+      std::min<long long>(static_cast<long long>(sms) * std::max(per_sm, 1), batch * first_item(nb));
+  const size_t flags = static_cast<size_t>(nb) * batch;
+  const Workspace w{counters, counters + 1, counters + 1 + flags, partial};
+  kernel<<<static_cast<unsigned>(grid), kThreads, kSmemBytes, stream>>>(L, y, invs, x, n, batch, w);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -439,13 +463,28 @@ int launch(bool transpose, const float* L, const float* y, const float* invs, fl
 extern "C" int gogp_trsv2d_lower(const float* L, const float* y, const float* invs, float* x,
                                  int* counters, float* partial, int n, int b,
                                  cudaStream_t stream) {
-  return launch(false, L, y, invs, x, counters, partial, n, b, stream);
+  return launch(false, L, y, invs, x, counters, partial, n, b, 1, stream);
 }
 
 extern "C" int gogp_trsv2d_lower_t(const float* L, const float* z, const float* invs, float* x,
                                    int* counters, float* partial, int n, int b,
                                    cudaStream_t stream) {
-  return launch(true, L, z, invs, x, counters, partial, n, b, stream);
+  return launch(true, L, z, invs, x, counters, partial, n, b, 1, stream);
+}
+
+// batch solves in one launch: L (batch, n, n), y and x (batch, n), invs
+// (batch, n/b, b, b), each contiguous; counters 1 + 2 batch n/b ints and
+// partial batch n/b (n/b + 1) / 2 * b floats.
+extern "C" int gogp_trsv2d_lower_batched(const float* L, const float* y, const float* invs, float* x,
+                                         int* counters, float* partial, int n, int b, int batch,
+                                         cudaStream_t stream) {
+  return launch(false, L, y, invs, x, counters, partial, n, b, batch, stream);
+}
+
+extern "C" int gogp_trsv2d_lower_t_batched(const float* L, const float* z, const float* invs, float* x,
+                                           int* counters, float* partial, int n, int b, int batch,
+                                           cudaStream_t stream) {
+  return launch(true, L, z, invs, x, counters, partial, n, b, batch, stream);
 }
 
 // The chain stamps of K4's last launch, for measurement: for each step row r

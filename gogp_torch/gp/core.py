@@ -188,9 +188,12 @@ def predict_mixture(gp: GP, vs, x, y, z, mask=None) -> tuple[Tensor, Tensor]:
     ``vs``: (S, n_theta) log-scale draws.  Each draw conditions the GP and
     predicts the noise-free latent at ``z``; the result is the mixture's
     mean and std, mu = E[mu_s], var = E[sigma_s^2 + mu_s^2] - mu^2.  All S
-    draws go at once: one batched covariance build, one batched
-    ``torch.linalg`` factorization and solve (the JAX twin vmaps absorb and
-    predict_from_posterior, which XLA batches the same way).
+    draws go at once, as the JAX twin vmaps absorb and
+    predict_from_posterior: one batched covariance build, then the (S, n, n)
+    stack through the front door, whose factor takes the stepwise driver
+    with K2 over the stack and whose half-solve takes the blocked TRSM where
+    the stack is blocked-eligible (CUDA f32, n >= 1024), ``torch.linalg``
+    elsewhere.
     """
     x = _points(x)
     n = x.shape[0]
@@ -206,11 +209,10 @@ def predict_mixture(gp: GP, vs, x, y, z, mask=None) -> tuple[Tensor, Tensor]:
         return masked_cov(gp, ts, tn, x, mask), kstar, gp.simil.diag_matrix(ts, z)
 
     K, kstar, prior_var = torch.func.vmap(one)(theta)  # (S, n, n), (S, n, m), (S, m)
-    L = linalg.cholesky(K)  # a batch: torch.linalg
-    z1 = torch.linalg.solve_triangular(L, y[:, None], upper=False)
-    alpha = torch.linalg.solve_triangular(L.mT, z1, upper=True)  # (S, n, 1)
-    mus = (kstar * alpha).sum(-2)
-    v = torch.linalg.solve_triangular(L, kstar, upper=False)
+    L = linalg.cholesky(K)
+    alpha = linalg.cho_solve_vec(L, y)  # (S, n)
+    mus = (kstar * alpha[..., None]).sum(-2)
+    v = linalg.trsm_lower(L, kstar)
     sigmas = torch.sqrt(torch.clamp(prior_var - (v * v).sum(-2), min=0.0))
     mu = mus.mean(0)
     var = (sigmas * sigmas + mus * mus).mean(0) - mu * mu

@@ -36,11 +36,12 @@ NVCC_FLAGS = (
     "-Xptxas=-v",  # registers, shared memory and spills, kept in build.log
 )
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # name -> argtypes; every pointer and the stream are c_void_p
 SIGNATURES = {
     "gogp_fused_cholesky_invs": [_P, _P, _P, _P, _I, _I, _P],
     "gogp_chol_inv_tile": [_P, _I, _P, _I, _P, _I, _I, _P],
+    "gogp_chol_inv_tiles": [_P, _I, _L, _P, _I, _L, _P, _I, _L, _I, _I, _P],
     "gogp_chol_inv_tile_stamps": [_P, _P, _P],  # a GOGP_TILE_STAMPS build's only
     "gogp_tril_inv_tiles": [_P, _P, _I, _I, _P],
     "gogp_tril_inv_tiles_split": [_P, _P, _I, _I, _I, _P],  # K5 at a given split, for measurement
@@ -49,6 +50,8 @@ SIGNATURES = {
     "gogp_trsv_lower_t": [_P, _P, _P, _P, _P, _I, _I, _P],
     "gogp_trsv2d_lower": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
     "gogp_trsv2d_lower_t": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
+    "gogp_trsv2d_lower_batched": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "gogp_trsv2d_lower_t_batched": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "gogp_trsv2d_stamps": [_P, _P],  # a GOGP_TRSV_STAMPS build's only
     "gogp_chol_tile": [_P, _I, _P, _I, _I, _P],
     "gogp_fused_gp_linv": [_P, _P, _I, _I, _P],

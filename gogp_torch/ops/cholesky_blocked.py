@@ -47,6 +47,28 @@ What differentiates are the analytic pullbacks of the JAX package, as
 On the CPU (under ``force_blocked``) the same Functions run with the plain
 tile versions, which is how the tests hold them against ``jax.grad``.
 
+Batches.  Every driver, Function and kernel wrapper also takes a stack: one
+leading batch axis, (B, n, n) matrices with (B, n) or shared (n,) vectors.
+The routes are the JAX twin's ``custom_vmap`` reroutes
+(cholesky_pallas.py:633-644, 1474-1493): a stack never takes K1; its
+Cholesky is the stepwise driver with one K2 launch over the B diagonal tiles
+of each block column; its LML core factors with the library's batched
+Cholesky (``cholesky_ex``), inverts all B * nb diagonal tiles in one K5
+launch and solves with K4 over the batch (one launch each way).
+``torch.func.vmap`` reaches the same routes: each ``autograd.Function``
+here has a ``vmap`` staticmethod, the counterpart of ``def_vmap``, which
+moves the batch axis to the front and applies the same Function to the
+physical (B, ...) tensors, whose backward is then the batched pullback.  A
+tensor that is not batched is broadcast over the batch, except a TRSM's
+shared factor, which solves the batch's right-hand sides side by side.
+
+The precision rescue (``ops/linalg.py``) runs inside ``_Cholesky`` and
+``_LmlCore``, on the physical batch: where it is engaged and any element's
+result is not finite (one host read), the whole batch is recomputed at full
+f32 and each element takes that result where its own was not finite, and
+its backward at that precision, as the twin's ``lax.cond`` does under
+``vmap``, where it becomes a select.
+
 Around the kernels, the panel products and trailing updates of the stepwise
 driver are ``torch.matmul``, as the JAX package leaves them to XLA.  The
 per-call ``precision`` of the JAX twin sets those cuBLAS matmuls to TF32 or
@@ -172,10 +194,11 @@ def matmul_precision(precision: str | None):
 
 
 def _eligible_block(K: Tensor) -> int | None:
-    """Block size if the blocked path should handle this matrix: a CUDA f32
-    square matrix with n >= _MIN_N that the block divides (the JAX twin's
-    TPU + f32 rule), or anything the block divides under force_blocked."""
-    if K.dim() != 2 or K.shape[0] != K.shape[1]:
+    """Block size if the blocked path should handle this matrix or (B, n, n)
+    stack: a CUDA f32 square matrix with n >= _MIN_N that the block divides
+    (the JAX twin's TPU + f32 rule), or anything the block divides under
+    force_blocked."""
+    if K.dim() not in (2, 3) or K.shape[-2] != K.shape[-1]:
         return None
     n = K.shape[-1]
     if _FORCED_BLOCK is not None:
@@ -209,14 +232,40 @@ def _check_kernel_inputs(what: str, *ts: Tensor) -> None:
             raise ValueError(f"{what}: the CUDA kernel takes contiguous tensors")
 
 
+def _physical(info, in_dims, *args) -> tuple:
+    """A vmap rule's arguments with the batch axis in front; a tensor that is
+    not batched is broadcast over the batch (a view)."""
+    return tuple(
+        a if not isinstance(a, Tensor) else a.movedim(d, 0) if d is not None else a.expand(info.batch_size, *a.shape)
+        for a, d in zip(args, in_dims)
+    )
+
+
+def _out_dims(out):
+    return tuple(None if o is None else 0 for o in out) if isinstance(out, tuple) else 0
+
+
+def _select(bad: Tensor, a: Tensor | None, b: Tensor | None) -> Tensor | None:
+    """``b`` for the leading elements where ``bad`` holds, ``a`` elsewhere
+    (``bad`` 0-d for one matrix)."""
+    if a is None:
+        return None
+    return torch.where(bad.reshape(bad.shape + (1,) * (a.dim() - bad.dim())), b, a)
+
+
 class _ForwardOnly(torch.autograd.Function):
     """``fn(*args)`` with a backward that raises: the raw kernel wrappers'
-    guard (see the module docstring)."""
+    guard (see the module docstring).  Under ``torch.func.vmap`` it runs
+    ``fn`` on the physical batch (every wrapped function takes one leading
+    batch axis), K1's as the twin does: a batch takes the stepwise driver."""
 
     @staticmethod
-    def forward(ctx, what, fn, *args):
-        ctx.what = what
+    def forward(what, fn, *args):
         return fn(*args)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.what = inputs[0]
 
     @staticmethod
     def backward(ctx, *grads):
@@ -225,6 +274,13 @@ class _ForwardOnly(torch.autograd.Function):
             "differentiate through the front door (gogp_torch.ops.linalg) or the "
             "pullbacks lml_core, cholesky, trsm_lower_ad and trsm_lower_t_ad"
         )
+
+    @staticmethod
+    def vmap(info, in_dims, what, fn, *args):
+        if what == "fused_cholesky_invs":
+            fn = _stepwise_cholesky_invs
+        out = _ForwardOnly.apply(what, fn, *_physical(info, in_dims[2:], *args))
+        return out, _out_dims(out)
 
 
 def _launch(t: Tensor, name: str, *args) -> None:
@@ -254,9 +310,12 @@ def _eye_like(A: Tensor) -> Tensor:
 
 
 def _diag_tiles(L: Tensor, block: int) -> Tensor:
-    """The (nb, block, block) diagonal tiles of L, as a view."""
+    """The (..., nb, block, block) diagonal tiles of L (..., n, n), as a
+    view."""
     nb = L.shape[-1] // block
-    return L.view(nb, block, nb, block).diagonal(dim1=0, dim2=2).permute(2, 0, 1)
+    lead = L.shape[:-2]
+    tiles = L.view(*lead, nb, block, nb, block).diagonal(dim1=-4, dim2=-2)
+    return tiles.permute(*range(len(lead)), -1, -3, -2)
 
 
 def fused_cholesky_invs_plain(K: Tensor, block: int = DEFAULT_BLOCK) -> tuple[Tensor, Tensor]:
@@ -279,13 +338,13 @@ def tril_inv_tile_plain(L: Tensor) -> Tensor:
 
 
 def trsv_lower_plain(L: Tensor, y: Tensor) -> Tensor:
-    """z = L^{-1} y for a vector y."""
-    return torch.linalg.solve_triangular(L, y[:, None], upper=False)[:, 0]
+    """z = L^{-1} y for a vector y (a batch: (B, n, n) and (B, n))."""
+    return torch.linalg.solve_triangular(L, y[..., None], upper=False)[..., 0]
 
 
 def trsv_lower_t_plain(L: Tensor, y: Tensor) -> Tensor:
-    """x = L^{-T} y for a vector y."""
-    return torch.linalg.solve_triangular(L.mT, y[:, None], upper=True)[:, 0]
+    """x = L^{-T} y for a vector y (a batch: (B, n, n) and (B, n))."""
+    return torch.linalg.solve_triangular(L.mT, y[..., None], upper=True)[..., 0]
 
 
 # K4 solves what K3 solves; only the kernels' schedules differ.
@@ -330,8 +389,9 @@ def _fused_cholesky_invs_cuda(K: Tensor, block: int) -> tuple[Tensor, Tensor]:
 
 
 def cholesky_inv_tile(A: Tensor) -> tuple[Tensor, Tensor]:
-    """(L, inv(L)) of one (b, b) SPD tile (K2).  A non-positive pivot gives
-    NaN, as on the TPU."""
+    """(L, inv(L)) of one (b, b) SPD tile, or of each tile of a (B, b, b)
+    stack in one launch (K2).  A non-positive pivot gives NaN, as on the
+    TPU."""
     if not _is_cuda(A):
         return cholesky_inv_tile_plain(A)
     return _ForwardOnly.apply("cholesky_inv_tile", _cholesky_inv_tile_cuda, A)
@@ -345,8 +405,9 @@ def _cholesky_inv_tile_cuda(A: Tensor) -> tuple[Tensor, Tensor]:
 
 def _cholesky_inv_tile_into(A: Tensor, L: Tensor, V: Tensor) -> None:
     """K2 writing into views: L (which may be A itself) and V = inv(L).  The
-    three (b, b) tiles may be views into larger matrices; each needs
-    contiguous rows (unit column stride), any row stride."""
+    (b, b) tiles, or (B, b, b) stacks of them, may be views into larger
+    tensors; each tile needs contiguous rows (unit column stride), any row
+    and batch stride.  A stack is one launch, a CTA a tile."""
     if not _is_cuda(A, L, V):
         L_, V_ = cholesky_inv_tile_plain(A)
         L.copy_(L_)
@@ -358,15 +419,23 @@ def _cholesky_inv_tile_into(A: Tensor, L: Tensor, V: Tensor) -> None:
             "differentiate through cholesky_blocked.cholesky or lml_core"
         )
     b = A.shape[-1]
+    shape = A.shape if A.dim() == 3 else (b, b)
     for t in (A, L, V):
-        if t.shape != (b, b):
-            raise ValueError(f"cholesky_inv_tile: expected ({b}, {b}) tiles, got {tuple(t.shape)}")
+        if t.shape != shape or t.shape[-2:] != (b, b):
+            raise ValueError(f"cholesky_inv_tile: expected {tuple(shape)} tiles, got {tuple(t.shape)}")
         if t.dtype != torch.float32:
             raise TypeError(f"cholesky_inv_tile: the CUDA kernel takes float32, got {t.dtype}")
-        if t.stride(1) != 1:
+        if t.stride(-1) != 1:
             raise ValueError("cholesky_inv_tile: the CUDA kernel takes tiles with contiguous rows")
-    _launch(A, "gogp_chol_inv_tile", A.data_ptr(), A.stride(0), L.data_ptr(), L.stride(0),
-            V.data_ptr(), V.stride(0), b)
+    count = A.shape[0] if A.dim() == 3 else 1
+    if not count:
+        return
+
+    def strides(t):
+        return t.stride(-2), t.stride(0) if t.dim() == 3 else 0
+
+    _launch(A, "gogp_chol_inv_tiles", A.data_ptr(), *strides(A), L.data_ptr(), *strides(L),
+            V.data_ptr(), *strides(V), b, count)
     LAUNCHES["chol_inv_tile"] += 1
 
 
@@ -381,6 +450,8 @@ def cholesky_tile(A: Tensor) -> Tensor:
 
 def _cholesky_tile_cuda(A: Tensor) -> Tensor:
     b = A.shape[-1]
+    if A.dim() == 3:  # no path calls K6: a stack is a launch a tile
+        return torch.stack([_cholesky_tile_cuda(a) for a in A])
     if A.shape != (b, b):
         raise ValueError(f"cholesky_tile: expected a (b, b) tile, got {tuple(A.shape)}")
     _check_kernel_inputs("cholesky_tile", A)
@@ -391,7 +462,7 @@ def _cholesky_tile_cuda(A: Tensor) -> Tensor:
 
 
 def tril_inv_tile(L: Tensor) -> Tensor:
-    """inv(L) of a (b, b) lower-triangular tile or of a (count, b, b) stack,
+    """inv(L) of a (b, b) lower-triangular tile or of a (..., b, b) stack,
     the stack in one launch (K5)."""
     if not _is_cuda(L):
         return tril_inv_tile_plain(L)
@@ -400,10 +471,10 @@ def tril_inv_tile(L: Tensor) -> Tensor:
 
 def _tril_inv_tile_cuda(L: Tensor) -> Tensor:
     b = L.shape[-1]
-    if L.dim() not in (2, 3) or L.shape[-2] != b:
-        raise ValueError(f"tril_inv_tile: expected (b, b) or (count, b, b), got {tuple(L.shape)}")
+    if L.dim() < 2 or L.shape[-2] != b:
+        raise ValueError(f"tril_inv_tile: expected (b, b) or (..., b, b), got {tuple(L.shape)}")
     _check_kernel_inputs("tril_inv_tile", L)
-    count = 1 if L.dim() == 2 else L.shape[0]
+    count = L.numel() // (b * b)
     V = torch.empty_like(L)
     if count:
         _launch(L, "gogp_tril_inv_tiles", L.data_ptr(), V.data_ptr(), count, b)
@@ -413,10 +484,11 @@ def _tril_inv_tile_cuda(L: Tensor) -> Tensor:
 
 def _check_trsv(what: str, L: Tensor, y: Tensor, invs: Tensor, block: int) -> None:
     n = L.shape[-1]
-    if L.shape != (n, n) or y.shape != (n,) or n % block != 0:
+    lead = L.shape[:-2]
+    if len(lead) > 1 or L.shape[-2:] != (n, n) or y.shape != (*lead, n) or n % block != 0:
         raise ValueError(f"{what}: L {tuple(L.shape)}, y {tuple(y.shape)}, block {block}")
-    if invs.shape != (n // block, block, block):
-        raise ValueError(f"{what}: invs {tuple(invs.shape)}, expected {(n // block, block, block)}")
+    if invs.shape != (*lead, n // block, block, block):
+        raise ValueError(f"{what}: invs {tuple(invs.shape)}, expected {(*lead, n // block, block, block)}")
     _check_kernel_inputs(what, L, y, invs)
     if L.data_ptr() % 16 != 0 or invs.data_ptr() % 16 != 0:
         raise ValueError(f"{what}: L and invs must be 16-byte aligned")
@@ -451,6 +523,8 @@ def _trsv(what: str, entry: str, L: Tensor, y: Tensor, invs: Tensor, block: int)
 
 def _trsv_cuda(what: str, entry: str, L: Tensor, y: Tensor, invs: Tensor, block: int) -> Tensor:
     _check_trsv(what, L, y, invs, block)
+    if L.dim() == 3:  # K3 has no batch axis and is on no path: a launch an element
+        return torch.stack([_trsv_cuda(what, entry, *t, block) for t in zip(L, y, invs)])
     x = torch.empty_like(y)
     counters = torch.empty(1 + L.shape[-1] // block, dtype=torch.int32, device=L.device)  # zeroed by the C side
     _launch(L, entry, L.data_ptr(), y.data_ptr(), invs.data_ptr(), x.data_ptr(), counters.data_ptr(),
@@ -479,11 +553,14 @@ def trsv_lower_t(L: Tensor, y: Tensor, invs: Tensor, block: int) -> Tensor:
 def _trsv2d_cuda(what: str, entry: str, L: Tensor, y: Tensor, invs: Tensor, block: int) -> Tensor:
     _check_trsv(what, L, y, invs, block)
     nb = L.shape[-1] // block
+    batch = L.shape[0] if L.dim() == 3 else 1
     x = torch.empty_like(y)
-    counters = torch.empty(1 + 2 * nb, dtype=torch.int32, device=L.device)  # zeroed by the C side
-    partial = torch.empty(nb * (nb + 1) // 2 * block, dtype=L.dtype, device=L.device)
+    if not batch:
+        return x
+    counters = torch.empty(1 + 2 * nb * batch, dtype=torch.int32, device=L.device)  # zeroed by the C side
+    partial = torch.empty(batch * nb * (nb + 1) // 2 * block, dtype=L.dtype, device=L.device)
     _launch(L, entry, L.data_ptr(), y.data_ptr(), invs.data_ptr(), x.data_ptr(),
-            counters.data_ptr(), partial.data_ptr(), L.shape[-1], block)
+            counters.data_ptr(), partial.data_ptr(), L.shape[-1], block, batch)
     LAUNCHES[what] += 1
     return x
 
@@ -493,10 +570,12 @@ def trsv2d_lower(L: Tensor, y: Tensor, invs: Tensor, block: int) -> Tensor:
     persistent grid of one CTA per SM: each block row's tiles but the last
     summed off the chain in segments, the last one and ``invs``' diagonal
     tile applied on it (K4).  Reads only the strictly lower block triangle
-    of L; any n that the tile (128) divides."""
+    of L; any n that the tile (128) divides.  A batch ((B, n, n), (B, n),
+    (B, nb, block, block)) is one launch, its B solves' items interleaved
+    row by row."""
     if not _is_cuda(L, y, invs):
         return trsv2d_lower_plain(L, y)
-    return _ForwardOnly.apply("trsv2d_lower", _trsv2d_cuda, "trsv2d_lower", "gogp_trsv2d_lower",
+    return _ForwardOnly.apply("trsv2d_lower", _trsv2d_cuda, "trsv2d_lower", "gogp_trsv2d_lower_batched",
                               L, y, invs, block)
 
 
@@ -504,7 +583,7 @@ def trsv2d_lower_t(L: Tensor, y: Tensor, invs: Tensor, block: int) -> Tensor:
     """x = L^{-T} y over the triangular tile grid, bottom-up (K4, transpose)."""
     if not _is_cuda(L, y, invs):
         return trsv2d_lower_t_plain(L, y)
-    return _ForwardOnly.apply("trsv2d_lower_t", _trsv2d_cuda, "trsv2d_lower_t", "gogp_trsv2d_lower_t",
+    return _ForwardOnly.apply("trsv2d_lower_t", _trsv2d_cuda, "trsv2d_lower_t", "gogp_trsv2d_lower_t_batched",
                               L, y, invs, block)
 
 
@@ -519,15 +598,17 @@ def _check_block(n: int, block: int) -> None:
 
 
 def _tile_invs(L: Tensor, block: int) -> Tensor:
-    """(nb, block, block) stack of inv(L_kk), one K5 launch over all tiles."""
+    """(..., nb, block, block) stack of inv(L_kk), one K5 launch over all
+    tiles (of every matrix of a stack)."""
     return tril_inv_tile(_diag_tiles(L, block).contiguous())
 
 
 def _takes_fused(K: Tensor, block: int) -> bool:
     """The JAX twin's rule (cholesky_pallas.py:624-645): K1 for a 2-D matrix
-    with n <= _FUSED_MAX_N unless no_fused_whole() is set.  On CUDA, K1 is
-    built for block 128 and n >= _MIN_N, the front door's own gate; smaller
-    matrices that reach the driver directly take the stepwise one."""
+    with n <= _FUSED_MAX_N unless no_fused_whole() is set; a stack takes the
+    stepwise driver, as the twin's custom_vmap reroutes a batch.  On CUDA,
+    K1 is built for block 128 and n >= _MIN_N, the front door's own gate;
+    smaller matrices that reach the driver directly take the stepwise one."""
     n = K.shape[-1]
     if not _FUSED_WHOLE or K.dim() != 2 or n > _FUSED_MAX_N:
         return False
@@ -535,110 +616,133 @@ def _takes_fused(K: Tensor, block: int) -> bool:
 
 
 def blocked_cholesky_invs(K: Tensor, block: int = DEFAULT_BLOCK) -> tuple[Tensor, Tensor]:
-    """Blocked Cholesky; returns ``(L, invs)`` with ``invs`` the
-    (nb, block, block) diagonal-tile inverses, a by-product of K1 and K2.
-    K1 where :func:`_takes_fused` says so, else the stepwise driver."""
+    """Blocked Cholesky of a matrix or a (B, n, n) stack; returns ``(L,
+    invs)`` with ``invs`` the (..., nb, block, block) diagonal-tile inverses,
+    a by-product of K1 and K2.  K1 where :func:`_takes_fused` says so, else
+    the stepwise driver."""
     if _takes_fused(K, block):
         return fused_cholesky_invs(K, block)
     return _stepwise_cholesky_invs(K, block)
 
 
-def _stepwise_cholesky_invs(K: Tensor, block: int) -> tuple[Tensor, Tensor]:
+def _stepwise_cholesky_invs(K: Tensor, block: int = DEFAULT_BLOCK) -> tuple[Tensor, Tensor]:
     """Right-looking blocked Cholesky, twin of ``_stepwise_cholesky_invs``:
-    per block column, K2 factors the diagonal tile, the panel is
-    ``A[c1:, c0:c1] @ inv^T`` and the trailing update is one matmul.
-    Everything runs in place on one copy of K, whose lower triangle becomes
-    L; K2 reads and writes its diagonal tile there."""
+    per block column, K2 factors the diagonal tile (of every matrix of a
+    stack, one launch), the panel is ``A[c1:, c0:c1] @ inv^T`` and the
+    trailing update is one (batched) matmul.  Everything runs in place on
+    one copy of K, whose lower triangle becomes L; K2 reads and writes its
+    diagonal tile there."""
     n = K.shape[-1]
     _check_block(n, block)
     nb = n // block
-    A = K.clone()  # becomes L: every block column is overwritten in place
-    invs = torch.empty((nb, block, block), dtype=K.dtype, device=K.device)
+    A = K.clone(memory_format=torch.contiguous_format)  # becomes L: every block column is overwritten in place
+    invs = torch.empty((*K.shape[:-2], nb, block, block), dtype=K.dtype, device=K.device)
     for k in range(nb):
         c0, c1 = k * block, (k + 1) * block
-        diag = A[c0:c1, c0:c1]
-        _cholesky_inv_tile_into(diag, diag, invs[k])
+        diag = A[..., c0:c1, c0:c1]
+        _cholesky_inv_tile_into(diag, diag, invs[..., k, :, :])
         if c1 == n:
             break
-        panel = A[c1:, c0:c1] @ invs[k].T
-        A[c1:, c0:c1] = panel
-        A[c1:, c1:].addmm_(panel, panel.T, alpha=-1.0)
+        panel = A[..., c1:, c0:c1] @ invs[..., k, :, :].mT
+        A[..., c1:, c0:c1] = panel
+        trailing = A[..., c1:, c1:]
+        (trailing.addmm_ if A.dim() == 2 else trailing.baddbmm_)(panel, panel.mT, alpha=-1.0)
     return A.tril_(), invs
+
+
+def _chol_invs_for_lml(K: Tensor, block: int) -> tuple[Tensor, Tensor]:
+    """(L, invs) for the LML core, twin of ``_chol_invs_for_lml``: one
+    matrix through :func:`blocked_cholesky_invs`; a stack (the twin's
+    ``def_vmap``) through the library's batched Cholesky and one K5 launch
+    over all B * nb diagonal tiles."""
+    if K.dim() == 2:
+        return blocked_cholesky_invs(K, block)
+    _check_block(K.shape[-1], block)
+    L = plain_cholesky(K).contiguous()
+    return L, _tile_invs(L, block)
+
+
+def _addmm(C: Tensor, A: Tensor, B: Tensor, **kw) -> Tensor:
+    """``torch.addmm``, or ``torch.baddbmm`` over a stack."""
+    return (torch.addmm if C.dim() == 2 else torch.baddbmm)(C, A, B, **kw)
 
 
 def blocked_trsm_lower(L: Tensor, B: Tensor, block: int = DEFAULT_BLOCK) -> Tensor:
     """X = L^{-1} B, blocked: X[k] = inv(L_kk) @ (B[k] - L[k, :k] @ X[:k]),
-    with every tile inverse from one batched K5 launch."""
-    if B.dim() == 1:
-        return blocked_trsm_lower(L, B[:, None], block)[:, 0]
+    with every tile inverse from one batched K5 launch.  L (n, n) or a
+    (B, n, n) stack, B (..., n, m) or (..., n)."""
+    if B.dim() == L.dim() - 1:
+        return blocked_trsm_lower(L, B[..., None], block)[..., 0]
     n = L.shape[-1]
     _check_block(n, block)
     invs = _tile_invs(L, block)
     X = torch.empty(B.shape, dtype=B.dtype, device=B.device)
     for k in range(n // block):
         c0, c1 = k * block, (k + 1) * block
-        rhs = torch.addmm(B[c0:c1], L[c0:c1, :c0], X[:c0], alpha=-1.0) if k else B[c0:c1]
-        torch.mm(invs[k], rhs, out=X[c0:c1])
+        rhs = _addmm(B[..., c0:c1, :], L[..., c0:c1, :c0], X[..., :c0, :], alpha=-1.0) if k else B[..., c0:c1, :]
+        torch.matmul(invs[..., k, :, :], rhs, out=X[..., c0:c1, :])
     return X
 
 
 def blocked_trsm_lower_t(L: Tensor, B: Tensor, block: int = DEFAULT_BLOCK) -> Tensor:
     """X = L^{-T} B, bottom-up: X[k] = inv(L_kk)^T @ (B[k] - L[k+1:, k]^T @
     X[k+1:]), with every tile inverse from one batched K5 launch.  Twin of
-    ``blocked_trsm_lower_t`` (cholesky_pallas.py:1190-1211)."""
-    if B.dim() == 1:
-        return blocked_trsm_lower_t(L, B[:, None], block)[:, 0]
+    ``blocked_trsm_lower_t`` (cholesky_pallas.py:1190-1211); shapes as
+    :func:`blocked_trsm_lower`."""
+    if B.dim() == L.dim() - 1:
+        return blocked_trsm_lower_t(L, B[..., None], block)[..., 0]
     n = L.shape[-1]
     _check_block(n, block)
     invs = _tile_invs(L, block)
     X = torch.empty(B.shape, dtype=B.dtype, device=B.device)
     for k in reversed(range(n // block)):
         c0, c1 = k * block, (k + 1) * block
-        rhs = torch.addmm(B[c0:c1], L[c1:, c0:c1].T, X[c1:], alpha=-1.0) if c1 < n else B[c0:c1]
-        torch.mm(invs[k].T, rhs, out=X[c0:c1])
+        rhs = _addmm(B[..., c0:c1, :], L[..., c1:, c0:c1].mT, X[..., c1:, :], alpha=-1.0) if c1 < n else B[..., c0:c1, :]
+        torch.matmul(invs[..., k, :, :].mT, rhs, out=X[..., c0:c1, :])
     return X
 
 
 def blocked_tril_inv(L: Tensor, block: int = DEFAULT_BLOCK, invs: Tensor | None = None,
                      precision: str | None = None) -> Tensor:
-    """W = inv(L) for lower-triangular L, down block rows:
-    W[k, :k] = -inv(L_kk) (L[k, :k] W[:k, :k]), W[k, k] = inv(L_kk).  The
-    trailing product runs only over W's nonzero (c0, c0) corner, about
-    2n^3/3 FLOPs.  ``invs``: the factorization's tile inverses; one K5 launch
-    when omitted.  ``precision``: the GEMMs' (:func:`uses_tf32`); None keeps
-    the ambient setting.  It writes with ``out=``, which autograd cannot
-    record: the front door (``linalg.tril_inv``) runs it forward-only.  Twin
-    of ``blocked_tril_inv`` (cholesky_pallas.py:1305-1338)."""
+    """W = inv(L) for lower-triangular L (or a (B, n, n) stack), down block
+    rows: W[k, :k] = -inv(L_kk) (L[k, :k] W[:k, :k]), W[k, k] = inv(L_kk).
+    The trailing product runs only over W's nonzero (c0, c0) corner, about
+    2n^3/3 FLOPs.  ``invs``: the factorization's tile inverses; one K5
+    launch when omitted.  ``precision``: the GEMMs' (:func:`uses_tf32`); None
+    keeps the ambient setting.  It writes with ``out=``, which autograd
+    cannot record: the front door (``linalg.tril_inv``) runs it
+    forward-only.  Twin of ``blocked_tril_inv`` (cholesky_pallas.py:1305-1338)."""
     n = L.shape[-1]
     _check_block(n, block)
     if invs is None:
         invs = _tile_invs(L, block)
-    W = torch.zeros_like(L)
+    W = torch.zeros_like(L, memory_format=torch.contiguous_format)
     with matmul_precision(precision):
         for k in range(n // block):
             c0, c1 = k * block, (k + 1) * block
             if k:
-                torch.mm(invs[k], L[c0:c1, :c0] @ W[:c0, :c0], out=W[c0:c1, :c0]).neg_()
-            W[c0:c1, c0:c1] = invs[k]
+                torch.matmul(invs[..., k, :, :], L[..., c0:c1, :c0] @ W[..., :c0, :c0],
+                             out=W[..., c0:c1, :c0]).neg_()
+            W[..., c0:c1, c0:c1] = invs[..., k, :, :]
     return W
 
 
 def syrk_lower_t(W: Tensor, min_size: int = 1024) -> Tensor:
-    """W^T W for lower-triangular W by the 2 x 2 recursion
-    [W1 0; W2 W3]^T [W1 0; W2 W3] = [W1^T W1 + W2^T W2, W2^T W3; ., W3^T W3],
-    dense products only for the dense W2 quarter, down to ``min_size``:
-    about a third of the FLOPs of a dense W^T W.  Twin of ``syrk_lower_t``
-    (cholesky_pallas.py:1341-1378)."""
+    """W^T W for lower-triangular W (or a (B, n, n) stack) by the 2 x 2
+    recursion [W1 0; W2 W3]^T [W1 0; W2 W3] = [W1^T W1 + W2^T W2, W2^T W3;
+    ., W3^T W3], dense products only for the dense W2 quarter, down to
+    ``min_size``: about a third of the FLOPs of a dense W^T W.  Twin of
+    ``syrk_lower_t`` (cholesky_pallas.py:1341-1378)."""
     n = W.shape[-1]
     if n <= min_size or n % 2 != 0 or (n // 2) % 8 != 0:
-        return W.T @ W
+        return W.mT @ W
     h = n // 2
-    W1, W2, W3 = W[:h, :h], W[h:, :h], W[h:, h:]
-    out = torch.empty_like(W)
-    torch.addmm(syrk_lower_t(W1, min_size), W2.T, W2, out=out[:h, :h])
-    torch.mm(W2.T, W3, out=out[:h, h:])
-    out[h:, :h] = out[:h, h:].T
-    out[h:, h:] = syrk_lower_t(W3, min_size)
+    W1, W2, W3 = W[..., :h, :h], W[..., h:, :h], W[..., h:, h:]
+    out = torch.empty_like(W, memory_format=torch.contiguous_format)
+    _addmm(syrk_lower_t(W1, min_size), W2.mT, W2, out=out[..., :h, :h])
+    torch.matmul(W2.mT, W3, out=out[..., :h, h:])
+    out[..., h:, :h] = out[..., :h, h:].mT
+    out[..., h:, h:] = syrk_lower_t(W3, min_size)
     return out
 
 
@@ -650,131 +754,226 @@ def syrk_lower_t(W: Tensor, min_size: int = 1024) -> Tensor:
 def _phi(A: Tensor) -> Tensor:
     """tril(A) with the diagonal halved: the Cholesky pullback's projector."""
     P = torch.tril(A)
-    P.diagonal().mul_(0.5)
+    P.diagonal(dim1=-2, dim2=-1).mul_(0.5)
     return P
+
+
+def _per_precision(fn, tf32: bool, rescued: Tensor | None):
+    """A backward's ``fn(tf32)`` where its forward ran at ``tf32``, and
+    ``fn(False)`` for the elements the precision rescue recomputed at full
+    f32 (``rescued``: None, or which elements)."""
+    if rescued is None:
+        return fn(tf32)
+    if rescued.dim() == 0:  # one matrix, rescued whole
+        return fn(False)
+    return _select(rescued, fn(tf32), fn(False))
+
+
+def _chol_forward(K: Tensor, block: int, tf32: bool) -> Tensor:
+    with _matmul_tf32(tf32):
+        return blocked_cholesky_invs(K, block)[0]
+
+
+def _chol_backward(L: Tensor, Lbar: Tensor, block: int, tf32: bool) -> Tensor:
+    """Murray's Kbar = sym(L^-T Phi(L^T Lbar) L^-1)."""
+    with _matmul_tf32(tf32):
+        P = _phi(L.mT @ Lbar)
+        S = blocked_trsm_lower_t(L, P, block)  # L^-T P
+        Kbar = blocked_trsm_lower_t(L, S.mT, block).mT  # S L^-1
+    return 0.5 * (Kbar + Kbar.mT)
 
 
 class _Cholesky(torch.autograd.Function):
     """L = blocked_cholesky_invs(K)[0] with Murray's (2016) pullback
     Kbar = sym(L^-T Phi(L^T Lbar) L^-1), twin of ``cholesky`` / ``_chol_bwd``
-    (cholesky_pallas.py:1394-1420).  ``tf32``: the matmuls' setting in
-    forward and backward (:func:`uses_tf32`)."""
+    (cholesky_pallas.py:1394-1420), for a matrix or a stack.  ``tf32``: the
+    matmuls' setting in forward and backward (:func:`uses_tf32`);
+    ``rescue``: the precision rescue (module docstring).  Returns (L, which
+    elements were rescued or None)."""
 
     @staticmethod
-    def forward(ctx, K, block, tf32):
-        with _matmul_tf32(tf32):
-            L = blocked_cholesky_invs(K, block)[0]
-        ctx.block, ctx.tf32 = block, tf32
-        ctx.save_for_backward(L)
-        return L
+    def forward(K, block, tf32, rescue):
+        L = _chol_forward(K, block, tf32)
+        if rescue and tf32:
+            bad = ~torch.isfinite(torch.diagonal(L, dim1=-2, dim2=-1)).all(-1)
+            if bool(bad.any()):
+                return _select(bad, L, _chol_forward(K, block, False)), bad
+        return L, None
 
     @staticmethod
-    def backward(ctx, Lbar):
-        (L,) = ctx.saved_tensors
-        with _matmul_tf32(ctx.tf32):
-            P = _phi(L.T @ Lbar)
-            S = blocked_trsm_lower_t(L, P, ctx.block)  # L^-T P
-            Kbar = blocked_trsm_lower_t(L, S.T, ctx.block).T  # S L^-1
-        return 0.5 * (Kbar + Kbar.T), None, None
+    def setup_context(ctx, inputs, output):
+        _, ctx.block, ctx.tf32, _ = inputs
+        L, rescued = output
+        ctx.mark_non_differentiable(*(t for t in (rescued,) if t is not None))
+        ctx.save_for_backward(L, rescued)
+
+    @staticmethod
+    def backward(ctx, Lbar, _):
+        L, rescued = ctx.saved_tensors
+        return _per_precision(lambda tf32: _chol_backward(L, Lbar, ctx.block, tf32), ctx.tf32, rescued), None, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, K, block, tf32, rescue):
+        (K,) = _physical(info, in_dims[:1], K)
+        out = _Cholesky.apply(K, block, tf32, rescue)
+        return out, _out_dims(out)
 
 
-def cholesky(K: Tensor, block: int = DEFAULT_BLOCK, precision: str | None = None) -> Tensor:
-    """Lower Cholesky factor through the blocked drivers, differentiable;
-    ``precision`` sets their matmuls, forward and backward."""
-    return _Cholesky.apply(K, block, uses_tf32(precision))
+def cholesky(K: Tensor, block: int = DEFAULT_BLOCK, precision: str | None = None, rescue: bool = False) -> Tensor:
+    """Lower Cholesky factor of a matrix or a (B, n, n) stack through the
+    blocked drivers, differentiable; ``precision`` sets their matmuls,
+    forward and backward; ``rescue`` engages the precision rescue."""
+    return _Cholesky.apply(K, block, uses_tf32(precision), rescue)[0]
 
 
 class _TrsmLower(torch.autograd.Function):
     """X = L^-1 B; Bbar = L^-T Xbar, Lbar = -tril(Bbar X^T)."""
 
     @staticmethod
-    def forward(ctx, L, B, block, tf32):
+    def forward(L, B, block, tf32):
         with _matmul_tf32(tf32):
-            X = blocked_trsm_lower(L, B, block)
-        ctx.block, ctx.tf32 = block, tf32
-        ctx.save_for_backward(L, X)
-        return X
+            return blocked_trsm_lower(L, B, block)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        L, _, ctx.block, ctx.tf32 = inputs
+        ctx.save_for_backward(L, output)
 
     @staticmethod
     def backward(ctx, Xbar):
         L, X = ctx.saved_tensors
         with _matmul_tf32(ctx.tf32):
             Bbar = blocked_trsm_lower_t(L, Xbar, ctx.block)
-            Lbar = torch.tril(Bbar @ X.T).neg_() if ctx.needs_input_grad[0] else None
+            Lbar = torch.tril(Bbar @ X.mT).neg_() if ctx.needs_input_grad[0] else None
         return Lbar, Bbar, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, L, B, block, tf32):
+        return _trsm_vmap(_TrsmLower, info, in_dims, L, B, block, tf32)
 
 
 class _TrsmLowerT(torch.autograd.Function):
     """X = L^-T B; Bbar = L^-1 Xbar, Lbar = -tril(X Bbar^T)."""
 
     @staticmethod
-    def forward(ctx, L, B, block, tf32):
+    def forward(L, B, block, tf32):
         with _matmul_tf32(tf32):
-            X = blocked_trsm_lower_t(L, B, block)
-        ctx.block, ctx.tf32 = block, tf32
-        ctx.save_for_backward(L, X)
-        return X
+            return blocked_trsm_lower_t(L, B, block)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        L, _, ctx.block, ctx.tf32 = inputs
+        ctx.save_for_backward(L, output)
 
     @staticmethod
     def backward(ctx, Xbar):
         L, X = ctx.saved_tensors
         with _matmul_tf32(ctx.tf32):
             Bbar = blocked_trsm_lower(L, Xbar, ctx.block)
-            Lbar = torch.tril(X @ Bbar.T).neg_() if ctx.needs_input_grad[0] else None
+            Lbar = torch.tril(X @ Bbar.mT).neg_() if ctx.needs_input_grad[0] else None
         return Lbar, Bbar, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, L, B, block, tf32):
+        return _trsm_vmap(_TrsmLowerT, info, in_dims, L, B, block, tf32)
+
+
+def _trsm_vmap(fn, info, in_dims, L, B, block, tf32):
+    """The TRSMs' vmap rule: a batched factor solves a stack; one factor for
+    the whole batch solves the batch's right-hand sides side by side, as
+    columns of one (n, m * batch) right-hand side."""
+    if in_dims[0] is None:
+        Bp = B.movedim(in_dims[1], -1)
+        X = fn.apply(L, Bp.reshape(Bp.shape[0], -1), block, tf32).reshape(Bp.shape)
+        return X, X.dim() - 1
+    L, B = _physical(info, in_dims, L, B)
+    return fn.apply(L, B, block, tf32), 0
 
 
 def trsm_lower_ad(L: Tensor, B: Tensor, block: int = DEFAULT_BLOCK, precision: str | None = None) -> Tensor:
-    """X = L^-1 B (2-D B) with the analytic pullback, twin of
-    ``trsm_lower_ad`` (cholesky_pallas.py:1221-1251)."""
+    """X = L^-1 B (B (..., n, m) beside L (..., n, n)) with the analytic
+    pullback, twin of ``trsm_lower_ad`` (cholesky_pallas.py:1221-1251)."""
     return _TrsmLower.apply(L, B, block, uses_tf32(precision))
 
 
 def trsm_lower_t_ad(L: Tensor, B: Tensor, block: int = DEFAULT_BLOCK, precision: str | None = None) -> Tensor:
-    """X = L^-T B (2-D B) with the analytic pullback, twin of
-    ``trsm_lower_t_ad`` (cholesky_pallas.py:1254-1277)."""
+    """X = L^-T B (B (..., n, m) beside L (..., n, n)) with the analytic
+    pullback, twin of ``trsm_lower_t_ad`` (cholesky_pallas.py:1254-1277)."""
     return _TrsmLowerT.apply(L, B, block, uses_tf32(precision))
+
+
+def _lml_forward(K: Tensor, y: Tensor, block: int, needs_grad: bool, tf32: bool):
+    """(value, L, alpha or None, invs) of one matrix or a stack (y (n,)
+    shared by the stack, or (B, n))."""
+    with _matmul_tf32(tf32):
+        L, invs = _chol_invs_for_lml(K, block)
+    y = y.expand(L.shape[:-1]).contiguous()
+    solve, solve_t = trsv_solvers(K.shape[-1], block)
+    z = solve(L, y, invs, block)
+    alpha = solve_t(L, z, invs, block) if needs_grad else None
+    logdet = 2.0 * torch.log(torch.diagonal(L, dim1=-2, dim2=-1)).sum(-1)
+    return -0.5 * (logdet + (z * z).sum(-1)), L, alpha, invs
+
+
+def _lml_kinv(L: Tensor, invs: Tensor, block: int, tf32: bool) -> Tensor:
+    """K^-1 = W^T W, W = inv(L) from the factorization's tile inverses."""
+    with _matmul_tf32(tf32):
+        return syrk_lower_t(blocked_tril_inv(L, block, invs))
 
 
 class _LmlCore(torch.autograd.Function):
     """-(log|K| + y^T K^-1 y)/2 with the GPML-5.9 pullback, twin of
     ``lml_core`` / ``_lml_core_bwd`` (cholesky_pallas.py:1496-1546).
 
-    The forward factors (K1 or the stepwise driver) and solves z = L^-1 y
-    (K3 or K4, :func:`trsv_solvers`).  alpha = L^-T z (the transpose solve),
-    the residual the backward reads, is solved only when ``needs_grad``: a
+    The forward factors (K1 or the stepwise driver; a stack the library's
+    batched Cholesky and K5) and solves z = L^-1 y (K3 or K4,
+    :func:`trsv_solvers`).  alpha = L^-T z (the transpose solve), the
+    residual the backward reads, is solved only when ``needs_grad``: a
     value-only call launches no transpose solve.  ``tf32``: the matmuls'
-    setting in forward and backward."""
+    setting in forward and backward; ``rescue``: the precision rescue.
+    Returns (value, L, alpha, invs, rescued elements or None)."""
 
     @staticmethod
-    def forward(ctx, K, y, block, needs_grad, tf32):
-        with _matmul_tf32(tf32):
-            L, invs = blocked_cholesky_invs(K, block)
-        solve, solve_t = trsv_solvers(K.shape[-1], block)
-        z = solve(L, y, invs, block)
-        alpha = solve_t(L, z, invs, block) if needs_grad else None
-        ctx.block, ctx.tf32 = block, tf32
-        ctx.save_for_backward(L, alpha, invs)
-        logdet = 2.0 * torch.log(torch.diagonal(L)).sum()
-        return -0.5 * (logdet + z @ z)
+    def forward(K, y, block, needs_grad, tf32, rescue):
+        out = _lml_forward(K, y, block, needs_grad, tf32)
+        if rescue and tf32:
+            bad = ~torch.isfinite(out[0])
+            if bool(bad.any()):
+                out32 = _lml_forward(K, y, block, needs_grad, False)
+                return (*(_select(bad, a, b) for a, b in zip(out, out32)), bad)
+        return (*out, None)
 
     @staticmethod
-    def backward(ctx, g):
-        L, alpha, invs = ctx.saved_tensors
+    def setup_context(ctx, inputs, output):
+        ctx.block, ctx.tf32 = inputs[2], inputs[4]
+        _, L, alpha, invs, rescued = output
+        ctx.mark_non_differentiable(*(t for t in output[1:] if t is not None))
+        ctx.save_for_backward(L, alpha, invs, rescued)
+
+    @staticmethod
+    def backward(ctx, g, *_):
+        L, alpha, invs, rescued = ctx.saved_tensors
         Kbar = ybar = None
         if ctx.needs_input_grad[0]:
-            # K^-1 = W^T W, W = inv(L) from the factorization's tile inverses
-            with _matmul_tf32(ctx.tf32):
-                Kinv = syrk_lower_t(blocked_tril_inv(L, ctx.block, invs))
-            Kbar = (0.5 * g) * (torch.outer(alpha, alpha) - Kinv)
+            Kinv = _per_precision(lambda tf32: _lml_kinv(L, invs, ctx.block, tf32), ctx.tf32, rescued)
+            Kbar = (0.5 * g[..., None, None]) * (alpha[..., :, None] * alpha[..., None, :] - Kinv)
         if ctx.needs_input_grad[1]:
-            ybar = -g * alpha
-        return Kbar, ybar, None, None, None
+            ybar = -g[..., None] * alpha
+        return Kbar, ybar, None, None, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, K, y, block, needs_grad, tf32, rescue):
+        K, y = _physical(info, in_dims[:2], K, y)
+        needs_grad = needs_grad or (torch.is_grad_enabled() and (K.requires_grad or y.requires_grad))
+        out = _LmlCore.apply(K, y, block, needs_grad, tf32, rescue)
+        return out, _out_dims(out)
 
 
-def lml_core(K: Tensor, y: Tensor, block: int = DEFAULT_BLOCK, precision: str | None = None) -> Tensor:
+def lml_core(K: Tensor, y: Tensor, block: int = DEFAULT_BLOCK, precision: str | None = None,
+             rescue: bool = False) -> Tensor:
     """-(log|K| + y^T K^-1 y)/2 through the blocked driver and K3 or K4, with
-    the analytic GPML-5.9 backward, on both devices; ``precision`` sets the
-    drivers' matmuls, forward and backward."""
+    the analytic GPML-5.9 backward, on both devices; a (B, n, n) stack with
+    y (n,) or (B, n) gives (B,).  ``precision`` sets the drivers' matmuls,
+    forward and backward; ``rescue`` engages the precision rescue."""
     needs_grad = torch.is_grad_enabled() and (K.requires_grad or y.requires_grad)
-    return _LmlCore.apply(K, y, block, needs_grad, uses_tf32(precision))
+    return _LmlCore.apply(K, y, block, needs_grad, uses_tf32(precision), rescue)[0]

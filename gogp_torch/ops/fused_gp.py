@@ -71,10 +71,10 @@ def linv_plain(K: Tensor) -> Tensor:
 
 
 def fused_gp_linv(K: Tensor) -> Tensor:
-    """L^-1 of each SPD matrix of an (n, n) or (batch, n, n) tensor, the
-    batch in one launch of K7.  The kernel takes float32, contiguous,
-    1 <= n <= ``K7_MAX_N``.  A non-positive pivot gives NaN, as on the
-    TPU."""
+    """L^-1 of each SPD matrix of an (n, n) or (..., n, n) tensor, the
+    batch in one launch of K7 (under ``torch.func.vmap`` too).  The kernel
+    takes float32, contiguous, 1 <= n <= ``K7_MAX_N``.  A non-positive pivot
+    gives NaN, as on the TPU."""
     if not cb._is_cuda(K):
         return linv_plain(K)
     return cb._ForwardOnly.apply("fused_gp_linv", _fused_gp_linv_cuda, K)
@@ -82,12 +82,12 @@ def fused_gp_linv(K: Tensor) -> Tensor:
 
 def _fused_gp_linv_cuda(K: Tensor) -> Tensor:
     n = K.shape[-1]
-    if K.dim() not in (2, 3) or K.shape[-2] != n:
-        raise ValueError(f"fused_gp_linv: expected (n, n) or (batch, n, n), got {tuple(K.shape)}")
+    if K.dim() < 2 or K.shape[-2] != n:
+        raise ValueError(f"fused_gp_linv: expected (n, n) or (..., n, n), got {tuple(K.shape)}")
     cb._check_kernel_inputs("fused_gp_linv", K)
     if not 1 <= n <= K7_MAX_N:
         raise ValueError(f"fused_gp_linv: the CUDA kernel takes 1 <= n <= {K7_MAX_N}, got n={n}")
-    batch = 1 if K.dim() == 2 else K.shape[0]
+    batch = K.numel() // (n * n)  # every leading axis one batch (a vmapped call's too)
     out = torch.empty_like(K)
     if batch:
         cb._launch(K, "gogp_fused_gp_linv", K.data_ptr(), out.data_ptr(), batch, n)

@@ -21,12 +21,20 @@ Cholesky pullback, ``lml_core`` through GPML 5.9, ``trsm_lower`` and
 ``cho_solve_mat`` through the TRSM pullbacks.  So ``absorb``, ``lml``,
 ``gp_observe`` and the forecasts give gradients on the kernel path.
 
+Batches: a (B, n, n) stack (with (B, n) or shared (n,) vectors, (B, n, m)
+right-hand sides) takes the blocked route under the same rule as one
+matrix, and so does a matrix under ``torch.func.vmap``, as the JAX twin's
+``custom_vmap`` reroutes send a vmapped call to its kernels
+(``cholesky_blocked``'s module docstring has the routes).
+
 The precision rescue: where the blocked drivers run in TF32 and n >=
 ``_RESCUE_MIN_N``, ``cholesky`` and ``lml_core`` recompute at "float32" when
 the fast path's factor diagonal or value is not finite, as the JAX twin's
-``lax.cond`` does.  torch has no device-side cond, so the test is one read
-of a flag by the host per call, paid only while the rescue is engaged: at
-the default precision (full f32) it stays dormant and reads nothing.
+``lax.cond`` does; in a batch, each element whose own result is not finite
+takes the recomputed one.  torch has no device-side cond, so the test is one
+read of a flag by the host per call (on the physical batch, under vmap too),
+paid only while the rescue is engaged: at the default precision (full f32)
+it stays dormant and reads nothing.
 
 ``ACCURATE_PRECISION`` is the serving and classification surfaces' default
 (``gp.serve``, ``gp.laplace``, ``gp.ep``): the precision at which the
@@ -112,22 +120,12 @@ def _rescue_engaged(n: int, precision: str | None = None) -> bool:
     return _RESCUE and n >= _RESCUE_MIN_N and cb.uses_tf32(precision)
 
 
-def _rescued(run, n: int, precision: str | None, finite):
-    """``run(precision)``, recomputed as ``run("float32")`` where the rescue
-    is engaged and ``finite`` of the result is false (one host read)."""
-    out = run(precision)
-    if _rescue_engaged(n, precision) and not bool(finite(out)):
-        out = run("float32")
-    return out
-
-
 def cholesky(K: Tensor, precision: str | None = None) -> Tensor:
-    """Lower Cholesky factor; NaN (not an exception) where K is not
-    positive definite, as in the JAX package."""
+    """Lower Cholesky factor of a matrix or a (B, n, n) stack; NaN (not an
+    exception) where K is not positive definite, as in the JAX package."""
     block = _block(K)
     if block is not None:
-        return _rescued(lambda p: cb.cholesky(K, block, p), K.shape[-1], precision,
-                        lambda L: torch.isfinite(torch.diagonal(L)).all())
+        return cb.cholesky(K, block, precision, rescue=_rescue_engaged(K.shape[-1], precision))
     return cb.plain_cholesky(K)
 
 
@@ -159,13 +157,14 @@ def cholesky_with_jitter(
 
 def lml_core(K: Tensor, y: Tensor, precision: str | None = None) -> Tensor:
     """-1/2 (log|K| + y^T K^-1 y), the data part of the GP log marginal
-    likelihood (GPML eq. 5.8).  Blocked kernels (K3 or K4 for the solves,
+    likelihood (GPML eq. 5.8); a (B, n, n) stack with y (n,) or (B, n)
+    gives (B,).  Blocked kernels (K3 or K4 for the solves,
     ``cb.trsv_solvers``) with the analytic GPML-5.9 backward where
     eligible; otherwise torch.linalg under ordinary autograd."""
-    if y.dim() == 1:
+    if y.dim() == 1 or y.dim() == K.dim() - 1:
         block = _block(K)
         if block is not None:
-            return _rescued(lambda p: cb.lml_core(K, y, block, p), K.shape[-1], precision, torch.isfinite)
+            return cb.lml_core(K, y, block, precision, rescue=_rescue_engaged(K.shape[-1], precision))
     L = cb.plain_cholesky(K)
     z = torch.linalg.solve_triangular(L, y[..., None], upper=False)[..., 0]
     return -torch.log(torch.diagonal(L, dim1=-2, dim2=-1)).sum(-1) - 0.5 * (z * z).sum(-1)
@@ -181,21 +180,23 @@ def cho_solve_vec(L: Tensor, y: Tensor) -> Tensor:
 
 def cho_solve_mat(L: Tensor, B: Tensor) -> Tensor:
     """K^{-1} B given the lower factor L: two blocked TRSMs with their
-    analytic pullbacks where eligible (2-D B), torch.linalg otherwise."""
+    analytic pullbacks where eligible (B (n, m), or (B, n, m) beside a
+    stack), torch.linalg otherwise."""
     block = _block(L)
-    if block is not None and B.dim() == 2:
+    if block is not None and B.dim() == L.dim():
         return cb.trsm_lower_t_ad(L, cb.trsm_lower_ad(L, B, block), block)
     Z = torch.linalg.solve_triangular(L, B, upper=False)
     return torch.linalg.solve_triangular(L.mT, Z, upper=True)
 
 
 def trsm_lower(L: Tensor, B: Tensor) -> Tensor:
-    """L^{-1} B, the half-solve of the predictive variance."""
+    """L^{-1} B, the half-solve of the predictive variance (B (n, m) or
+    (n,), or a batch of either beside a (B, n, n) stack)."""
     block = _block(L)
-    if block is not None and B.dim() == 2:
+    if block is not None and B.dim() == L.dim():
         return cb.trsm_lower_ad(L, B, block)
-    if B.dim() == 1:
-        return torch.linalg.solve_triangular(L, B[:, None], upper=False)[:, 0]
+    if B.dim() == L.dim() - 1:
+        return torch.linalg.solve_triangular(L, B[..., None], upper=False)[..., 0]
     return torch.linalg.solve_triangular(L, B, upper=False)
 
 

@@ -3,8 +3,10 @@
 PyTorch-package twin of ``gogp_tpu/tutorial/io.py`` (the reference's
 ``load``, tutorial/tutorial.go:234-272, and its per-row forecast output,
 :185-197).  Host code on numpy, and the command lines' ``--platform``
-device.  Only the pure-Python parser is here; the native C++ parser of the
-JAX package waits in ROADMAP.md.
+device.  ``load_csv`` parses with the native C++ parser
+(:mod:`gogp_torch.utils.native`, built at first use) where a C++ compiler
+is present, and with Python otherwise or where the native parser rejects the
+text, as the twin falls back; a failed build raises.
 """
 
 from __future__ import annotations
@@ -16,16 +18,26 @@ from typing import IO, Iterable
 import numpy as np
 import torch
 
+from gogp_torch.utils import native
+
 
 def load_csv(rdr: IO[str] | str) -> tuple[np.ndarray, np.ndarray]:
     """Parse rows of ``x0,...,xk,y`` floats -> (X (n, k), Y (n,)): every
     column but the last is an input coordinate."""
     if isinstance(rdr, str):
         rdr = _io.StringIO(rdr)
-    rows = [[float(f) for f in line.split(",")] for line in map(str.strip, rdr.read().splitlines()) if line]
-    if not rows:
+    text = rdr.read()
+    data = None
+    if native.available():
+        try:
+            data = native.parse_csv(text)
+        except ValueError:  # as the twin: the Python parser has the last word
+            data = None
+    if data is None:
+        rows = [[float(f) for f in line.split(",")] for line in map(str.strip, text.splitlines()) if line]
+        data = np.asarray(rows, dtype=np.float64) if rows else np.zeros((0, 1))
+    if data.size == 0:
         return np.zeros((0, 1)), np.zeros((0,))
-    data = np.asarray(rows, dtype=np.float64)
     return data[:, :-1], data[:, -1]
 
 

@@ -156,7 +156,7 @@ def _k5_split(tiles, split):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("count", [1, 12, 32, 128, 200])
+@pytest.mark.parametrize("count", [1, 12, 32, 64, 128, 200])
 def test_tril_inv_tile_counts_and_splits(cuda, count):
     """K5 at each path's count of tiles, at 1 and past the card's 132 SMs,
     through the wrapper (one launch) and at each split of a tile over CTAs,
@@ -807,3 +807,67 @@ def test_natgrad_step_kernel_path_matches_f64_plain(cuda):
                 out[dtype] = sparse.svgp_natgrad_step(gp, *ones, sparse.svgp_init(gp, z), x, y, 1.0)
     for got, want in zip(out[torch.float32][1:], out[torch.float64][1:]):
         assert _rel(got, want) <= 1e-3
+
+
+# -- the batched route: K2 over a stack, K4 over a batch, the vmapped LML ----------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 3, 8])
+def test_cholesky_inv_tile_over_a_stack_in_one_launch(cuda, batch):
+    """K2 on the diagonal tiles of a (B, n, n) stack, in place, one launch,
+    each tile as the single-tile launch gives it."""
+    K = torch.stack([_spd(2 * B, cuda, seed=s) for s in range(batch)])
+    A = K.clone()
+    V = torch.empty(batch, B, B, device=cuda)
+    before = cb.LAUNCHES["chol_inv_tile"]
+    cb._cholesky_inv_tile_into(A[:, B:, B:], A[:, B:, B:], V)
+    assert cb.LAUNCHES["chol_inv_tile"] == before + 1
+    for i in range(batch):
+        L1, V1 = cb.cholesky_inv_tile(K[i, B:, B:].contiguous())
+        assert torch.equal(A[i, B:, B:], L1) and torch.equal(V[i], V1)
+    assert torch.equal(A[:, :B], K[:, :B])  # the rest of the stack untouched
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,n", [(2, 1024), (8, 1024), (3, 4096)])
+def test_trsv2d_over_a_batch_matches_each_solve(cuda, batch, n):
+    """K4 with a batch axis: one launch each way, each element bit for bit
+    the single solve, and both against solve_triangular."""
+    K = torch.stack([_spd(n, cuda, seed=s) for s in range(batch)])
+    L = torch.linalg.cholesky(K).contiguous()
+    invs = cb._tile_invs(L, B)
+    y = torch.randn(batch, n, device=cuda, generator=torch.Generator(device=cuda).manual_seed(0))
+    before = dict(cb.LAUNCHES)
+    z = cb.trsv2d_lower(L, y, invs, B)
+    x = cb.trsv2d_lower_t(L, z, invs, B)
+    assert cb.LAUNCHES["trsv2d_lower"] == before["trsv2d_lower"] + 1
+    assert cb.LAUNCHES["trsv2d_lower_t"] == before["trsv2d_lower_t"] + 1
+    for i in range(batch):
+        assert torch.equal(z[i], cb.trsv2d_lower(L[i], y[i], invs[i], B))
+        assert torch.equal(x[i], cb.trsv2d_lower_t(L[i], z[i], invs[i], B))
+    torch.testing.assert_close(z, cb.trsv_lower_plain(L, y), **TOL)
+    torch.testing.assert_close(x, cb.trsv_lower_t_plain(L, z), **TOL)
+
+
+@pytest.mark.cuda
+def test_vmapped_lml_takes_the_batched_route(cuda):
+    """``torch.func.vmap`` of the front door's LML at n = 1024 on 8
+    covariances: K5 once and K4 once each way for the whole batch, no K1 or
+    K2; value and gradient against autograd of the plain path in f64."""
+    gp = GP(ndim=1, simil=rbf.scaled(), noise=uniform_noise)
+    x = torch.linspace(0, 100, 1024, device=cuda)[:, None]
+    y = torch.sin(x[:, 0] / 3.0)
+    V = (0.05 * torch.randn(8, 3, device=cuda, generator=torch.Generator(device=cuda).manual_seed(1))
+         + torch.tensor([0.8, 0.0, -2.0], device=cuda)).requires_grad_(True)
+    cb.reset_launch_counts()
+    v = torch.func.vmap(lambda t: params.gp_observe(gp, t, x=x, y=y))(V)
+    (g,) = torch.autograd.grad(v.sum(), V)
+    assert {k: n for k, n in cb.LAUNCHES.items() if n} == {"tril_inv_tile": 1, "trsv2d_lower": 1,
+                                                             "trsv2d_lower_t": 1}
+    V64 = V.detach().double().requires_grad_(True)
+    with linalg.force_plain():
+        v64 = torch.stack([params.gp_observe(gp, t, x=x.double(), y=y.double()) for t in V64])
+        (g64,) = torch.autograd.grad(v64.sum(), V64)
+    assert _rel(v.detach(), v64.detach()) < 1e-4
+    assert _rel(g, g64) < 1e-2

@@ -220,22 +220,27 @@ def test_rescue_size_gate_and_precision():
 
 @pytest.fixture
 def nan_fast_path(monkeypatch):
-    """cb.lml_core and cb.cholesky patched to give NaN on their first call
-    and the true result after; returns the precision of every call."""
+    """The forwards of the blocked Cholesky and LML core (inside their
+    autograd Functions, where the rescue runs) patched to give NaN on their
+    first call and the true result after; returns the precision, as the
+    string ``cb.uses_tf32`` maps to the call's TF32 flag, of every call."""
     calls = []
-    real = {"lml_core": cb.lml_core, "cholesky": cb.cholesky}
+    real = {"lml_core": cb._lml_forward, "cholesky": cb._chol_forward}
+    names = {True: "tensorfloat32", False: "float32"}
 
     def patched(name):
         def fn(*args):
             first = all(c[0] != name for c in calls)
-            calls.append((name, args[-1]))
+            calls.append((name, names[args[-1]]))
             out = real[name](*args)
-            return out * float("nan") if first else out
+            if not first:
+                return out
+            return (out[0] * float("nan"), *out[1:]) if name == "lml_core" else out * float("nan")
 
         return fn
 
-    monkeypatch.setattr(cb, "lml_core", patched("lml_core"))
-    monkeypatch.setattr(cb, "cholesky", patched("cholesky"))
+    monkeypatch.setattr(cb, "_lml_forward", patched("lml_core"))
+    monkeypatch.setattr(cb, "_chol_forward", patched("cholesky"))
     return calls
 
 
@@ -272,7 +277,8 @@ def test_rescue_dormant(nan_fast_path, how):
         out = linalg.lml_core(K, y, precision=precision)
         L = linalg.cholesky(K, precision=precision)
     assert torch.isnan(out) and torch.isnan(L).all()
-    assert nan_fast_path == [("lml_core", precision), ("cholesky", precision)]
+    ran = "tensorfloat32" if cb.uses_tf32(precision) else "float32"
+    assert nan_fast_path == [("lml_core", ran), ("cholesky", ran)]
     assert linalg._RESCUE and linalg._RESCUE_MIN_N == 8192
 
 
