@@ -334,10 +334,40 @@ process per source) and then runs these phases, each printing JSON lines:
               of it; 100 batches of 4096 rows of a packed 65536-row
               dataset from the native loader and the Python stream,
               bit-identical.
+24. parallel - (after the samplers' workers are done, beside nothing)
+              the multi-device layer (gogp_torch.parallel,
+              ops.distributed).  In this process, on an NCCL group of world
+              size 1 (init_multihost on a localhost store): on the large
+              path's problem at n = 16384, block 128, the row-sharded
+              Cholesky and both solves against cuSOLVER's factor and
+              cholesky_solve; make_rowsharded_logp's value and gradient
+              (make_rowsharded_value_and_grad, 3 calls) against the
+              single-card gp_observe and the f64 plain path; the
+              row-sharded iterative form at precond_rank 0 and 32 against
+              the dense lml_iterative on the same probes; BASELINE.json's
+              fifth configuration, run_smc_large_n with HMC mutation at n =
+              16384, cut to 4 particles, one stage, one mutation of 2
+              leapfrog steps; K2 held to n / 128 launches a factorization.
+              Then four spawned ranks over gloo on the same card (the
+              phase fails unless gloo takes CUDA tensors for all_reduce,
+              broadcast and all_gather), each case against the same call on
+              rank 0 alone (its log-density taking the population in the
+              ranks' slabs): the row-sharded LML at n = 4096,
+              run_chees_sharded on hyperpriors (64 chains, 16 a rank, 32 +
+              32, trajectories cut to 8 steps), run_smc_sharded on
+              hyperpriors (64 particles, 3 stages) and both sharded serving
+              calls at n = 4096 (8 draws, 2 a rank, 1024 rows); K2, K7, K1
+              and K5 launches held per rank; the batch witness: the
+              hyperpriors log-joint and gradient at the 64 chains' starting
+              positions in one batch against four slabs of 16, per chain,
+              held at twice the f32 evaluation's error against f64.  Every run prints its backend
+              and world size; K2, K7, K1 and K5 against their plain versions
+              at these paths' shapes.
 
 With ``--phases a,b,...`` (of kernels, k5, k7, gate, stamps, coldstart,
 slice, train, large, serve, classify, sparse, surface, pathwise, bo,
-search, iterative, toeplitz, ski, large_n_bayes, large_n_bayes_exact, utils, bayes, samplers, evaluate; k7 is the
+search, iterative, toeplitz, ski, large_n_bayes, large_n_bayes_exact, utils, bayes, samplers, evaluate,
+parallel; k7 is the
 bayes phase's kernel checks without its sampler runs, gate times K3 against
 K4 at n = 24576 to 65536, stamps records the stages of K2, K5 and K4's chain
 step and coldstart takes apart a process's first laplace_fit, the last three
@@ -347,7 +377,7 @@ run, after device and build, and the script ends with ``{"ok": false,
 
 With ``--profile``, one more phase follows:
 
-24. profile - one serving slice run, one train and one large value-and-gradient
+25. profile - one serving slice run, one train and one large value-and-gradient
               step, one 64-chain value and gradient of the bayes path and one
               127-prefix value and gradient of the evaluate path, on each
               path under torch.profiler: the device's busy time and idle
@@ -1142,6 +1172,8 @@ PATH_KERNELS = {"serve": SERVE_KERNELS, "train": TRAIN_KERNELS, "large": LARGE_K
                 "bayes": BAYES_KERNELS, "large_n_bayes_exact": LNBX_KERNELS,
                 "evaluate": EVALUATE_KERNELS, "evaluate_hyperpriors": EVALUATE_KERNELS,
                 **{path: ("fused_gp_linv",) for path in SAMPLER_PATHS},
+                "parallel": ("chol_inv_tile",),
+                "parallel_ranks": ("chol_inv_tile", "fused_gp_linv", "fused_cholesky_invs", "tril_inv_tile"),
                 "kernels": ("chol_tile", *OFF_PATH_SOLVES)}
 
 
@@ -4236,13 +4268,14 @@ SKI_BOUNDS = {
 # (Adam, 10 chunks of 20 steps at 0.05), spread 0.05, step 0.01, trajectory
 # 0.1, at most 64 leapfrog steps.  The W^T form is "scatter": the twin's
 # default, "matmul", builds (n, g) one-hots here (PERF.md).  Cut
-# from 256 + 256 transitions to 10 + 8, so that the phase stays near 100 s:
-# a batched value and gradient of the 8 chains took 199 ms on an H100, a
-# transition about 24 of them (PERF.md §4).
+# from 256 + 256 transitions to 10 + 8, so that the phase stayed near 100 s
+# (a batched value and gradient of the 8 chains took 199 ms on an H100, a
+# transition about 24 of them), and to 6 + 4 to keep the whole script under
+# 800 s beside the parallel phase (PERF.md §4).
 N_LNB, G_LNB, LNB_X = 65536, 4096, 100.0
 LNB_CHAINS, LNB_MAX_STEPS, LNB_SPREAD, LNB_STEP, LNB_TRAJ = 8, 64, 0.05, 0.01, 0.1
 LNB_ADAM_CHUNKS, LNB_ADAM_STEPS, LNB_ADAM_RATE = 10, 20, 0.05
-LNB_WARMUP, LNB_SAMPLES, LNB_SEED, LNB_PROBE_SEED = 10, 8, 0, 777
+LNB_WARMUP, LNB_SAMPLES, LNB_SEED, LNB_PROBE_SEED = 6, 4, 0, 777
 LNB_METHOD = "scatter"
 
 
@@ -5183,6 +5216,528 @@ def _partial_slice(dev) -> None:
     phase_launches(*phase_slice(dev))
 
 
+# --- the parallel phase: gogp_torch.parallel and ops.distributed ------------------
+
+# (a) In this process, an NCCL group of world size 1 on the large path's
+# problem (n = 16384, rbf.scaled() + uniform_noise, log-theta 0, f32, block
+# 128 = K2's tile): the row-sharded Cholesky and both solves, the
+# row-sharded value and gradient (PAR_VG_CALLS calls), the row-sharded
+# iterative form at each of PAR_PRECOND_RANKS, and BASELINE.json's fifth
+# configuration, run_smc_large_n with HMC mutation at full width, cut to
+# PAR_SMC (the cuts are PERF.md section 4's).
+PAR_BLOCK = BLOCK
+PAR_VG_CALLS = 3
+PAR_PRECOND_RANKS = (0, 32)
+PAR_ITER_SEED = 5
+PAR_SMC = dict(num_particles=4, sigma0=0.5, max_stages=1, num_mcmc_steps=1, n_leapfrog=2)
+# (b) Four spawned ranks on cuda:0 over gloo, each case against the same call
+# on rank 0 alone (a 1x1 mesh of the same world): the LML at n = 4096 (block
+# 128, n_local 1024), ChEES and SMC on hyperpriors with the chains and
+# particles over the ranks, and both sharded serving calls at n = 4096.
+PAR_WORLD = 4
+PAR_N_RANKS = 4096
+PAR_CHEES = dict(chains=64, num_warmup=32, num_samples=32, max_num_steps=8)
+PAR_HP_SMC = dict(num_particles=64, max_stages=3, num_mcmc_steps=2, n_leapfrog=4)
+PAR_SERVE_DRAWS = 8
+# Bounds of the parallel phase, f32, written before its first run on the
+# card: 10 times what the same case gave in f32 on the CPU (the world-1
+# cases at n = 4096 there; PERF.md).  Where the CPU gave exactly 0 the bound
+# is 10 f32 roundoffs (6e-7 relative; 2e-6 absolute on positions of scale
+# about 3).  The gradient's is 10 times the single-card kernel path's error
+# on this problem on the H100 (1.21e-7, the large phase; PERF.md), the CPU's
+# 6.6e-9 at n = 4096 not being the same case.
+PAR_BOUNDS = {
+    "chol_rel": 3.4e-6,  # the row-sharded factor against cuSOLVER's, relative to its largest entry (CPU 3.37e-7)
+    "solve_rel": 1.5e-5,  # alpha from both row-sharded solves against cholesky_solve (CPU 1.49e-6)
+    "value_rel": 6.0e-7,  # the row-sharded LML against the f64 plain path's, relative (CPU 5.98e-8)
+    "grad_rel": 1.2e-6,  # its gradient, relative to the largest entry
+    "iter_value_rel": 6.0e-7,  # the row-sharded iterative LML against the dense one, same probes (CPU 0)
+    "iter_grad_rel": 6.0e-7,  # (CPU 8.1e-9 at rank 0, 1.6e-8 at rank 32)
+    "ranks_lml_value_rel": 6.0e-7,  # (b): 4 ranks against 1, the LML at n = 4096 (CPU 0)
+    "ranks_lml_grad_rel": 6.5e-7,  # (CPU 6.5e-8)
+    "ranks_chees_abs": 2e-6,  # ChEES positions, 4 ranks against 1 (CPU 0)
+    "ranks_smc_abs": 2e-6,  # SMC particles (CPU 0)
+    "ranks_serve_rel": 4.7e-5,  # mixture and request-sharded (mu, sigma), relative to the largest entry (CPU 4.69e-6)
+}
+# The batch witness's bound: a chain's log-joint value (and gradient) in a
+# batch of 64 and in slabs of 16 part by at most this many times the largest
+# error of the one-batch f32 evaluation against f64 on the same positions.
+PAR_WITNESS_ROUNDING = 2.0
+# K2 on the world-1 path (PATH_KERNELS["parallel"]); K2 (the LML), K7
+# (ChEES and SMC on hyperpriors), K1 and K5 (serving) on the four ranks'
+# paths (PATH_KERNELS["parallel_ranks"]).
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _rel(got: torch.Tensor, want: torch.Tensor) -> float:
+    got, want = torch.as_tensor(got).double(), torch.as_tensor(want).double()
+    if not torch.isfinite(got).all():
+        raise AssertionError("non-finite values in a parallel result")
+    return float((got - want).abs().max() / max(float(want.abs().max()), 1e-30))
+
+
+def _sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _timed(dev, fn):
+    """(fn(), its wall in ms, the card synchronized before and after)."""
+    _sync(dev)
+    t0 = time.perf_counter()
+    out = fn()
+    _sync(dev)
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _count_lml_calls():
+    """A context in which ops.distributed.lml_rowsharded counts its calls
+    (each one row-sharded factorization)."""
+    from gogp_torch.ops import distributed as dops
+
+    calls = [0]
+    real = dops.lml_rowsharded
+
+    def counted(*a, **k):
+        calls[0] += 1
+        return real(*a, **k)
+
+    return unittest.mock.patch.object(dops, "lml_rowsharded", counted), calls
+
+
+def parallel_world1(dev, n: int = N_LARGE, smc: dict | None = None) -> dict:
+    """(a): the row-sharded exact GP on a real process group of one rank
+    (NCCL on the card), measured and held against the single-card path."""
+    import torch.distributed as dist
+    from gogp_torch.ops import distributed as dops
+    from gogp_torch.parallel import large_n, mesh as pmesh
+
+    pmesh.init_multihost(f"127.0.0.1:{_free_port()}", 1, 0, backend="nccl" if dev.type == "cuda" else "gloo")
+    try:
+        mesh = pmesh.make_mesh(1, 1)
+        emit({"phase": "parallel", "run": "world1", **pmesh.describe(mesh)})
+        return _parallel_world1(dev, mesh, n, smc or PAR_SMC, dops, large_n, pmesh)
+    finally:
+        dist.destroy_process_group()
+
+
+def _parallel_world1(dev, mesh, n, smc, dops, large_n, pmesh) -> dict:
+    data = pmesh.DATA_AXIS
+    args32 = large_problem(n, torch.float32, dev)
+    args64 = large_problem(n, torch.float64, dev)
+    gp, x, y, v0, _ = args32
+    theta = torch.exp(v0)
+    ts, tn = theta[: gp.n_theta_simil], theta[gp.n_theta_simil:]
+    K = core.masked_cov(gp, ts, tn, x, None)
+    nb = n // PAR_BLOCK
+    out, errors, ms, launches = {}, {}, {}, {}
+
+    # the main path: counts set to 0 just before, read just after
+    cb.reset_launch_counts()
+    with mesh:
+        L, ms["cholesky_first"] = _timed(dev, lambda: dops.cholesky_rowsharded(K, data, PAR_BLOCK))
+        launches["cholesky"] = dict(cb.LAUNCHES)
+        z, ms["solve_lower_first"] = _timed(dev, lambda: dops.solve_lower_rowsharded(L, y, data, PAR_BLOCK))
+        alpha, ms["solve_upper_first"] = _timed(dev, lambda: dops.solve_upper_rowsharded(L, z, data, PAR_BLOCK))
+        # warm: the first calls above include the group's and the kernels' set-up
+        L, ms["cholesky"] = _timed(dev, lambda: dops.cholesky_rowsharded(K, data, PAR_BLOCK))
+        z, ms["solve_lower"] = _timed(dev, lambda: dops.solve_lower_rowsharded(L, y, data, PAR_BLOCK))
+        alpha, ms["solve_upper"] = _timed(dev, lambda: dops.solve_upper_rowsharded(L, z, data, PAR_BLOCK))
+    logp = large_n.make_rowsharded_logp(gp, x, x, y, torch.ones_like(y), data, PAR_BLOCK)
+    vg = large_n.make_rowsharded_value_and_grad(logp, data)
+    cb.reset_launch_counts()
+    vg_ms = []
+    with mesh:
+        for _ in range(PAR_VG_CALLS):
+            (value, grad), t = _timed(dev, lambda: vg(v0))
+            vg_ms.append(t)
+    launches["value_and_grad"] = dict(cb.LAUNCHES)
+    ms["value_and_grad"] = vg_ms
+
+    L_ref, ms["cusolver_cholesky"] = _timed(dev, lambda: torch.linalg.cholesky(K))
+    errors["chol_rel"] = _rel(L, L_ref)
+    errors["solve_rel"] = _rel(alpha, torch.cholesky_solve(y[:, None], L_ref)[:, 0])
+    del L, L_ref, z, alpha
+    (v32, g32), ms["single_card_value_and_grad"] = _timed(dev, lambda: value_and_grad_step(*args32))
+    with linalg.force_plain():
+        v64, g64 = value_and_grad_step(*args64)
+    errors["value_rel"] = abs(float(value) - float(v64)) / abs(float(v64))
+    errors["grad_rel"] = _rel(grad, g64)
+    errors["value_rel_single_card_f32"] = abs(float(v32) - float(v64)) / abs(float(v64))
+    errors["grad_rel_single_card_f32"] = _rel(g32, g64)
+
+    # the row-sharded iterative form against the dense one, same probes
+    for rank in PAR_PRECOND_RANKS:
+        def rows_vg(rank=rank):
+            lp = large_n.make_rowsharded_logp(gp, x, x, y, torch.ones_like(y), data, PAR_BLOCK, method="iterative",
+                                              draws=seeded_draws(dev, PAR_ITER_SEED), precond_rank=rank)
+            with mesh:
+                return large_n.make_rowsharded_value_and_grad(lp, data)(v0)
+
+        def dense_vg(rank=rank):
+            vv = v0.clone().requires_grad_(True)
+            th = torch.exp(vv)
+            val = core.lml_iterative(gp, th[: gp.n_theta_simil], th[gp.n_theta_simil:], x, y,
+                                     seeded_draws(dev, PAR_ITER_SEED), precond_rank=rank)
+            (g,) = torch.autograd.grad(val, vv)
+            return val.detach(), g
+
+        rows_vg()  # warm
+        (vi, gi), ms[f"iterative_rank{rank}"] = _timed(dev, rows_vg)
+        (vd, gd), ms[f"dense_iterative_rank{rank}"] = _timed(dev, dense_vg)
+        errors[f"iter_value_rel_rank{rank}"] = abs(float(vi) - float(vd)) / abs(float(vd))
+        errors[f"iter_grad_rel_rank{rank}"] = _rel(gi, gd)
+        errors[f"iter_value_rel_exact_rank{rank}"] = abs(float(vi) - float(v64)) / abs(float(v64))
+    del K
+
+    # BASELINE.json's fifth configuration: SMC over the hyperparameters on
+    # the row-sharded covariance, cut in depth
+    patch, calls = _count_lml_calls()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    cb.reset_launch_counts()
+    with patch:
+        res, ms["smc_large_n"] = _timed(dev, lambda: large_n.run_smc_large_n(
+            gp, x, y, torch.Generator(device=dev).manual_seed(0), mesh, block=PAR_BLOCK, **smc))
+    launches["smc_large_n"] = dict(cb.LAUNCHES)
+    smc_out = {"particles": res.particles.tolist(), "log_evidence": float(res.log_evidence),
+               "accept_rate": float(res.accept_rate), "num_stages": res.num_stages,
+               "betas_hit_one": res.betas_hit_one, "factorizations": calls[0],
+               "peak_gib": torch.cuda.max_memory_allocated() / 2**30 if dev.type == "cuda" else None,
+               "cuts": smc}
+    emit({"phase": "parallel", "run": "world1", "n": n, "block": PAR_BLOCK, "ms": ms, "errors": errors,
+          "launches": launches, "smc_large_n": smc_out})
+
+    failures = []
+    for name in ("chol_rel", "solve_rel", "value_rel", "grad_rel"):
+        if PAR_BOUNDS[name] is not None and not errors[name] <= PAR_BOUNDS[name]:
+            failures.append(f"{name} {errors[name]:.3e} > {PAR_BOUNDS[name]}")
+    for rank in PAR_PRECOND_RANKS:
+        for name in ("iter_value_rel", "iter_grad_rel"):
+            if PAR_BOUNDS[name] is not None and not errors[f"{name}_rank{rank}"] <= PAR_BOUNDS[name]:
+                failures.append(f"{name}_rank{rank} {errors[f'{name}_rank{rank}']:.3e} > {PAR_BOUNDS[name]}")
+    k2 = "chol_inv_tile"
+    if dev.type == "cuda":
+        if launches["cholesky"][k2] != nb:
+            failures.append(f"K2 launched {launches['cholesky'][k2]} times in one factorization (want {nb})")
+        if launches["value_and_grad"][k2] != nb * PAR_VG_CALLS:
+            failures.append(f"K2 launched {launches['value_and_grad'][k2]} times in {PAR_VG_CALLS} values and "
+                            f"gradients (want {nb * PAR_VG_CALLS})")
+        if launches["smc_large_n"][k2] != nb * calls[0] or calls[0] < 1:
+            failures.append(f"K2 launched {launches['smc_large_n'][k2]} times in {calls[0]} factorizations of SMC")
+    if not (torch.isfinite(res.particles).all() and math.isfinite(float(res.log_evidence))
+            and 0.0 <= float(res.accept_rate) <= 1.0 and res.num_stages >= 1):
+        failures.append("run_smc_large_n: non-finite particles or log evidence, or no stage")
+    if failures:
+        raise AssertionError(f"parallel (world 1): {failures}")
+    return {"launches": {k2: launches["value_and_grad"][k2] + launches["smc_large_n"][k2]
+                         + launches["cholesky"][k2]}, "ms": ms, "errors": errors}
+
+
+def _rank_probe(dev) -> dict:
+    """Asserts that gloo takes CUDA tensors for all_reduce, broadcast and
+    all_gather, each tried once on a tiny tensor: the phase fails where it
+    refuses one or gets it wrong (the mesh never stages through the host)."""
+    import torch.distributed as dist
+
+    world, rank = dist.get_world_size(), dist.get_rank()
+    t = torch.full((2,), float(rank + 1), device=dev)
+    want = {"all_reduce": torch.full((2,), world * (world + 1) / 2.0), "broadcast": torch.ones(2),
+            "all_gather": torch.arange(1, world + 1, dtype=torch.float32).repeat_interleave(2)}
+
+    def all_reduce():
+        u = t.clone()
+        dist.all_reduce(u)
+        return u
+
+    def broadcast():
+        u = t.clone()
+        dist.broadcast(u, src=0)
+        return u
+
+    def all_gather():
+        parts = [torch.empty_like(t) for _ in range(world)]
+        dist.all_gather(parts, t)
+        return torch.cat(parts)
+
+    ok = {}
+    for name, fn in (("all_reduce", all_reduce), ("broadcast", broadcast), ("all_gather", all_gather)):
+        try:
+            got = fn()
+        except RuntimeError as e:
+            raise AssertionError(f"gloo refused a CUDA {name}: {e}") from e
+        if not (got.is_cuda and torch.equal(got.cpu(), want[name])):
+            raise AssertionError(f"gloo's CUDA {name} gave {got.tolist()}, want {want[name].tolist()}")
+        ok[name] = True
+    return ok
+
+
+def _batch_witness(logp, logp64, V) -> dict:
+    """The hyperpriors log-joint and its gradient at the chains' positions
+    ``V`` evaluated in one batch and in the ranks' PAR_WORLD slabs: per
+    chain, the largest difference of the value and of the gradient between
+    the two, held at f32 rounding (twice the largest error of the one-batch
+    f32 evaluation against f64 on the same positions), and on the card at
+    least one chain not the same bit for bit (the cause that the one-rank
+    reference's slabs stand for)."""
+
+    def vg(fn, W):
+        q = W.detach().requires_grad_(True)
+        lp = fn(q)
+        return lp.detach().double(), torch.autograd.grad(lp.sum(), q)[0].double()
+
+    v1, g1 = vg(logp, V)
+    slabs = [vg(logp, c) for c in V.chunk(PAR_WORLD)]
+    v4, g4 = torch.cat([a for a, _ in slabs]), torch.cat([b for _, b in slabs])
+    v64, g64 = vg(logp64, V.double())
+    if not (torch.isfinite(v1).all() and torch.isfinite(g1).all() and torch.isfinite(v64).all()):
+        raise AssertionError("the batch witness's log-joint or gradient is not finite")
+    dv, dg = (v1 - v4).abs(), (g1 - g4).abs().amax(-1)
+    ev, eg = (v1 - v64).abs(), (g1 - g64).abs().amax(-1)
+    out = {"chains": V.shape[0], "slabs": PAR_WORLD, "value_abs_max": float(dv.max()),
+           "grad_abs_max": float(dg.max()), "chains_differing": int(((dv > 0) | (dg > 0)).sum()),
+           "value_f32_err_max": float(ev.max()), "grad_f32_err_max": float(eg.max()),
+           "value_abs_per_chain": dv.tolist(), "grad_abs_per_chain": dg.tolist()}
+    failures = []
+    if not float(dv.max()) <= PAR_WITNESS_ROUNDING * float(ev.max()):
+        failures.append(f"value differs by {float(dv.max()):.3e} between batchings, over "
+                        f"{PAR_WITNESS_ROUNDING} x its f32 error {float(ev.max()):.3e}")
+    if not float(dg.max()) <= PAR_WITNESS_ROUNDING * float(eg.max()):
+        failures.append(f"gradient differs by {float(dg.max()):.3e} between batchings, over "
+                        f"{PAR_WITNESS_ROUNDING} x its f32 error {float(eg.max()):.3e}")
+    if V.is_cuda and out["chains_differing"] == 0:
+        failures.append("the log-joint is batch-invariant here: the one-rank reference's slabs stand for nothing")
+    if failures:
+        raise AssertionError(f"batch witness: {failures}")
+    return out
+
+
+def parallel_rank(rank: int, world: int, port: int, queue, go, dev_type: str = "cuda") -> None:
+    """(b), one spawned rank: once its group is up, waits for ``go``, then
+    runs every case on the 4-rank mesh and, on rank 0, on a 1x1 mesh of the
+    same world; puts its report on ``queue``."""
+    try:
+        queue.put(_parallel_rank(rank, world, port, go, dev_type))
+    except BaseException as e:  # the parent reports it and fails the phase
+        import traceback
+
+        queue.put({"rank": rank, "error": f"{type(e).__name__}: {e}\n{traceback.format_exc()}"})
+        raise
+
+
+def _parallel_rank(rank: int, world: int, port: int, go, dev_type: str) -> dict:
+    import torch.distributed as dist
+    from gogp_torch.parallel import large_n, mesh as pmesh, sample, serving, smc_sharded
+
+    dev = torch.device(dev_type, 0) if dev_type == "cuda" else torch.device("cpu")
+    if dev.type == "cuda":
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+    pmesh.init_multihost(f"127.0.0.1:{port}", world, rank, backend="gloo")
+    cuda_ok = _rank_probe(dev) if dev.type == "cuda" else {}
+    data4 = pmesh.make_mesh(1, world)
+    chain4 = pmesh.make_mesh(world, 1)
+    one = pmesh.make_mesh(1, 1, ranks=[0])
+    report = {"rank": rank, "backend": {**pmesh.describe(chain4), "cuda_collectives": cuda_ok}, "ms": {},
+              "launches": {}, "diff": {}}
+    go.wait()
+    f32 = torch.float32
+
+    def run(label, fn):
+        """``fn(mesh, slabs)`` on the four ranks, then on rank 0 alone with
+        the log-density taking the whole population in the ranks' slabs;
+        each run's launch counts set to 0 just before and read just after."""
+        cb.reset_launch_counts()
+        got4, report["ms"][label] = _timed(dev, lambda: fn(data4 if label == "lml" else chain4, 1))
+        report["launches"][label] = dict(cb.LAUNCHES)
+        dist.barrier()
+        got1 = None
+        if rank == 0:
+            got1, report["ms"][label + "_one_rank"] = _timed(dev, lambda: fn(one, world))
+        dist.barrier()
+        return got4, got1
+
+    # the LML's value and gradient at n = 4096
+    gp, x, y, v0, _ = large_problem(PAR_N_RANKS, f32, dev)
+
+    def lml(mesh, _):
+        sh = pmesh.data_sharding(mesh)
+        xs, ys = sh.slab(x), sh.slab(y)
+        with mesh:
+            lp = large_n.make_rowsharded_logp(gp, xs, pmesh.all_gather(xs, pmesh.DATA_AXIS), ys,
+                                              torch.ones_like(ys), pmesh.DATA_AXIS, PAR_BLOCK)
+            return large_n.make_rowsharded_value_and_grad(lp)(v0)
+
+    (val4, g4), got1 = run("lml", lml)
+    if rank == 0:
+        report["diff"]["ranks_lml_value_rel"] = abs(float(val4) - float(got1[0])) / abs(float(got1[0]))
+        report["diff"]["ranks_lml_grad_rel"] = _rel(g4, got1[1])
+
+    # ChEES and SMC on hyperpriors, chains and particles over the ranks.  On
+    # the card a chain's K7-route log-joint is not bit for bit the same in a
+    # batch of 16 as in one of 64, and 64 f32 transitions grow such a
+    # difference to the posterior's scale; so the one-rank reference
+    # evaluates its 64 chains in the ranks' four slabs of 16, and the batch
+    # witness (after the samplers) measures that difference directly
+    _, _, _, logp, _, hv0, free = bayes_problem(dev)
+    calls = [0]
+
+    def counted_in(slabs):
+        def counted(V):
+            calls[0] += 1
+            return torch.cat([logp(c) for c in V.chunk(slabs)])
+
+        return counted
+
+    rng = np.random.default_rng(0)
+    x0 = hv0 + 0.1 * torch.as_tensor(rng.normal(size=(PAR_CHEES["chains"], hv0.shape[0])), dtype=f32,
+                                     device=dev) * free
+    kw = {k: v for k, v in PAR_CHEES.items() if k != "chains"}
+
+    def chees_run(mesh, slabs):
+        calls[0] = 0
+        res = sample.run_chees_sharded(counted_in(slabs), x0, torch.Generator(device=dev).manual_seed(0), mesh,
+                                       free=free, **kw)
+        return res.positions, calls[0]
+
+    (pos4, calls4), got1 = run("chees", chees_run)
+    report["chees_vg_calls"] = calls4
+    if rank == 0:
+        report["diff"]["ranks_chees_abs"] = float((pos4.double() - got1[0].double()).abs().max())
+        report["chees_finite"] = bool(torch.isfinite(pos4).all())
+
+    def smc_run(mesh, slabs):
+        calls[0] = 0
+        res = smc_sharded.run_smc_sharded(counted_in(slabs), hv0, torch.Generator(device=dev).manual_seed(1), mesh,
+                                          free=free, **PAR_HP_SMC)
+        return res, calls[0]
+
+    (smc4, calls4), got1 = run("smc", smc_run)
+    report["smc_vg_calls"] = calls4
+    if rank == 0:
+        report["diff"]["ranks_smc_abs"] = float((smc4.particles.double() - got1[0].particles.double()).abs().max())
+        report["smc"] = {"stages": smc4.num_stages, "log_evidence": float(smc4.log_evidence),
+                         "log_evidence_one_rank": float(got1[0].log_evidence)}
+        # the batch dependence that the one-rank reference's slabs stand for,
+        # at the ChEES chains' starting positions
+        report["batch_witness"] = _batch_witness(logp, bayes_problem(dev, torch.float64)[3], x0)
+    dist.barrier()
+
+    # sharded serving at n = 4096: the mixture of S draws over the ranks,
+    # each rank compiling its own; the request rows over the ranks
+    sgp, sx, sy, _, sts, stn, sz = problem(f32, dev)
+    vs = torch.as_tensor(0.1 * np.random.default_rng(1).normal(size=(PAR_SERVE_DRAWS, 3)), dtype=f32, device=dev)
+
+    def serve_run(mesh, _):
+        sm = serving.compile_mixture_sharded(sgp, vs, sx, sy, mesh)
+        mix = serving.serve_predict_mixture_sharded(sgp, sm, sz, mesh)
+        sp = serve.fit_serving(sgp, sts, stn, sx, sy)
+        return mix, serving.serve_predict_sharded(sgp, sp, sz, mesh), sm.n_draws
+
+    (mix4, req4, draws4), got1 = run("serve", serve_run)
+    report["serve_local_draws"] = draws4
+    if rank == 0:
+        report["diff"]["ranks_serve_rel"] = max(_rel(a, b) for a, b in zip((*mix4, *req4), (*got1[0], *got1[1])))
+    dist.destroy_process_group()
+    return report
+
+
+def start_parallel_ranks(dev):
+    """(b)'s PAR_WORLD ranks, spawned: each imports, joins its gloo group on
+    one card and waits for the returned event."""
+    ctx = multiprocessing.get_context("spawn")
+    queue, go = ctx.Queue(), ctx.Event()
+    port = _free_port()
+    procs = [ctx.Process(target=parallel_rank, args=(r, PAR_WORLD, port, queue, go, dev.type))
+             for r in range(PAR_WORLD)]
+    for p in procs:
+        p.start()
+    return procs, queue, go
+
+
+def parallel_ranks(dev, started) -> dict:
+    """(b): the spawned ranks' cases, started now and beside nothing else on
+    the card; each case against the same call on rank 0 alone."""
+    procs, queue, go = started
+    go.set()
+    reports = []
+    try:
+        for _ in procs:
+            reports.append(queue.get(timeout=600))
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+    errors = [r["error"] for r in reports if "error" in r]
+    if errors:
+        raise AssertionError("parallel ranks failed:\n" + "\n".join(errors))
+    reports.sort(key=lambda r: r["rank"])
+    r0 = reports[0]
+    emit({"phase": "parallel", "run": "ranks", **{k: r0[k] for k in ("backend", "ms", "diff")},
+          "launches": [r["launches"] for r in reports], "chees_vg_calls": [r["chees_vg_calls"] for r in reports],
+          "smc_vg_calls": [r["smc_vg_calls"] for r in reports], "serve_local_draws": r0["serve_local_draws"],
+          "smc": r0["smc"], "batch_witness": r0["batch_witness"]})
+    failures = [f"{k} {v:.3e} > {PAR_BOUNDS[k]}" for k, v in r0["diff"].items()
+                if PAR_BOUNDS[k] is not None and not v <= PAR_BOUNDS[k]]
+    if not r0["chees_finite"]:
+        failures.append("ChEES positions not finite")
+    total = {}
+    if dev.type == "cuda":
+        nb = PAR_N_RANKS // PAR_BLOCK
+        for r in reports:
+            L = r["launches"]
+            if L["lml"]["chol_inv_tile"] != nb:
+                failures.append(f"rank {r['rank']}: K2 launched {L['lml']['chol_inv_tile']} times (want {nb})")
+            for case in ("chees", "smc"):
+                if L[case]["fused_gp_linv"] != r[f"{case}_vg_calls"]:
+                    failures.append(f"rank {r['rank']}: K7 launched {L[case]['fused_gp_linv']} times in "
+                                    f"{r[f'{case}_vg_calls']} log-joint calls of {case}")
+            if L["serve"]["fused_cholesky_invs"] < 1 or L["serve"]["tril_inv_tile"] < 1:
+                failures.append(f"rank {r['rank']}: serving launched no K1 or no K5")
+        for key in PATH_KERNELS["parallel_ranks"]:
+            total[key] = sum(r["launches"][case][key] for r in reports for case in ("lml", "chees", "smc", "serve"))
+    if failures:
+        raise AssertionError(f"parallel (ranks): {failures}")
+    return {"launches": total, "reports": reports}
+
+
+def phase_parallel(dev) -> dict:
+    """The multi-device layer: (a) in this process on an NCCL group of one
+    rank, (b) on four spawned gloo ranks sharing the card; then each kernel
+    of these paths against its plain version at the paths' shapes."""
+    # (a) first, alone; then the ranks, spawned after it, so that neither
+    # shares the card or the host's cores with the other
+    world1 = parallel_world1(dev)
+    ranks = parallel_ranks(dev, start_parallel_ranks(dev))
+    # the kernels at the shapes these paths gave them: K2 on the first
+    # diagonal tile of each path's covariance, K1 on the serving
+    # covariance and K5 on its factor's tiles, K7 on a rank's 16 chains
+    rows = {}
+    for path, n in (("parallel", N_LARGE), ("parallel_ranks", PAR_N_RANKS)):
+        kernel, plain, shape, reps, library = tile_cases(large_cov(n, dev)[:BLOCK, :BLOCK].contiguous())[
+            "chol_inv_tile"]
+        rows[path, "chol_inv_tile"] = check_kernel(path, "chol_inv_tile", kernel, plain, shape, reps, library)
+    gp, x, _, _, ts, tn, _ = problem(torch.float32, dev)
+    Ks = core.masked_cov(gp, ts, tn, x, None)
+    tiles = cb._diag_tiles(cb.fused_cholesky_invs_plain(Ks)[0], BLOCK).contiguous()
+    rows.update(kernel_rows("parallel_ranks", Ks, tiles))
+    study, hx, _, _, _, _, _ = bayes_problem(dev)
+    K7 = bayes_covs(study, hx, bayes_positions(PAR_CHEES["chains"] // PAR_WORLD, dev, seed=1))
+    eye = torch.eye(K7.shape[-1], dtype=K7.dtype, device=dev)
+    rows.update(check_k7({"parallel_ranks": (
+        lambda: fused_gp.fused_gp_linv(K7), lambda: fused_gp.linv_plain(K7), K7.shape, 50,
+        lambda: torch.linalg.solve_triangular(torch.linalg.cholesky(K7), eye, upper=False))}))
+    return {"launches": {"parallel": world1["launches"], "parallel_ranks": ranks["launches"]}, "rows": rows}
+
+
 # What ``--phases`` can name; "k7" is the bayes phase's kernel checks without
 # its sampler runs, "slice" the serving slice with its launch counts, "gate"
 # (in no whole run) K3 against K4 beyond the large path's size, "stamps" (in
@@ -5196,7 +5751,7 @@ PARTIAL_PHASES = {"kernels": phase_kernels, "k5": phase_k5, "k7": phase_k7, "gat
                   "large_n_bayes_exact": _partial_large_n_bayes_exact, "utils": phase_utils,
                   "train": phase_train, "large": phase_large, "bayes": phase_bayes, "samplers": phase_samplers,
                   "evaluate": lambda dev: check_k7(phase_evaluate(dev)["k7_cases"]),
-                  "stamps": phase_stamps, "coldstart": phase_coldstart}
+                  "parallel": phase_parallel, "stamps": phase_stamps, "coldstart": phase_coldstart}
 
 
 def main() -> int:
@@ -5276,6 +5831,9 @@ def main() -> int:
     kernels.update(bayes_out["rows"])
     kernels.update(samplers_out["rows"])
     kernels.update(measured("evaluate_k7", check_k7, evaluate_out["k7_cases"]))
+    # the multi-device layer, its four spawned ranks beside nothing else
+    parallel_out = measured("parallel", phase_parallel, dev)
+    kernels.update(parallel_out["rows"])
     if args.profile:
         measured("profile", phase_profile, slice_args32, train["args32"], large["args32"], bayes_out["logps"],
                  evaluate_out["batch"])
@@ -5289,7 +5847,7 @@ def main() -> int:
                 "bayes": bayes_out["launches"], "large_n_bayes_exact": lnbx_out["launches"],
                 "evaluate": evaluate_out["launches"],
                 "evaluate_hyperpriors": evaluate_out["hyperpriors_launches"], **samplers_out["launches"],
-                "kernels": kernels_launches}
+                **parallel_out["launches"], "kernels": kernels_launches}
     emit({"kernels": [
         {"name": f"{name} ({path}, {'x'.join(map(str, row['shape']))})", "route": "cuda",
          "source": source, "replaces": replaces, "launches": launches[path][key],

@@ -14,7 +14,11 @@ of the sparse GPs (``gogp_tpu.gp.sparse.SGPRPosterior``, ``SVGPState``,
 ``SVGPParams``), of the pathwise samples (``gogp_tpu.gp.pathwise.PathFeatures``,
 ``PathState``, ``SparsePathState``) and of ``gogp_tpu.bo.BOState``.
 The caller turns them into numpy arrays (``np.asarray``) and these functions
-put them on the device the caller names.  This module does not import JAX.
+put them on the device the caller names.  For the multi-device layer,
+:func:`slab_from_numpy` takes one rank's rows of a global array (a
+``jax.sharding`` global array gathered to numpy), and
+:func:`serving_mixture_slab_from_numpy` one rank's draws of a serving
+mixture.  This module does not import JAX.
 """
 
 from __future__ import annotations
@@ -74,6 +78,29 @@ def serving_mixture_from_numpy(sm: Mapping[str, Any] | Any, device,
                                dtype: torch.dtype | None = None) -> ServingMixture:
     """A :class:`ServingMixture` from the six fields of the JAX one."""
     return _tuple_from_numpy(ServingMixture, sm, device, dtype)
+
+
+def slab_from_numpy(a, index: int, count: int, device, dtype: torch.dtype | None = None) -> torch.Tensor:
+    """Slab ``index`` of ``count`` equal slabs of a global array's leading
+    axis: the rows the rank at flattened mesh index ``index`` holds
+    (``parallel.mesh.Sharding.slab``), as a JAX array sharded ``P(axes)``
+    over a mesh of ``count`` devices places them."""
+    a = np.asarray(a)
+    if a.shape[0] % count != 0:
+        raise ValueError(f"leading axis {a.shape[0]} not divisible by {count} ranks")
+    per = a.shape[0] // count
+    return array_from_numpy(a[index * per:(index + 1) * per], device, dtype)
+
+
+def serving_mixture_slab_from_numpy(sm: Mapping[str, Any] | Any, index: int, count: int, device,
+                                    dtype: torch.dtype | None = None) -> ServingMixture:
+    """One rank's slab of a JAX ServingMixture's S draws (per-draw leaves
+    sliced, the shared inputs and mask whole), as
+    ``parallel.serving.shard_mixture`` slices the port's."""
+    f = dict(_fields(sm))
+    for name in ("theta_simil", "theta_noise", "alpha", "w"):
+        f[name] = np.asarray(f[name])[index * (len(f[name]) // count):(index + 1) * (len(f[name]) // count)]
+    return serving_mixture_from_numpy(f, device, dtype)
 
 
 def laplace_posterior_from_numpy(post: Mapping[str, Any] | Any, device,

@@ -169,11 +169,11 @@ def compile_mixture(gp: GP, vs, x, y, mask=None,
     )
 
 
-def serve_predict_mixture(gp: GP, sm: ServingMixture, z,
-                          precision: str | None = linalg.ACCURATE_PRECISION) -> tuple[Tensor, Tensor]:
-    """Moment-matched posterior predictive from the compiled mixture:
-    mu = E_s[mu_s], var = E_s[sigma_s^2 + mu_s^2] - mu^2 (the moments of
-    ``gp.core.predict_mixture``), as S-batched matmuls."""
+def mixture_draw_moments(gp: GP, sm: ServingMixture, z,
+                         precision: str | None = linalg.ACCURATE_PRECISION) -> tuple[Tensor, Tensor]:
+    """Each draw's predictive mean and latent variance at ``z``: (mus,
+    vars_), each (S, m), as S-batched matmuls over the compiled caches (of
+    all the draws, or of one rank's slab of them)."""
     z = _points(_like(z, sm.x))
     prior_var = torch.func.vmap(lambda ts: gp.simil.diag_matrix(ts, z))(sm.theta_simil)  # (S, m)
     kstar = torch.func.vmap(lambda ts: gp.simil.matrix(ts, sm.x, z))(sm.theta_simil)  # (S, n, m)
@@ -181,7 +181,15 @@ def serve_predict_mixture(gp: GP, sm: ServingMixture, z,
     with linalg.matmul_precision(precision):
         mus = (kstar.mT @ sm.alpha[..., None])[..., 0]  # (S, m)
         v = sm.w @ kstar  # (S, n, m)
-    vars_ = torch.clamp(prior_var - (v * v).sum(1), min=0.0)
+    return mus, torch.clamp(prior_var - (v * v).sum(1), min=0.0)
+
+
+def serve_predict_mixture(gp: GP, sm: ServingMixture, z,
+                          precision: str | None = linalg.ACCURATE_PRECISION) -> tuple[Tensor, Tensor]:
+    """Moment-matched posterior predictive from the compiled mixture:
+    mu = E_s[mu_s], var = E_s[sigma_s^2 + mu_s^2] - mu^2 (the moments of
+    ``gp.core.predict_mixture``), as S-batched matmuls."""
+    mus, vars_ = mixture_draw_moments(gp, sm, z, precision)
     mu = mus.mean(0)
     var = (vars_ + mus * mus).mean(0) - mu * mu
     return mu, torch.sqrt(torch.clamp(var, min=0.0))

@@ -38,8 +38,17 @@ Differences from the JAX twin, each forced by PyTorch:
   ``draws(state)``: by default :func:`generator_draws`, from the state's
   ``torch.Generator`` (or from one generator per group, where the state
   holds a list of them); tests hand in JAX's own draws.
-- No ``axis_name``/``chain_offset``: the sharded population waits for the
-  multi-device layer.
+- ``axis_name``/``chain_offset``: the population may be sharded over mesh
+  axes (``gogp_torch.parallel``).  Each rank then holds a slab of chains
+  starting at global index ``chain_offset``; every cross-chain mean is taken
+  over the whole population, its slabs gathered over ``axis_name``
+  (``ops.collectives``, on the active mesh) and reduced in one order
+  (:func:`_cross_mean`), so every rank adapts identically, and as one rank
+  would.  A rank's draws are its rows of the whole
+  population's: ``draws`` is called on a state shaped like the whole
+  population and the transition keeps the slab's rows, so a replicated
+  generator (or JAX's draws in the tests) gives every chain the draws a
+  one-rank run gives it.
 """
 
 from __future__ import annotations
@@ -50,6 +59,7 @@ import torch
 
 from gogp_torch.infer import adapt, diagnostics
 from gogp_torch.infer.hmc import IntegratorState, Samples, as_free, kinetic, leapfrog_step, value_and_grad
+from gogp_torch.ops import collectives as coll
 
 Tensor = torch.Tensor
 LogDensity = Callable[[Tensor], Tensor]
@@ -122,6 +132,52 @@ def spawn_generators(rng: torch.Generator, n: int) -> list[torch.Generator]:
     counterpart of ``fold_in(rng, i)``)."""
     seeds = torch.randint(0, 2**62, (n,), generator=rng, device=rng.device).tolist()
     return [torch.Generator(device=rng.device).manual_seed(s) for s in seeds]
+
+
+def _gathered(x: Tensor, axis_name, dim: int) -> Tensor:
+    """``x`` with its chain axis ``dim`` widened to the whole population:
+    with ``axis_name``, every rank's slab all-gathered in axis-index (chain
+    offset) order."""
+    if axis_name is None:
+        return x
+    return coll.all_gather(x.movedim(dim, 0), axis_name).movedim(0, dim)
+
+
+def _cross_mean(x: Tensor, axis_name, dim: int) -> Tensor:
+    """The mean over the chain axis ``dim`` of the whole population.  With
+    ``axis_name`` the slabs are gathered (O(chains) floats a statistic) and
+    reduced where they meet, not pmean'd as in the JAX twin: every rank, and
+    a run on one rank, then sums the same numbers in the same order, so the
+    ranks' runs agree with the one-rank run to the bit wherever each
+    chain's log-density does not depend on the batch it is in."""
+    return _gathered(x, axis_name, dim).mean(dim)
+
+
+def _axis_size(axis_name) -> int:
+    return coll.axis_size(axis_name)
+
+
+def population_draws(draws, state, axis_name=None, chain_offset: int = 0):
+    """``draws(state)``, or where the population is sharded over
+    ``axis_name``, this slab's rows of the draws of the whole population:
+    ``draws`` sees the state with its chain axis (``positions``' second to
+    last, ``logps``' and ``accept_probs``' last) widened to every rank's
+    chains, and the two draws keep rows ``chain_offset`` on (the first on
+    its second-to-last axis, the second on its last)."""
+    if axis_name is None:
+        return draws(state)
+    c = state.positions.shape[-2]
+    total = c * _axis_size(axis_name)
+
+    def widen(t, d):
+        shape = list(t.shape)
+        shape[d] = total
+        return t.new_empty(shape)
+
+    whole = state._replace(positions=widen(state.positions, -2), logps=widen(state.logps, -1),
+                           accept_probs=widen(state.accept_probs, -1))
+    first, second = draws(whole)
+    return first.narrow(-2, chain_offset, c), second.narrow(-1, chain_offset, c)
 
 
 def _halton2(i: int | Tensor) -> Tensor:
@@ -229,13 +285,17 @@ def chees_transition(
     free: Tensor | None = None,
     divergence_threshold: float = 1000.0,
     draws: Draws = generator_draws,
+    axis_name=None,
+    chain_offset: int = 0,
 ) -> ChEESState:
     """One population transition (of every group): shared jittered
     trajectory, batched leapfrog, per-chain Metropolis, and with
-    ``adapt_traj`` one ChEES gradient step on log T."""
+    ``adapt_traj`` one ChEES gradient step on log T.  ``axis_name``: mesh
+    axes holding more chains of the population (this slab's first at
+    global index ``chain_offset``)."""
     freea = as_free(free, state.positions)
     vg = value_and_grad(logp, freea)
-    r0_raw, u_acc = draws(state)
+    r0_raw, u_acc = population_draws(draws, state, axis_name, chain_offset)
 
     n_steps, t_real = n_leapfrog_steps(state, max_num_steps)
     inv_mass = state.inv_mass.unsqueeze(-2)
@@ -263,13 +323,13 @@ def chees_transition(
            & torch.isfinite(delta))
     q1 = torch.where(fin[..., None], integ.position, state.positions)
     vel1 = torch.where(fin[..., None], inv_mass * integ.momentum, 0.0)
-    c0 = state.positions - state.positions.mean(-2, keepdim=True)
-    c1 = q1 - q1.mean(-2, keepdim=True)
+    c0 = state.positions - _cross_mean(state.positions, axis_name, -2).unsqueeze(-2)
+    c1 = q1 - _cross_mean(q1, axis_name, -2).unsqueeze(-2)
     delta_sq = (c1 * c1).sum(-1) - (c0 * c0).sum(-1)
     ddelta_dt = 2.0 * (c1 * vel1).sum(-1)
     w = accept_probs * fin
-    wsum = w.mean(-1) + 1e-12
-    g_t = (w * delta_sq * ddelta_dt).mean(-1) / wsum
+    wsum = _cross_mean(w, axis_name, -1) + 1e-12
+    g_t = _cross_mean(w * delta_sq * ddelta_dt, axis_name, -1) / wsum
     g_logt = g_t * t_real
     g_logt = torch.where(torch.isfinite(g_logt), g_logt, 0.0)
     log_traj, adam = state.log_traj, state.adam
@@ -292,9 +352,11 @@ def chees_transition(
     )
 
 
-def _welford_update_population(w: adapt.WelfordState, X: Tensor) -> adapt.WelfordState:
+def _welford_update_population(w: adapt.WelfordState, X: Tensor, axis_name=None) -> adapt.WelfordState:
     """Fold a whole ([G,] chains, dim) batch into the accumulator (Chan
-    merge), each group into its own moments."""
+    merge), each group into its own moments; with ``axis_name`` the whole
+    population's batch."""
+    X = _gathered(X, axis_name, -2)
     n = torch.as_tensor(X.shape[-2], dtype=X.dtype, device=X.device)
     mean = X.mean(-2)
     m2 = ((X - mean.unsqueeze(-2)) ** 2).mean(-2) * n
@@ -306,13 +368,15 @@ def chees_warmup_step(
     update_mass: bool,
     window_end: bool,
     target_accept: float = 0.75,
+    axis_name=None,
 ) -> ChEESState:
     """Shared-statistics warmup bookkeeping: one dual-averaging update from
     the population-mean accept, one batched Welford feed, window refresh
     (each group on its own statistics)."""
-    da = adapt.da_update(state.da, state.accept_probs.mean(-1), target=target_accept)
+    da = adapt.da_update(state.da, _cross_mean(state.accept_probs, axis_name, -1), target=target_accept)
     step_size = torch.exp(da.log_step)
-    welford = _welford_update_population(state.welford, state.positions) if update_mass else state.welford
+    welford = (_welford_update_population(state.welford, state.positions, axis_name) if update_mass
+               else state.welford)
     inv_mass = state.inv_mass
     if window_end:
         new_inv_mass = adapt.welford_variance(welford)
@@ -332,12 +396,15 @@ def chees_warm_chunk(
     traj_lr: float = 0.025,
     free: Tensor | None = None,
     draws: Draws = generator_draws,
+    axis_name=None,
+    chain_offset: int = 0,
 ) -> ChEESState:
     """Warmup transitions, one per pair of schedule flags."""
     for um, we in zip(update_mass, window_end):
         state = chees_transition(logp, state, adapt_traj=True, max_num_steps=max_num_steps,
-                                 traj_lr=traj_lr, free=free, draws=draws)
-        state = chees_warmup_step(state, bool(um), bool(we), target_accept)
+                                 traj_lr=traj_lr, free=free, draws=draws, axis_name=axis_name,
+                                 chain_offset=chain_offset)
+        state = chees_warmup_step(state, bool(um), bool(we), target_accept, axis_name)
     return state
 
 
@@ -348,13 +415,15 @@ def chees_sample_chunk(
     max_num_steps: int = 256,
     free: Tensor | None = None,
     draws: Draws = generator_draws,
+    axis_name=None,
+    chain_offset: int = 0,
 ) -> tuple[ChEESState, tuple[Tensor, Tensor, Tensor]]:
     """``num`` frozen-hyperparameter transitions; returns the state and
     (positions (num, [G,] chains, dim), logps, accept_probs)."""
     pos, lps, accs = [], [], []
     for _ in range(num):
         state = chees_transition(logp, state, adapt_traj=False, max_num_steps=max_num_steps,
-                                 free=free, draws=draws)
+                                 free=free, draws=draws, axis_name=axis_name, chain_offset=chain_offset)
         pos.append(state.positions)
         lps.append(state.logps)
         accs.append(state.accept_probs)
@@ -389,12 +458,12 @@ def take_group(state: ChEESState, g: int) -> ChEESState:
 
 
 def _run(logp, state: ChEESState, num_warmup: int, max_num_steps: int, target_accept: float, traj_lr: float,
-         free, draws: Draws) -> ChEESState:
+         free, draws: Draws, axis_name=None, chain_offset: int = 0) -> ChEESState:
     """Windowed warmup of ``num_warmup`` transitions, then the frozen step."""
     if num_warmup > 0:
         sched = adapt.build_schedule(num_warmup)
         state = chees_warm_chunk(logp, state, sched.update_mass, sched.window_end, max_num_steps,
-                                 target_accept, traj_lr, free, draws)
+                                 target_accept, traj_lr, free, draws, axis_name, chain_offset)
         state = finalize_chees_warmup(state)
     return state
 
@@ -529,6 +598,8 @@ def run_chees(
     race: int = 0,
     race_probe: int = 128,
     draws: Draws = generator_draws,
+    axis_name=None,
+    chain_offset: int = 0,
 ) -> Samples:
     """Warmup then sampling for the whole population.  ``positions0`` is
     (chains, dim); the returned positions are (num_samples, chains, dim).
@@ -536,10 +607,15 @@ def run_chees(
     ``race > 0`` inserts a :func:`chees_race` selection between warmup and
     sampling: ``race`` candidate trajectory lengths probed for
     ``race_probe`` transitions each, the sampling budget to the winner
-    (``draws`` then also serves the race's grouped state)."""
+    (``draws`` then also serves the race's grouped state); on one rank
+    only, as in the JAX twin."""
+    if race > 0 and axis_name is not None:
+        raise ValueError("race is a single-device feature; shard the race axis explicitly")
     state = chees_init(logp, positions0, rng, init_step_size, init_traj_length, free)
-    state = _run(logp, state, num_warmup, max_num_steps, target_accept, traj_lr, free, draws)
+    state = _run(logp, state, num_warmup, max_num_steps, target_accept, traj_lr, free, draws, axis_name,
+                 chain_offset)
     if race > 0:
         state, _ = chees_race(logp, state, race, race_probe, max_num_steps, free, draws=draws)
-    state, (positions, logps, accepts) = chees_sample_chunk(logp, state, num_samples, max_num_steps, free, draws)
+    state, (positions, logps, accepts) = chees_sample_chunk(logp, state, num_samples, max_num_steps, free, draws,
+                                                            axis_name, chain_offset)
     return Samples(positions, logps, accepts, state)

@@ -22,9 +22,14 @@ sigma of 1 and are left out of the damping's ratio.
 Randomness: the JAX twin draws each chain's xi and acceptance uniform from
 ``fold_in(key_iter, chain)``; here each transition takes them, (chains, dim)
 and (chains,), from ``draws(state)``: by default :func:`generator_draws`,
-from the state's ``torch.Generator``; tests hand in JAX's.  No
-``axis_name``/``chain_offset``: the sharded population waits for the
-multi-device layer.
+from the state's ``torch.Generator``; tests hand in JAX's.
+
+``axis_name``/``chain_offset``: the population may be sharded over mesh
+axes (``gogp_torch.parallel.sample.run_ghmc_sharded``).  The fold moments
+and the mean acceptance are then taken over the whole population, its
+slabs gathered over ``axis_name`` (``chees._cross_mean``); each slab holds an
+even number of chains, so local parity is global parity.  A slab's draws (and initial momenta) are its
+rows of the whole population's (``chees.population_draws``).
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from gogp_torch.infer import adapt
+from gogp_torch.infer.chees import _axis_size, _cross_mean, _gathered, population_draws
 from gogp_torch.infer.hmc import Samples, as_free, value_and_grad
 
 Tensor = torch.Tensor
@@ -73,9 +79,11 @@ def _fold_ids(chains: int, device=None) -> Tensor:
     return torch.arange(chains, device=device) % 2
 
 
-def _fold_stats(positions: Tensor, free: Tensor | None = None) -> Tensor:
+def _fold_stats(positions: Tensor, free: Tensor | None = None, axis_name=None) -> Tensor:
     """(2, dim): for each fold, the std of the OTHER fold's positions
-    (pinned coordinates: 1)."""
+    (pinned coordinates: 1), over the whole population (with ``axis_name``
+    its slabs gathered)."""
+    positions = _gathered(positions, axis_name, 0)
     ids = _fold_ids(positions.shape[0], positions.device)
 
     def other_std(f):
@@ -90,9 +98,10 @@ def _fold_stats(positions: Tensor, free: Tensor | None = None) -> Tensor:
 
 
 def ghmc_init(logp: LogDensity, positions: Tensor, rng: torch.Generator, step_size: float = 0.1,
-              momenta: Tensor | None = None) -> GHMCState:
+              momenta: Tensor | None = None, axis_name=None, chain_offset: int = 0) -> GHMCState:
     """The population's state, its persistent momenta ``momenta`` or, if
-    None, standard normal draws from ``rng``."""
+    None, standard normal draws from ``rng`` (with ``axis_name``, this
+    slab's rows of the whole population's, from ``chain_offset`` on)."""
     positions = torch.atleast_2d(torch.as_tensor(positions))
     chains, dim = positions.shape
     if chains < 2 or chains % 2 != 0:
@@ -101,9 +110,12 @@ def ghmc_init(logp: LogDensity, positions: Tensor, rng: torch.Generator, step_si
     vals, grads = value_and_grad(logp, None)(positions)
     like = dict(dtype=positions.dtype, device=positions.device)
     step = torch.as_tensor(step_size, **like)
+    if momenta is None:
+        total = chains if axis_name is None else chains * _axis_size(axis_name)
+        momenta = torch.randn((total, dim), generator=rng, **like)[chain_offset:chain_offset + chains]
     return GHMCState(
         positions=positions,
-        momenta=torch.randn((chains, dim), generator=rng, **like) if momenta is None else momenta,
+        momenta=momenta,
         logps=vals,
         grads=grads,
         step_size=step,
@@ -139,6 +151,8 @@ def ghmc_transition(
     free: Tensor | None = None,
     divergence_threshold: float = 1000.0,
     draws: Draws = generator_draws,
+    axis_name=None,
+    chain_offset: int = 0,
 ) -> GHMCState:
     """One population transition: partial momentum refresh, ONE leapfrog
     step in preconditioned coordinates, per-chain Metropolis with a
@@ -149,7 +163,7 @@ def ghmc_transition(
     sig = state.sigma[_fold_ids(state.positions.shape[0], state.positions.device)]
     if freea is not None:
         sig = torch.where(freea[None, :] > 0, sig, 0.0)
-    xi, u_acc = draws(state)
+    xi, u_acc = population_draws(draws, state, axis_name, chain_offset)
 
     gamma = _damping(state, freea)
     u = gamma * state.momenta + torch.sqrt(1.0 - gamma * gamma) * xi
@@ -178,21 +192,23 @@ def ghmc_transition(
         logps=torch.where(accept, lp_new, state.logps),
         grads=torch.where(acc, g_new, state.grads),
         accept_probs=accept_probs,
-        sigma=_fold_stats(positions, freea) if adapt_sigma else state.sigma,
+        sigma=_fold_stats(positions, freea, axis_name) if adapt_sigma else state.sigma,
         step=state.step + 1,
     )
 
 
-def ghmc_warmup_step(state: GHMCState) -> GHMCState:
-    da = adapt.da_update(state.da, state.accept_probs.mean(), target=TARGET_ACCEPT)
+def ghmc_warmup_step(state: GHMCState, axis_name=None) -> GHMCState:
+    da = adapt.da_update(state.da, _cross_mean(state.accept_probs, axis_name, -1), target=TARGET_ACCEPT)
     return state._replace(step_size=torch.exp(da.log_step), da=da)
 
 
 def ghmc_warm_chunk(logp: LogDensity, state: GHMCState, num: int, free: Tensor | None = None,
-                    draws: Draws = generator_draws) -> GHMCState:
+                    draws: Draws = generator_draws, axis_name=None, chain_offset: int = 0) -> GHMCState:
     """``num`` warmup transitions."""
     for _ in range(num):
-        state = ghmc_warmup_step(ghmc_transition(logp, state, adapt_sigma=True, free=free, draws=draws))
+        state = ghmc_transition(logp, state, adapt_sigma=True, free=free, draws=draws, axis_name=axis_name,
+                                chain_offset=chain_offset)
+        state = ghmc_warmup_step(state, axis_name)
     return state
 
 
@@ -203,12 +219,14 @@ def finalize_ghmc_warmup(state: GHMCState) -> GHMCState:
 
 
 def ghmc_sample_chunk(logp: LogDensity, state: GHMCState, num: int, free: Tensor | None = None,
-                      draws: Draws = generator_draws) -> tuple[GHMCState, tuple[Tensor, Tensor, Tensor]]:
+                      draws: Draws = generator_draws, axis_name=None,
+                      chain_offset: int = 0) -> tuple[GHMCState, tuple[Tensor, Tensor, Tensor]]:
     """``num`` frozen-kernel transitions; returns (state, (positions (num,
     chains, dim), logps, accept_probs))."""
     pos, lps, accs = [], [], []
     for _ in range(num):
-        state = ghmc_transition(logp, state, adapt_sigma=False, free=free, draws=draws)
+        state = ghmc_transition(logp, state, adapt_sigma=False, free=free, draws=draws, axis_name=axis_name,
+                                chain_offset=chain_offset)
         pos.append(state.positions)
         lps.append(state.logps)
         accs.append(state.accept_probs)

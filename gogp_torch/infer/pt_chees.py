@@ -21,8 +21,15 @@ tempered caches are rescaled by the destination beta; the adaptation state
 stays with the temperature slot.  Randomness: the ChEES draws come from
 ``draws(state)`` (``chees.generator_draws`` by default), each sweep's swap
 uniforms, (L, K), from ``swap_draws(state)`` (by default the state's
-generator); tests hand in JAX's.  No ``axis_name`` / ``ladder_offset``:
-sharded ladders wait for the multi-device layer.
+generator); tests hand in JAX's.
+
+``axis_name``/``ladder_offset``: the ladders may be sharded over mesh axes
+(``gogp_torch.parallel.sample.run_pt_chees_sharded``).  Each rank then holds
+a slab of ladders from global index ``ladder_offset``; every rung's
+cross-ladder adaptation statistic and the swap's pair statistics are
+taken over every rank's ladders (``chees._cross_mean``), so every rank holds
+the same ladder, and each
+slab's ChEES and swap draws are its rows of the whole population's.
 """
 
 from __future__ import annotations
@@ -34,6 +41,8 @@ import torch
 from gogp_torch.infer import adapt
 from gogp_torch.infer.chees import (
     ChEESState,
+    _axis_size,
+    _cross_mean,
     Draws,
     chees_init,
     chees_transition,
@@ -99,17 +108,29 @@ def pt_chees_init(
 
 
 def _rung_transition(logp, state: ChEESState, betas: Tensor, adapt_traj: bool, max_num_steps: int,
-                     traj_lr: float, free, draws: Draws) -> ChEESState:
+                     traj_lr: float, free, draws: Draws, axis_name=None, ladder_offset: int = 0) -> ChEESState:
     """One ChEES transition of every rung (the groups), each on its own
     tempered target."""
     return chees_transition(_rung_logp(logp, betas, state.positions.shape[1]), state, adapt_traj=adapt_traj,
-                            max_num_steps=max_num_steps, traj_lr=traj_lr, free=free, draws=draws)
+                            max_num_steps=max_num_steps, traj_lr=traj_lr, free=free, draws=draws,
+                            axis_name=axis_name, chain_offset=ladder_offset)
 
 
-def _pt_chees_swap(states: ChEESState, betas: Tensor, u: Tensor, parity: int):
+def _swap_uniforms(swap_draws: SwapDraws, states: ChEESState, axis_name, ladder_offset: int) -> Tensor:
+    """One sweep's (L, K) uniforms: with ``axis_name``, this slab's rows of
+    the whole population's."""
+    if axis_name is None:
+        return swap_draws(states)
+    K, L = states.logps.shape
+    u = swap_draws(states._replace(logps=states.logps.new_empty((K, L * _axis_size(axis_name)))))
+    return u[ladder_offset:ladder_offset + L]
+
+
+def _pt_chees_swap(states: ChEESState, betas: Tensor, u: Tensor, parity: int, axis_name=None):
     """One DEO sweep across every ladder (``u``: (L, K) uniforms).  Returns
     the swapped states, the sources (K, L), the pair rejections averaged
-    over the ladders, the pairs proposed and the mean accepted fraction."""
+    over the ladders, the pairs proposed and the mean accepted fraction
+    (the averages over every rank's ladders with ``axis_name``)."""
     K, L = states.logps.shape
     raw = states.logps / betas[:, None]
     src, pair_probs, proposed, frac = swap_decision(betas, raw.T, u, parity)
@@ -119,8 +140,8 @@ def _pt_chees_swap(states: ChEESState, betas: Tensor, u: Tensor, parity: int):
     raw_grad = states.grads / betas[:, None, None]
     states = states._replace(positions=states.positions[src, ladder], logps=new_raw * betas[:, None],
                              grads=raw_grad[src, ladder] * betas[:, None, None])
-    pair_rej = torch.where(proposed, 1.0 - pair_probs, 0.0).mean(0)
-    return states, src, pair_rej, proposed.to(raw.dtype), frac.mean()
+    pair_rej = _cross_mean(torch.where(proposed, 1.0 - pair_probs, 0.0), axis_name, 0)
+    return states, src, pair_rej, proposed.to(raw.dtype), _cross_mean(frac, axis_name, 0)
 
 
 def _retemper(states: ChEESState, betas: Tensor, new_betas: Tensor) -> ChEESState:
@@ -134,14 +155,17 @@ def pt_chees_warm_chunk(
     logp, states: ChEESState, betas: Tensor, um, we, t0: int = 0,
     max_num_steps: int = 256, target_accept: float = 0.75, traj_lr: float = 0.025, free=None,
     adapt_ladder: bool = True, draws: Draws = generator_draws, swap_draws: SwapDraws = generator_swap_draws,
+    axis_name=None, ladder_offset: int = 0,
 ) -> tuple[ChEESState, Tensor]:
     """len(um) warmup sweeps; returns the states and the (re-placed)
     ladder."""
     rej_sum = prop_count = betas.new_zeros(betas.shape[0] - 1)
     for t, (m, w) in enumerate(zip(um, we), start=t0):
-        states = _rung_transition(logp, states, betas, True, max_num_steps, traj_lr, free, draws)
-        states = chees_warmup_step(states, bool(m), bool(w), target_accept)
-        states, _, pair_rej, prop, _ = _pt_chees_swap(states, betas, swap_draws(states), t % 2)
+        states = _rung_transition(logp, states, betas, True, max_num_steps, traj_lr, free, draws, axis_name,
+                                  ladder_offset)
+        states = chees_warmup_step(states, bool(m), bool(w), target_accept, axis_name)
+        u = _swap_uniforms(swap_draws, states, axis_name, ladder_offset)
+        states, _, pair_rej, prop, _ = _pt_chees_swap(states, betas, u, t % 2, axis_name)
         rej_sum, prop_count = rej_sum + pair_rej, prop_count + prop
         if adapt_ladder and w:
             new_betas = adapt_ladder_betas(betas, rej_sum, prop_count)
@@ -154,16 +178,19 @@ def pt_chees_sample_chunk(
     logp, states: ChEESState, betas: Tensor, num: int, t0: int = 0,
     max_num_steps: int = 256, free=None, flow: PTFlow | None = None,
     draws: Draws = generator_draws, swap_draws: SwapDraws = generator_swap_draws,
+    axis_name=None, ladder_offset: int = 0,
 ):
     """``num`` sampling sweeps; returns ``(states, positions (num, L, dim),
-    raws (num, L), swap_fracs (num,), flow)`` of every ladder's cold chain;
-    ``flow``'s labels and trips are per ladder."""
+    raws (num, L), swap_fracs (num,), flow)`` of every (local) ladder's cold
+    chain; ``flow``'s labels and trips are per ladder."""
     if flow is None:
         flow = init_flow(betas.shape[0], betas.dtype, betas.device, n_ladders=states.logps.shape[1])
     pos, raws, fracs = [], [], []
     for t in range(t0, t0 + num):
-        states = _rung_transition(logp, states, betas, False, max_num_steps, 0.025, free, draws)
-        states, src, pair_rej, prop, frac = _pt_chees_swap(states, betas, swap_draws(states), t % 2)
+        states = _rung_transition(logp, states, betas, False, max_num_steps, 0.025, free, draws, axis_name,
+                                  ladder_offset)
+        u = _swap_uniforms(swap_draws, states, axis_name, ladder_offset)
+        states, src, pair_rej, prop, frac = _pt_chees_swap(states, betas, u, t % 2, axis_name)
         flow = flow_update(flow, src.T, pair_rej, prop)
         pos.append(states.positions[0])
         raws.append(states.logps[0] / betas[0])

@@ -17,7 +17,9 @@ likelihood-tempering path):
 Every particle moves at once: each value and gradient is one batched call
 of ``logp`` on (particles, dim), which on a theta-only GP study is one K7
 launch (``tutorial/bayes.py``).  The stage loop is a host loop with one
-host read of beta per stage (the JAX while loop's ``cond``).
+host read of beta per stage (the JAX while loop's ``cond``).  The loop,
+:func:`smc_loop`, also runs on a slab of a population sharded over mesh
+axes (``parallel.smc_sharded``, ``parallel.large_n``).
 
 Randomness: the JAX twin draws from a key chain (``split(rng)`` once, then
 ``split(key, 3)`` per stage, ``fold_in(k_mut, i)`` and a key per particle
@@ -31,11 +33,12 @@ JAX's own.
 from __future__ import annotations
 
 import math
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Sequence
 
 import torch
 
 from gogp_torch.infer.hmc import IntegratorState, LogDensity, as_free, kinetic, value_and_grad
+from gogp_torch.ops import collectives as coll
 
 Tensor = torch.Tensor
 
@@ -135,6 +138,118 @@ def _hmc_mutate(vg_beta, positions: Tensor, normals: Tensor, uniforms: Tensor, s
     return torch.where(accept[:, None], s.position, positions), accept_prob
 
 
+def _fold_rank(axes: Sequence[str]) -> int:
+    """Rank in the flattened (row-major) order of the mesh ``axes``: how the
+    particle axis splits over them (0 with no axes)."""
+    return coll.axis_index(tuple(axes)) if axes else 0
+
+
+def _gather_axes(x: Tensor, axes: Sequence[str]) -> Tensor:
+    """``x`` all-gathered over ``axes``, ordered axes[0]-major (``x`` itself
+    with no axes)."""
+    return coll.all_gather(x, tuple(axes)) if axes else x
+
+
+def initial_particles(position0: Tensor, sigma0: float, draws: SMCDraws, free: Tensor | None = None) -> Tensor:
+    """The whole population's starting particles from ``draws.init()``."""
+    eps = draws.init()
+    freea = as_free(free, position0)
+    if freea is not None:
+        eps = eps * freea[None, :]
+    return position0[None, :] + sigma0 * eps
+
+
+def smc_loop(
+    logp: LogDensity,
+    particles_local: Tensor,
+    position0: Tensor,
+    draws: SMCDraws,
+    particle_axes: Sequence[str],
+    num_particles: int,
+    sigma0: float = 1.0,
+    num_mcmc_steps: int = 5,
+    n_leapfrog: int = 10,
+    ess_target: float = 0.5,
+    max_stages: int = 100,
+    bisection_iters: int = 20,
+    free: Tensor | None = None,
+    mutation: str = "hmc",
+):
+    """The tempering loop on this rank's particle slab; :func:`run_smc` is
+    the loop with no axes, ``parallel.smc_sharded`` runs it under ``with
+    mesh:`` with the population sharded over ``particle_axes``.  Every
+    population-wide quantity (the log-ratios, the resampled particles, the
+    mass from their spread, the acceptance) is taken from the gathered
+    population, so any split of the particles gives the serial sampler's
+    numbers; any other mesh axis is free for the log-density's own
+    collectives.  Returns (particles_local, log_z, stages, done, accept)."""
+    if mutation not in ("hmc", "rwm"):
+        raise ValueError(f"unknown mutation {mutation!r}")
+    dim = position0.shape[0]
+    p_local = particles_local.shape[0]
+    freea = as_free(free, position0)
+    n_free = freea.sum() if freea is not None else dim
+    rank = _fold_rank(particle_axes)
+    mine = slice(rank * p_local, (rank + 1) * p_local)
+
+    def log_q0(V):
+        z = (V - position0) / sigma0
+        if freea is not None:
+            z = z * freea
+        return -0.5 * (z * z).sum(-1) - n_free * (0.5 * _LOG_2PI + math.log(sigma0))
+
+    def next_beta(beta: Tensor, log_ratios: Tensor) -> Tensor:
+        """The largest beta' in (beta, 1] keeping the ESS at least
+        ``ess_target`` of the particles."""
+        target = ess_target * num_particles
+        lo, hi = beta, torch.ones_like(beta)
+        ok_full = _ess((hi - beta) * log_ratios) >= target
+        for _ in range(bisection_iters):
+            mid = 0.5 * (lo + hi)
+            ok = _ess((mid - beta) * log_ratios) >= target
+            lo, hi = torch.where(ok, mid, lo), torch.where(ok, hi, mid)
+        return torch.where(ok_full, 1.0, lo)
+
+    parts = particles_local
+    beta = position0.new_zeros(())
+    log_z, accept_probs = position0.new_zeros(()), None
+    stage = 0
+    while stage < max_stages and float(beta) < 1.0:
+        lr_local = logp(parts) - log_q0(parts)
+        lr_local = torch.where(torch.isnan(lr_local), -torch.inf, lr_local)
+        log_ratios = _gather_axes(lr_local, particle_axes)  # (P,)
+        beta_new = next_beta(beta, log_ratios)
+        lw = (beta_new - beta) * log_ratios
+        log_z = log_z + torch.logsumexp(lw, 0) - math.log(float(num_particles))
+        idx = _systematic_resample(draws.resample(stage), lw)  # identical on every rank
+        full = _gather_axes(parts, particle_axes)[idx]  # (P, dim)
+        parts = full[mine]
+
+        # the mutation's mass from the resampled population's spread
+        std = full.std(0, correction=0)
+        if freea is not None:
+            std = torch.where(freea > 0, std, 1.0)
+        inv_mass = torch.clamp(std * std, min=1e-10)
+
+        def logp_beta(V, b=beta_new):
+            return (1.0 - b) * log_q0(V) + b * logp(V)
+
+        for i in range(num_mcmc_steps):
+            normals, uniforms = draws.mutation(stage, i)
+            normals, uniforms = normals[mine], uniforms[mine]
+            if mutation == "hmc":
+                parts, accept_probs = _hmc_mutate(value_and_grad(logp_beta, freea), parts, normals, uniforms,
+                                                  0.5 / math.sqrt(dim), inv_mass, n_leapfrog, freea)
+            else:  # Roberts and Rosenthal's optimal RWM scale from the population std
+                parts, accept_probs = _rwm_mutate(logp_beta, parts, normals, uniforms,
+                                                  (2.38 / math.sqrt(dim)) * std, freea)
+        beta, stage = beta_new, stage + 1
+    # the last mutation's mean acceptance over the whole population (the JAX
+    # sharded twin reports its first device's slab's)
+    acc = position0.new_zeros(()) if accept_probs is None else _gather_axes(accept_probs, particle_axes).mean()
+    return parts, log_z, stage, bool(beta >= 1.0), acc
+
+
 def run_smc(
     logp: LogDensity,
     position0: Tensor,
@@ -156,65 +271,10 @@ def run_smc(
     ``log_evidence`` estimates log E_q0[exp(logp - log q0)].  ``mutation``:
     "hmc" (default) or "rwm", random-walk Metropolis for targets whose
     gradient is unavailable."""
-    if mutation not in ("hmc", "rwm"):
-        raise ValueError(f"unknown mutation {mutation!r}")
     position0 = torch.as_tensor(position0)
-    dim = position0.shape[0]
-    freea = as_free(free, position0)
     draws = draws or generator_draws(rng, num_particles, position0)
-
-    eps = draws.init()
-    if freea is not None:
-        eps = eps * freea[None, :]
-    particles = position0[None, :] + sigma0 * eps
-    n_free = freea.sum() if freea is not None else dim
-
-    def log_q0(V):
-        z = (V - position0) / sigma0
-        if freea is not None:
-            z = z * freea
-        return -0.5 * (z * z).sum(-1) - n_free * (0.5 * _LOG_2PI + math.log(sigma0))
-
-    def next_beta(beta: Tensor, log_ratios: Tensor) -> Tensor:
-        """The largest beta' in (beta, 1] keeping the ESS at least
-        ``ess_target`` of the particles."""
-        target = ess_target * num_particles
-        lo, hi = beta, torch.ones_like(beta)
-        ok_full = _ess((hi - beta) * log_ratios) >= target
-        for _ in range(bisection_iters):
-            mid = 0.5 * (lo + hi)
-            ok = _ess((mid - beta) * log_ratios) >= target
-            lo, hi = torch.where(ok, mid, lo), torch.where(ok, hi, mid)
-        return torch.where(ok_full, 1.0, lo)
-
-    beta = position0.new_zeros(())
-    log_z, accept_rate = position0.new_zeros(()), position0.new_zeros(())
-    stage = 0
-    while stage < max_stages and float(beta) < 1.0:
-        log_ratios = logp(particles) - log_q0(particles)
-        log_ratios = torch.where(torch.isnan(log_ratios), -torch.inf, log_ratios)
-        beta_new = next_beta(beta, log_ratios)
-        lw = (beta_new - beta) * log_ratios
-        log_z = log_z + torch.logsumexp(lw, 0) - math.log(float(num_particles))
-        particles = particles[_systematic_resample(draws.resample(stage), lw)]
-
-        # the mutation's mass from the resampled population's spread
-        std = particles.std(0, correction=0)
-        if freea is not None:
-            std = torch.where(freea > 0, std, 1.0)
-        inv_mass = torch.clamp(std * std, min=1e-10)
-
-        def logp_beta(V, b=beta_new):
-            return (1.0 - b) * log_q0(V) + b * logp(V)
-
-        for i in range(num_mcmc_steps):
-            normals, uniforms = draws.mutation(stage, i)
-            if mutation == "hmc":
-                particles, accept_probs = _hmc_mutate(value_and_grad(logp_beta, freea), particles, normals, uniforms,
-                                                      0.5 / math.sqrt(dim), inv_mass, n_leapfrog, freea)
-            else:  # Roberts and Rosenthal's optimal RWM scale from the population std
-                particles, accept_probs = _rwm_mutate(logp_beta, particles, normals, uniforms,
-                                                      (2.38 / math.sqrt(dim)) * std, freea)
-            accept_rate = accept_probs.mean()
-        beta, stage = beta_new, stage + 1
-    return SMCResult(particles, log_z, stage, bool(beta >= 1.0), accept_rate)
+    particles, log_z, stage, done, acc = smc_loop(
+        logp, initial_particles(position0, sigma0, draws, free), position0, draws, (), num_particles,
+        sigma0=sigma0, num_mcmc_steps=num_mcmc_steps, n_leapfrog=n_leapfrog, ess_target=ess_target,
+        max_stages=max_stages, bisection_iters=bisection_iters, free=free, mutation=mutation)
+    return SMCResult(particles, log_z, stage, done, acc)

@@ -1,9 +1,9 @@
 """Iterative GP inference: CG solves, stochastic Lanczos quadrature
 log-determinants and Hutchinson-trace gradients.
 
-PyTorch twin of ``gogp_tpu/ops/iterative.py`` (all but its row-sharded
-form, ``lml_rowsharded_iterative``, which waits for the multi-device
-layer).  The exact path (``ops.linalg.lml_core``) factors K in O(n^3); this
+PyTorch twin of ``gogp_tpu/ops/iterative.py``, with its row-sharded form
+(:func:`lml_rowsharded_iterative`, over ``gogp_torch.parallel``'s mesh).
+The exact path (``ops.linalg.lml_core``) factors K in O(n^3); this
 module only multiplies by it: batched (P)CG for the solves, Lanczos
 quadrature for log|K|, and a backward whose trace term reuses the CG probe
 solves, in the GPyTorch/BBMM family (Gardner et al. 2018).  Every operator
@@ -50,6 +50,7 @@ from __future__ import annotations
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from gogp_torch.ops import collectives as coll
 from gogp_torch.ops.draws import as_draws
 
 Tensor = torch.Tensor
@@ -379,6 +380,117 @@ def lml_core_iterative(
 
 
 # ---------------------------------------------------------------------------
+# Row-sharded form: the distributed story of the iterative path.  Where the
+# blocked distributed Cholesky (ops/distributed.py) pipelines a panel
+# factorization with per-step tile broadcasts, the iterative path
+# distributes through one primitive, the covariance matvec: each rank holds
+# its block-rows K_rows (n_local, n), in axis-index order, computes its
+# shard of each product, and one tiled all_gather (n x k floats) replicates
+# the result for the next recurrence.  CG and Lanczos control flow is
+# replicated: every rank reads the same gathered numbers.
+# ---------------------------------------------------------------------------
+
+
+def _rows_mv_and_precond(K_rows: Tensor, noise_diag: Tensor, axis, precond_rank: int):
+    """The row-sharded matvec, and with ``precond_rank > 0`` the
+    pivoted-Cholesky preconditioner built without a dense K: column i of K
+    is every rank's column slice all-gathered, the diagonal likewise; every
+    rank builds the same (replicated) preconditioner."""
+    def mv(V):
+        return coll.all_gather(K_rows @ V, axis)
+
+    if precond_rank <= 0:
+        return mv, None
+    Kr = K_rows.detach()
+    n_local = Kr.shape[0]
+    local = torch.arange(n_local, device=Kr.device)
+    diag = coll.all_gather(Kr[local, coll.axis_index(axis) * n_local + local], axis)
+
+    def col_fn(i):
+        return coll.all_gather(Kr[:, i], axis)
+
+    return mv, pivoted_precond_cols(col_fn, diag, precond_rank, noise_diag.detach())
+
+
+def _rows_logdet(mv, pc, probes_slq: Tensor, lanczos_iters: int, precond_rank: int, n: int) -> Tensor:
+    if precond_rank > 0:
+        return slq_logdet_pcg(mv, pc, probes_slq[:, :n], probes_slq[:, n:], lanczos_iters)
+    return slq_logdet(mv, probes_slq, lanczos_iters)
+
+
+def _lml_rows_value(K_rows, y, probes_slq, noise_diag, axis, cg_iters, lanczos_iters, precond_rank):
+    mv, pc = _rows_mv_and_precond(K_rows, noise_diag, axis, precond_rank)
+    alpha = cg_solve(mv, y[:, None], cg_iters, precond=pc)[0][:, 0]
+    logdet = _rows_logdet(mv, pc, probes_slq, lanczos_iters, precond_rank, y.shape[0])
+    return -0.5 * (logdet + (y * alpha).sum())
+
+
+class _LmlCoreIterRows(torch.autograd.Function):
+    """The row-sharded value and its Hutchinson backward: this rank's rows
+    of Kbar, issued with the mesh the forward ran under."""
+
+    @staticmethod
+    def forward(ctx, K_rows, y, probes_slq, probes_tr, noise_diag, axis, cg_iters, lanczos_iters, precond_rank):
+        mv, pc = _rows_mv_and_precond(K_rows, noise_diag, axis, precond_rank)
+        X, _ = cg_solve(mv, _solve_block(y, probes_tr), cg_iters, precond=pc)
+        alpha, S = X[:, 0], X[:, 1:]
+        logdet = _rows_logdet(mv, pc, probes_slq, lanczos_iters, precond_rank, y.shape[0])
+        ctx.save_for_backward(alpha, probes_tr, S)
+        ctx.axis, ctx.mesh, ctx.n_local = axis, coll.current(), K_rows.shape[0]
+        return -0.5 * (logdet + (y * alpha).sum())
+
+    @staticmethod
+    def backward(ctx, g):
+        alpha, Z, S = ctx.saved_tensors
+        p, n_local = Z.shape[1], ctx.n_local
+        row0 = ctx.mesh.axis_index(ctx.axis) * n_local
+        mine = slice(row0, row0 + n_local)
+        # this rank's row block of Kbar = g/2 (a a^T - (Z S^T + S Z^T) / 2p)
+        trace_rows = (Z[mine] @ S.mT + S[mine] @ Z.mT) / (2.0 * p)
+        Kbar_rows = (0.5 * g) * (torch.outer(alpha[mine], alpha) - trace_rows)
+        return Kbar_rows, -g * alpha, None, None, None, None, None, None, None
+
+
+def lml_rowsharded_iterative(
+    K_rows: Tensor,
+    y: Tensor,
+    draws,
+    axis,
+    num_probes: int = 16,
+    cg_iters: int = 100,
+    lanczos_iters: int = 32,
+    precond_rank: int = 0,
+    noise_diag=None,
+) -> Tensor:
+    """Row-sharded matrix-free LML core: ``K_rows`` (n_local, n) is this
+    rank's block of the covariance (axis-index row order), ``y`` the
+    replicated full observations; returns the replicated estimate of -1/2
+    (log|K| + y^T K^-1 y), under ``with mesh:``.  The estimator of
+    :func:`lml_core_iterative`: the same ``draws`` on every rank give the
+    same probes, so the value matches the dense one up to the order of the
+    gathered matvecs' sums.  The backward gives this rank's rows of Kbar;
+    pair it with ``parallel.large_n.psum_grads`` for the whole theta
+    gradient.  ``precond_rank > 0``: the pivoted-Cholesky preconditioner
+    from all-gathered column slices, with ``noise_diag`` (n,) the
+    covariance's noise and jitter diagonal."""
+    n = y.shape[0]
+    k1, k2 = as_draws(draws, K_rows).split(2)
+    if precond_rank > 0:
+        if noise_diag is None:
+            raise ValueError("precond_rank > 0 needs the covariance noise_diag")
+        probes_slq = k1.normal((num_probes, n + precond_rank), K_rows)
+        nd = torch.broadcast_to(torch.as_tensor(noise_diag, dtype=K_rows.dtype, device=K_rows.device), (n,))
+    else:
+        probes_slq = rademacher(k1, (num_probes, n), K_rows)
+        nd = K_rows.new_zeros((n,))
+    probes_tr = rademacher(k2, (n, num_probes), K_rows)
+    if not (torch.is_grad_enabled() and (K_rows.requires_grad or y.requires_grad)):
+        return _lml_rows_value(K_rows, y, probes_slq, nd, axis, cg_iters, lanczos_iters, precond_rank)
+    return _LmlCoreIterRows.apply(K_rows, y, probes_slq, probes_tr, nd, axis, cg_iters, lanczos_iters,
+                                  precond_rank)
+
+
+# ---------------------------------------------------------------------------
 # Matrix-free form: K is never materialised.  Each matvec rebuilds K's rows a
 # (panel, n) block at a time, so memory is O(panel * n); the theta gradient
 # differentiates the quadratic forms of the frozen CG solutions panel by
@@ -556,6 +668,7 @@ __all__ = [
     "cg_solve",
     "lml_core_iterative",
     "lml_matfree",
+    "lml_rowsharded_iterative",
     "matfree_matvec",
     "matfree_quadratic_forms",
     "pivoted_cholesky",

@@ -293,11 +293,12 @@ def test_batched_lml_iterative_matches_vmap(rank):
 
 
 def test_exports_match_jax():
-    """Every public name of the twin's module but the row-sharded form, and
-    every name of gogp_tpu.gp's core, pathwise and SKI exports."""
+    """Every public name of the twin's module, the row-sharded form
+    included, and every name of gogp_tpu.gp's core, pathwise and SKI
+    exports."""
     public = {name for name, obj in vars(jit_ops).items()
               if not name.startswith("_") and getattr(obj, "__module__", None) == jit_ops.__name__}
-    assert public - set(iterative.__all__) == {"lml_rowsharded_iterative"}
+    assert public - set(iterative.__all__) == set()
     assert all(hasattr(iterative, name) for name in iterative.__all__)
     names = ["GP", "Posterior", "absorb", "lml", "lml_from_posterior", "lml_iterative", "lml_iterative_matfree",
              "lml_toeplitz", "predict", "predict_iterative", "predict_toeplitz", "predict_from_posterior",
