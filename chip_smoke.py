@@ -9,7 +9,9 @@ It builds the port's CUDA kernels from ``gogp_torch/csrc`` (nvcc, sm_90a, one
 process per source) and then runs these phases, each printing JSON lines:
 
 1. device   - torch's device name, nvidia-smi's name and power limit, TF32.
-2. build    - the kernels' build time and ptxas resource lines.
+2. build    - the kernels' build time and ptxas resource lines; beside
+              it (nvcc in its own processes) a thread pays the host's
+              first-call costs of a Laplace fit on the CPU at n = 16.
 3. kernels  - each kernel against its plain PyTorch version on the card, in
               f32, at the shapes each of the three paths below gives it:
               errors and times (CUDA events after a warmup), beside the
@@ -362,12 +364,26 @@ process per source) and then runs these phases, each printing JSON lines:
               positions in one batch against four slabs of 16, per chain,
               held at twice the f32 evaluation's error against f64.  Every run prints its backend
               and world size; K2, K7, K1 and K5 against their plain versions
-              at these paths' shapes.
+              at these paths' shapes.  The four ranks then run the graft
+              entry's dryrun_multichip(4), which the next phase checks.
+25. graft    - the twin of the root __graft_entry__.py
+              (gogp_torch.graft_entry): entry's forward step (the
+              hyperpriors log-joint and gradient at n = 256) in f32 against
+              the same fn in f64 on the card, and its warm ms;
+              dryrun_multichip(1) in this process on an NCCL group of one;
+              the parallel phase's four ranks' dryrun_multichip(4), its
+              deterministic steps (the data-sharded LML, the distributed
+              LML, SVGP, serving, the mixture, Laplace, pathwise Thompson,
+              SKI) against the same steps on rank 0 alone (a 1x1 mesh);
+              every step's outputs finite with the twin's shapes, each
+              step's ms, K7 once per log-joint call on the steps that call
+              it and never on the others; K7 against its plain version at
+              the path's batch (2 x 16 x 16).
 
 With ``--phases a,b,...`` (of kernels, k5, k7, gate, stamps, coldstart,
 slice, train, large, serve, classify, sparse, surface, pathwise, bo,
 search, iterative, toeplitz, ski, large_n_bayes, large_n_bayes_exact, utils, bayes, samplers, evaluate,
-parallel; k7 is the
+parallel, graft; k7 is the
 bayes phase's kernel checks without its sampler runs, gate times K3 against
 K4 at n = 24576 to 65536, stamps records the stages of K2, K5 and K4's chain
 step and coldstart takes apart a process's first laplace_fit, the last three
@@ -377,7 +393,7 @@ run, after device and build, and the script ends with ``{"ok": false,
 
 With ``--profile``, one more phase follows:
 
-25. profile - one serving slice run, one train and one large value-and-gradient
+26. profile - one serving slice run, one train and one large value-and-gradient
               step, one 64-chain value and gradient of the bayes path and one
               127-prefix value and gradient of the evaluate path, on each
               path under torch.profiler: the device's busy time and idle
@@ -401,6 +417,7 @@ import pathlib
 import statistics
 import subprocess
 import sys
+import threading
 import time
 import unittest.mock
 
@@ -644,6 +661,23 @@ def phase_build() -> None:
     seconds = time.perf_counter() - t0
     log = (lib_path.parent / "build.log").read_text().splitlines()
     emit({"phase": "build", "seconds": round(seconds, 3), "library": str(lib_path.name), "ptxas": ptxas_lines(log)})
+
+
+def host_warmup() -> None:
+    """What a process's first Laplace fit pays once on the host (torch._refs'
+    import of sympy, the first torch.func transform's decompositions, the
+    likelihood's vmap of grad of grad; PR 12's coldstart phase), paid on
+    the CPU at n = 16: by this process beside the kernels' build, which
+    leaves it waiting on nvcc, and by a parallel rank while it waits for
+    ``go``."""
+    from gogp_torch import graft_entry
+
+    _, gp, _ = graft_entry._flagship()
+    x, y = graft_entry._series(16, 0, 0.1)
+    f64 = torch.float64
+    laplace.laplace_fit(gp, likelihoods.bernoulli_logit, torch.ones(gp.n_theta_simil, dtype=f64),
+                        torch.zeros(0, dtype=f64), torch.as_tensor(x), torch.as_tensor((y > 0).astype(np.float64)),
+                        theta_noise=torch.ones(gp.n_theta_noise, dtype=f64), max_iters=1)
 
 
 def ptxas_lines(log: list[str]) -> list[str]:
@@ -1174,6 +1208,7 @@ PATH_KERNELS = {"serve": SERVE_KERNELS, "train": TRAIN_KERNELS, "large": LARGE_K
                 **{path: ("fused_gp_linv",) for path in SAMPLER_PATHS},
                 "parallel": ("chol_inv_tile",),
                 "parallel_ranks": ("chol_inv_tile", "fused_gp_linv", "fused_cholesky_invs", "tril_inv_tile"),
+                "graft": ("fused_gp_linv",),
                 "kernels": ("chol_tile", *OFF_PATH_SOLVES)}
 
 
@@ -5239,6 +5274,9 @@ PAR_N_RANKS = 4096
 PAR_CHEES = dict(chains=64, num_warmup=32, num_samples=32, max_num_steps=8)
 PAR_HP_SMC = dict(num_particles=64, max_stages=3, num_mcmc_steps=2, n_leapfrog=4)
 PAR_SERVE_DRAWS = 8
+# The ranks' case groups: PR 17's four cases ("samplers": the LML, ChEES,
+# SMC and serving) and the graft entry's dry run on four ranks ("graft").
+PAR_CASES = ("samplers", "graft")
 # Bounds of the parallel phase, f32, written before its first run on the
 # card: 10 times what the same case gave in f32 on the CPU (the world-1
 # cases at n = 4096 there; PERF.md).  Where the CPU gave exactly 0 the bound
@@ -5519,12 +5557,13 @@ def _batch_witness(logp, logp64, V) -> dict:
     return out
 
 
-def parallel_rank(rank: int, world: int, port: int, queue, go, dev_type: str = "cuda") -> None:
+def parallel_rank(rank: int, world: int, port: int, queue, go, dev_type: str = "cuda",
+                  cases: tuple = PAR_CASES) -> None:
     """(b), one spawned rank: once its group is up, waits for ``go``, then
-    runs every case on the 4-rank mesh and, on rank 0, on a 1x1 mesh of the
-    same world; puts its report on ``queue``."""
+    runs each of ``cases`` on the 4-rank mesh and, on rank 0, on a 1x1 mesh
+    of the same world; puts its report on ``queue``."""
     try:
-        queue.put(_parallel_rank(rank, world, port, go, dev_type))
+        queue.put(_parallel_rank(rank, world, port, go, dev_type, cases))
     except BaseException as e:  # the parent reports it and fails the phase
         import traceback
 
@@ -5532,7 +5571,7 @@ def parallel_rank(rank: int, world: int, port: int, queue, go, dev_type: str = "
         raise
 
 
-def _parallel_rank(rank: int, world: int, port: int, go, dev_type: str) -> dict:
+def _parallel_rank(rank: int, world: int, port: int, go, dev_type: str, cases: tuple = PAR_CASES) -> dict:
     import torch.distributed as dist
     from gogp_torch.parallel import large_n, mesh as pmesh, sample, serving, smc_sharded
 
@@ -5547,6 +5586,8 @@ def _parallel_rank(rank: int, world: int, port: int, go, dev_type: str) -> dict:
     one = pmesh.make_mesh(1, 1, ranks=[0])
     report = {"rank": rank, "backend": {**pmesh.describe(chain4), "cuda_collectives": cuda_ok}, "ms": {},
               "launches": {}, "diff": {}}
+    if "graft" in cases:
+        host_warmup()
     go.wait()
     f32 = torch.float32
 
@@ -5564,107 +5605,111 @@ def _parallel_rank(rank: int, world: int, port: int, go, dev_type: str) -> dict:
         dist.barrier()
         return got4, got1
 
-    # the LML's value and gradient at n = 4096
-    gp, x, y, v0, _ = large_problem(PAR_N_RANKS, f32, dev)
+    if "samplers" in cases:
+        # the LML's value and gradient at n = 4096
+        gp, x, y, v0, _ = large_problem(PAR_N_RANKS, f32, dev)
 
-    def lml(mesh, _):
-        sh = pmesh.data_sharding(mesh)
-        xs, ys = sh.slab(x), sh.slab(y)
-        with mesh:
-            lp = large_n.make_rowsharded_logp(gp, xs, pmesh.all_gather(xs, pmesh.DATA_AXIS), ys,
-                                              torch.ones_like(ys), pmesh.DATA_AXIS, PAR_BLOCK)
-            return large_n.make_rowsharded_value_and_grad(lp)(v0)
+        def lml(mesh, _):
+            sh = pmesh.data_sharding(mesh)
+            xs, ys = sh.slab(x), sh.slab(y)
+            with mesh:
+                lp = large_n.make_rowsharded_logp(gp, xs, pmesh.all_gather(xs, pmesh.DATA_AXIS), ys,
+                                                  torch.ones_like(ys), pmesh.DATA_AXIS, PAR_BLOCK)
+                return large_n.make_rowsharded_value_and_grad(lp)(v0)
 
-    (val4, g4), got1 = run("lml", lml)
-    if rank == 0:
-        report["diff"]["ranks_lml_value_rel"] = abs(float(val4) - float(got1[0])) / abs(float(got1[0]))
-        report["diff"]["ranks_lml_grad_rel"] = _rel(g4, got1[1])
+        (val4, g4), got1 = run("lml", lml)
+        if rank == 0:
+            report["diff"]["ranks_lml_value_rel"] = abs(float(val4) - float(got1[0])) / abs(float(got1[0]))
+            report["diff"]["ranks_lml_grad_rel"] = _rel(g4, got1[1])
 
-    # ChEES and SMC on hyperpriors, chains and particles over the ranks.  On
-    # the card a chain's K7-route log-joint is not bit for bit the same in a
-    # batch of 16 as in one of 64, and 64 f32 transitions grow such a
-    # difference to the posterior's scale; so the one-rank reference
-    # evaluates its 64 chains in the ranks' four slabs of 16, and the batch
-    # witness (after the samplers) measures that difference directly
-    _, _, _, logp, _, hv0, free = bayes_problem(dev)
-    calls = [0]
+        # ChEES and SMC on hyperpriors, chains and particles over the ranks.  On
+        # the card a chain's K7-route log-joint is not bit for bit the same in a
+        # batch of 16 as in one of 64, and 64 f32 transitions grow such a
+        # difference to the posterior's scale; so the one-rank reference
+        # evaluates its 64 chains in the ranks' four slabs of 16, and the batch
+        # witness (after the samplers) measures that difference directly
+        _, _, _, logp, _, hv0, free = bayes_problem(dev)
+        calls = [0]
 
-    def counted_in(slabs):
-        def counted(V):
-            calls[0] += 1
-            return torch.cat([logp(c) for c in V.chunk(slabs)])
+        def counted_in(slabs):
+            def counted(V):
+                calls[0] += 1
+                return torch.cat([logp(c) for c in V.chunk(slabs)])
 
-        return counted
+            return counted
 
-    rng = np.random.default_rng(0)
-    x0 = hv0 + 0.1 * torch.as_tensor(rng.normal(size=(PAR_CHEES["chains"], hv0.shape[0])), dtype=f32,
-                                     device=dev) * free
-    kw = {k: v for k, v in PAR_CHEES.items() if k != "chains"}
+        rng = np.random.default_rng(0)
+        x0 = hv0 + 0.1 * torch.as_tensor(rng.normal(size=(PAR_CHEES["chains"], hv0.shape[0])), dtype=f32,
+                                         device=dev) * free
+        kw = {k: v for k, v in PAR_CHEES.items() if k != "chains"}
 
-    def chees_run(mesh, slabs):
-        calls[0] = 0
-        res = sample.run_chees_sharded(counted_in(slabs), x0, torch.Generator(device=dev).manual_seed(0), mesh,
-                                       free=free, **kw)
-        return res.positions, calls[0]
+        def chees_run(mesh, slabs):
+            calls[0] = 0
+            res = sample.run_chees_sharded(counted_in(slabs), x0, torch.Generator(device=dev).manual_seed(0), mesh,
+                                           free=free, **kw)
+            return res.positions, calls[0]
 
-    (pos4, calls4), got1 = run("chees", chees_run)
-    report["chees_vg_calls"] = calls4
-    if rank == 0:
-        report["diff"]["ranks_chees_abs"] = float((pos4.double() - got1[0].double()).abs().max())
-        report["chees_finite"] = bool(torch.isfinite(pos4).all())
+        (pos4, calls4), got1 = run("chees", chees_run)
+        report["chees_vg_calls"] = calls4
+        if rank == 0:
+            report["diff"]["ranks_chees_abs"] = float((pos4.double() - got1[0].double()).abs().max())
+            report["chees_finite"] = bool(torch.isfinite(pos4).all())
 
-    def smc_run(mesh, slabs):
-        calls[0] = 0
-        res = smc_sharded.run_smc_sharded(counted_in(slabs), hv0, torch.Generator(device=dev).manual_seed(1), mesh,
-                                          free=free, **PAR_HP_SMC)
-        return res, calls[0]
+        def smc_run(mesh, slabs):
+            calls[0] = 0
+            res = smc_sharded.run_smc_sharded(counted_in(slabs), hv0, torch.Generator(device=dev).manual_seed(1), mesh,
+                                              free=free, **PAR_HP_SMC)
+            return res, calls[0]
 
-    (smc4, calls4), got1 = run("smc", smc_run)
-    report["smc_vg_calls"] = calls4
-    if rank == 0:
-        report["diff"]["ranks_smc_abs"] = float((smc4.particles.double() - got1[0].particles.double()).abs().max())
-        report["smc"] = {"stages": smc4.num_stages, "log_evidence": float(smc4.log_evidence),
-                         "log_evidence_one_rank": float(got1[0].log_evidence)}
-        # the batch dependence that the one-rank reference's slabs stand for,
-        # at the ChEES chains' starting positions
-        report["batch_witness"] = _batch_witness(logp, bayes_problem(dev, torch.float64)[3], x0)
-    dist.barrier()
+        (smc4, calls4), got1 = run("smc", smc_run)
+        report["smc_vg_calls"] = calls4
+        if rank == 0:
+            report["diff"]["ranks_smc_abs"] = float((smc4.particles.double() - got1[0].particles.double()).abs().max())
+            report["smc"] = {"stages": smc4.num_stages, "log_evidence": float(smc4.log_evidence),
+                             "log_evidence_one_rank": float(got1[0].log_evidence)}
+            # the batch dependence that the one-rank reference's slabs stand for,
+            # at the ChEES chains' starting positions
+            report["batch_witness"] = _batch_witness(logp, bayes_problem(dev, torch.float64)[3], x0)
+        dist.barrier()
 
-    # sharded serving at n = 4096: the mixture of S draws over the ranks,
-    # each rank compiling its own; the request rows over the ranks
-    sgp, sx, sy, _, sts, stn, sz = problem(f32, dev)
-    vs = torch.as_tensor(0.1 * np.random.default_rng(1).normal(size=(PAR_SERVE_DRAWS, 3)), dtype=f32, device=dev)
+        # sharded serving at n = 4096: the mixture of S draws over the ranks,
+        # each rank compiling its own; the request rows over the ranks
+        sgp, sx, sy, _, sts, stn, sz = problem(f32, dev)
+        vs = torch.as_tensor(0.1 * np.random.default_rng(1).normal(size=(PAR_SERVE_DRAWS, 3)), dtype=f32, device=dev)
 
-    def serve_run(mesh, _):
-        sm = serving.compile_mixture_sharded(sgp, vs, sx, sy, mesh)
-        mix = serving.serve_predict_mixture_sharded(sgp, sm, sz, mesh)
-        sp = serve.fit_serving(sgp, sts, stn, sx, sy)
-        return mix, serving.serve_predict_sharded(sgp, sp, sz, mesh), sm.n_draws
+        def serve_run(mesh, _):
+            sm = serving.compile_mixture_sharded(sgp, vs, sx, sy, mesh)
+            mix = serving.serve_predict_mixture_sharded(sgp, sm, sz, mesh)
+            sp = serve.fit_serving(sgp, sts, stn, sx, sy)
+            return mix, serving.serve_predict_sharded(sgp, sp, sz, mesh), sm.n_draws
 
-    (mix4, req4, draws4), got1 = run("serve", serve_run)
-    report["serve_local_draws"] = draws4
-    if rank == 0:
-        report["diff"]["ranks_serve_rel"] = max(_rel(a, b) for a, b in zip((*mix4, *req4), (*got1[0], *got1[1])))
+        (mix4, req4, draws4), got1 = run("serve", serve_run)
+        report["serve_local_draws"] = draws4
+        if rank == 0:
+            report["diff"]["ranks_serve_rel"] = max(_rel(a, b) for a, b in zip((*mix4, *req4), (*got1[0], *got1[1])))
+    if "graft" in cases:
+        # the graft entry's dry run on the four ranks, then on rank 0 alone
+        report["graft"] = graft_rank(rank, world, dev, one)
     dist.destroy_process_group()
     return report
 
 
-def start_parallel_ranks(dev):
+def start_parallel_ranks(dev, cases: tuple = PAR_CASES):
     """(b)'s PAR_WORLD ranks, spawned: each imports, joins its gloo group on
     one card and waits for the returned event."""
     ctx = multiprocessing.get_context("spawn")
     queue, go = ctx.Queue(), ctx.Event()
     port = _free_port()
-    procs = [ctx.Process(target=parallel_rank, args=(r, PAR_WORLD, port, queue, go, dev.type))
+    procs = [ctx.Process(target=parallel_rank, args=(r, PAR_WORLD, port, queue, go, dev.type, cases))
              for r in range(PAR_WORLD)]
     for p in procs:
         p.start()
     return procs, queue, go
 
 
-def parallel_ranks(dev, started) -> dict:
-    """(b): the spawned ranks' cases, started now and beside nothing else on
-    the card; each case against the same call on rank 0 alone."""
+def collect_ranks(started) -> list:
+    """The spawned ranks' reports, in rank order, once ``go`` is set; the
+    processes joined (killed where they hang)."""
     procs, queue, go = started
     go.set()
     reports = []
@@ -5679,7 +5724,13 @@ def parallel_ranks(dev, started) -> dict:
     errors = [r["error"] for r in reports if "error" in r]
     if errors:
         raise AssertionError("parallel ranks failed:\n" + "\n".join(errors))
-    reports.sort(key=lambda r: r["rank"])
+    return sorted(reports, key=lambda r: r["rank"])
+
+
+def parallel_ranks(dev, started) -> dict:
+    """(b): the spawned ranks' cases, started now and beside nothing else on
+    the card; each case against the same call on rank 0 alone."""
+    reports = collect_ranks(started)
     r0 = reports[0]
     emit({"phase": "parallel", "run": "ranks", **{k: r0[k] for k in ("backend", "ms", "diff")},
           "launches": [r["launches"] for r in reports], "chees_vg_calls": [r["chees_vg_calls"] for r in reports],
@@ -5709,14 +5760,22 @@ def parallel_ranks(dev, started) -> dict:
     return {"launches": total, "reports": reports}
 
 
-def phase_parallel(dev) -> dict:
+def phase_parallel(dev, cases: tuple = PAR_CASES) -> dict:
     """The multi-device layer: (a) in this process on an NCCL group of one
-    rank, (b) on four spawned gloo ranks sharing the card; then each kernel
+    rank, (b) on four spawned gloo ranks sharing the card (with the graft
+    entry's 4-rank dry run, which the graft phase checks); then each kernel
     of these paths against its plain version at the paths' shapes."""
-    # (a) first, alone; then the ranks, spawned after it, so that neither
-    # shares the card or the host's cores with the other
-    world1 = parallel_world1(dev)
-    ranks = parallel_ranks(dev, start_parallel_ranks(dev))
+    # the ranks spawned first: each imports, joins its group, probes gloo's
+    # CUDA collectives and warms up on the CPU while (a) runs here, then
+    # waits; (b) starts once (a) is done, beside nothing else on the card
+    started = start_parallel_ranks(dev, cases)
+    try:
+        world1 = parallel_world1(dev)
+    except BaseException:
+        for p in started[0]:
+            p.kill()
+        raise
+    ranks = parallel_ranks(dev, started)
     # the kernels at the shapes these paths gave them: K2 on the first
     # diagonal tile of each path's covariance, K1 on the serving
     # covariance and K5 on its factor's tiles, K7 on a rank's 16 chains
@@ -5735,7 +5794,223 @@ def phase_parallel(dev) -> dict:
     rows.update(check_k7({"parallel_ranks": (
         lambda: fused_gp.fused_gp_linv(K7), lambda: fused_gp.linv_plain(K7), K7.shape, 50,
         lambda: torch.linalg.solve_triangular(torch.linalg.cholesky(K7), eye, upper=False))}))
-    return {"launches": {"parallel": world1["launches"], "parallel_ranks": ranks["launches"]}, "rows": rows}
+    return {"launches": {"parallel": world1["launches"], "parallel_ranks": ranks["launches"]}, "rows": rows,
+            "reports": ranks["reports"]}
+
+
+# --- graft: the twin of __graft_entry__.py (gogp_torch.graft_entry) ---------------
+# entry's forward step (the hyperpriors log-joint and its gradient at n = 256)
+# in f32 on the card against the same fn in f64 on the card;
+# dryrun_multichip(1) in this process on an NCCL group of one;
+# dryrun_multichip(4) on the parallel phase's four gloo ranks (graft_rank),
+# its deterministic steps held against the same steps on rank 0 alone (a 1x1
+# mesh, the 4-rank run's shapes).  Every step's outputs finite with the
+# twin's shapes; every step that calls the batched log-joint (the K7 route)
+# launches K7 once a call, and no other step launches it.  Bounds written
+# before the first run on the card (PERF.md): entry's 10 times the CPU's f32
+# against f64 of the same fn; the ranks' 10 times what each step gave in f32
+# on four gloo ranks of the CPU against rank 0 alone (PERF.md), 10 f32
+# roundoffs (6e-7) where that was 0.  Relative to each output's largest entry.
+GRAFT_BOUNDS = {
+    "entry_value_rel": 6.3e-5,  # CPU 6.32e-6
+    "entry_grad_rel": 8.3e-4,  # CPU 8.31e-5
+}
+GRAFT_RANK_BOUNDS = {
+    "data_lml": 3.6e-6,  # CPU 3.54e-7
+    "sharded_lml": 6e-7,  # CPU 0
+    "svgp": 1.3e-6,  # CPU 1.23e-7
+    "serve": 6e-7,  # CPU 0
+    "mixture": 6.1e-7,  # CPU 6.08e-8
+    "laplace": 2.1e-6,  # CPU 2.04e-7
+    "thompson": 6e-7,  # CPU 0 (pathwise scores and the appended factor, the same seeded draws)
+    "ski": 3.4e-2,  # CPU 3.38e-3 (8 f32 CG iterations, the matvec's sums in another order)
+}
+# The steps that evaluate the batched log-joint (build_logjoint's K7 route).
+GRAFT_LOGJOINT = ("chain_adam", "nuts", "chees", "chees_pops", "ghmc", "pt_chees", "pt_distributed",
+                  "pt_chees_distributed", "advi")
+GRAFT_ENTRY_REPS = 5
+
+
+def graft_shapes(n_devices: int) -> list:
+    """The twin's output shapes of dryrun_multichip(n_devices), from its
+    statements (tests/test_torch_graft_entry.py holds them against the
+    twin's own run at 4 and 3); GHMC's chains are at least 4 (the port's
+    fix where the twin's n_devices = 1 step raises)."""
+    from gogp_torch import graft_entry
+
+    n_data = 2 if n_devices % 2 == 0 else 1
+    n_chain, c, p, m = n_devices // n_data, 2 * n_devices, 6, 4 * n_data
+    shapes = {
+        "chain_adam": [(c, p), ()], "data_lml": [(), (p,)], "nuts": [(c, 2, p)], "chees": [(2, c, p)],
+        "chees_pops": [(2, c, p)], "ghmc": [(4, max(c, 4), p)], "ess": [(c, 2, 16)], "sharded_lml": [()],
+        "pt_chees": [(2, c, p)], "pt_distributed": [(2, p)], "pt_chees_distributed": [(2, 4, p)],
+        "smc_large_n": [(4 * n_chain, p)], "chees_large_n": [(2, 2 * n_chain, p)],
+        "chees_large_n_iterative": [(2, 2 * n_chain, p)], "svgp": [(p,), (m, 1), (m,), (m, m), ()],
+        "serve": [(8 * n_devices,)], "mixture": [(8 * n_devices,)], "laplace": [(16,), ()],
+        "thompson": [(c, 8 * n_devices), (16, 16)], "ski": [(), (5,)], "advi": [(c, p)],
+    }
+    return [s for name, _ in graft_entry.steps_for(n_devices) for s in shapes[name]]
+
+
+def graft_run(n_devices: int, dev, mesh=None, only=None) -> tuple[list, list]:
+    """dryrun_multichip(n_devices) (on ``mesh``, and only the steps named
+    in ``only``, where given), with each step's wall ms, K7 launches and
+    log-joint calls, the counts set to 0 just before each step and read
+    just after: (outputs, steps)."""
+    from gogp_torch import graft_entry
+
+    calls = [0]
+    real = bayes.build_logjoint
+
+    def counting(*a, **k):
+        logp, *rest = real(*a, **k)
+
+        def counted(V):
+            calls[0] += 1
+            return logp(V)
+
+        return (counted, *rest)
+
+    steps, t0 = [], [0.0]
+
+    def after(name, outs):
+        _sync(dev)
+        steps.append({"step": name, "ms": (time.perf_counter() - t0[0]) * 1e3,
+                      "k7": cb.LAUNCHES["fused_gp_linv"], "logjoint_calls": calls[0],
+                      "launches": {k: v for k, v in cb.LAUNCHES.items() if v},
+                      "shapes": [list(o.shape) for o in outs],
+                      "finite": all(bool(torch.isfinite(o).all()) for o in outs)})
+        cb.reset_launch_counts()
+        calls[0] = 0
+        t0[0] = time.perf_counter()
+
+    with unittest.mock.patch.object(bayes, "build_logjoint", counting):
+        cb.reset_launch_counts()
+        _sync(dev)
+        t0[0] = time.perf_counter()
+        out = graft_entry.dryrun_multichip(n_devices, dev, after_step=after, mesh=mesh, only=only)
+    return out, steps
+
+
+def graft_step_failures(steps: list, n_devices: int, dev, who: str) -> list:
+    """The run's steps against the twin's order and shapes, finite, and
+    K7 once per log-joint call where the log-joint runs and never elsewhere
+    (on the card)."""
+    from gogp_torch import graft_entry
+
+    failures = []
+    if [st["step"] for st in steps] != [name for name, _ in graft_entry.steps_for(n_devices)]:
+        failures.append(f"{who}: steps {[st['step'] for st in steps]} out of the twin's order")
+    if [s for st in steps for s in st["shapes"]] != [list(s) for s in graft_shapes(n_devices)]:
+        failures.append(f"{who}: shapes {[st['shapes'] for st in steps]} are not the twin's")
+    for st in steps:
+        if not st["finite"]:
+            failures.append(f"{who}: {st['step']} gave non-finite outputs")
+        if dev.type != "cuda":
+            continue
+        if st["step"] in GRAFT_LOGJOINT:
+            if not (st["logjoint_calls"] >= 1 and st["k7"] == st["logjoint_calls"]):
+                failures.append(f"{who}: {st['step']} launched K7 {st['k7']} times in {st['logjoint_calls']} "
+                                "log-joint calls")
+        elif st["k7"] or st["logjoint_calls"]:
+            failures.append(f"{who}: {st['step']} launched K7 {st['k7']} times ({st['logjoint_calls']} calls)")
+    return failures
+
+
+def graft_diff(out4: list, out1: list, n_devices: int) -> dict:
+    """Per held step, the largest relative difference of its outputs (to
+    each output's largest entry) between the whole run and the reference,
+    which ran the held steps alone."""
+    from gogp_torch import graft_entry
+
+    diff, i, j = {}, 0, 0
+    for name, outs in graft_entry.steps_for(n_devices):
+        k = len(outs)
+        if name in GRAFT_RANK_BOUNDS:
+            diff[name] = max(_rel(a, b) for a, b in zip(out4[i:i + k], out1[j:j + k]))
+            j += k
+        i += k
+    return diff
+
+
+def graft_rank(rank: int, world: int, dev, one) -> dict:
+    """One rank's graft case: dryrun_multichip(world) on the world, then on
+    rank 0 its held steps on ``one`` (a 1x1 mesh of rank 0)."""
+    import torch.distributed as dist
+
+    out4, steps = graft_run(world, dev)
+    dist.barrier()
+    report = {"steps": steps}
+    if rank == 0:
+        out1, report["steps_one_rank"] = graft_run(world, dev, mesh=one, only=GRAFT_RANK_BOUNDS)
+        report["diff"] = graft_diff(out4, out1, world)
+    dist.barrier()
+    return report
+
+
+def graft_ranks_failures(reports: list, dev) -> tuple[list, int]:
+    """The 4-rank reports' failures and their K7 launches in all."""
+    failures = []
+    for r in reports:
+        failures += graft_step_failures(r["graft"]["steps"], PAR_WORLD, dev, f"rank {r['rank']}")
+    diff = reports[0]["graft"]["diff"]
+    failures += [f"4 ranks against 1: {k} {diff[k]:.3e} > {b}" for k, b in GRAFT_RANK_BOUNDS.items()
+                 if not diff[k] <= b]
+    return failures, sum(st["k7"] for r in reports for st in r["graft"]["steps"])
+
+
+def graft_k7_case(dev):
+    """K7 at the dry run's batch: the flagship's covariances at 2 chains'
+    starts (a rank's chains at world 1), n = 16."""
+    from gogp_torch import graft_entry
+
+    study, _, _ = graft_entry._flagship()
+    x, _ = graft_entry._series(16, 0, 0.1)
+    K = bayes_covs(study, x, 0.1 * torch.randn((2, 6), generator=torch.Generator().manual_seed(0)).to(dev))
+    eye = torch.eye(K.shape[-1], dtype=K.dtype, device=dev)
+    return (lambda: fused_gp.fused_gp_linv(K), lambda: fused_gp.linv_plain(K), K.shape, 50,
+            lambda: torch.linalg.solve_triangular(torch.linalg.cholesky(K), eye, upper=False))
+
+
+def phase_graft(dev, reports: list | None = None) -> dict:
+    """entry in f32 against f64 and its warm ms; dryrun_multichip(1) here
+    on an NCCL group of one; the 4-rank dry run's reports (the parallel
+    phase's ranks', or, run alone, ranks spawned for it); K7 at the path's
+    batch against its plain version."""
+    import torch.distributed as dist
+    from gogp_torch import graft_entry
+    from gogp_torch.parallel import mesh as pmesh
+
+    fn, args = graft_entry.entry(dev)
+    (v32, g32), first_ms = _timed(dev, lambda: fn(*args))
+    warm_ms = [_timed(dev, lambda: fn(*args))[1] for _ in range(GRAFT_ENTRY_REPS)]
+    v64, g64 = fn(*(a.double() for a in args))
+    errors = {"entry_value_rel": abs(float(v32) - float(v64)) / abs(float(v64)), "entry_grad_rel": _rel(g32, g64)}
+    failures = [f"{k} {errors[k]:.3e} > {b}" for k, b in GRAFT_BOUNDS.items() if not errors[k] <= b]
+    if not (g32.shape == (6,) and math.isfinite(float(v32))):
+        failures.append("entry: a non-finite value or a gradient of the wrong shape")
+
+    pmesh.init_multihost(f"127.0.0.1:{_free_port()}", 1, 0, backend="nccl" if dev.type == "cuda" else "gloo")
+    try:
+        backend = dist.get_backend()
+        _, steps = graft_run(1, dev)
+    finally:
+        dist.destroy_process_group()
+    failures += graft_step_failures(steps, 1, dev, "world 1")
+    if reports is None:
+        reports = collect_ranks(start_parallel_ranks(dev, ("graft",)))
+    rank_failures, rank_k7 = graft_ranks_failures(reports, dev)
+    failures += rank_failures
+    r0 = reports[0]["graft"]
+    emit({"phase": "graft", "entry": {"value": float(v32), "first_ms": first_ms, "warm_ms": warm_ms,
+                                      "errors": errors},
+          "world1": {"backend": backend, "steps": steps},
+          "ranks": {"steps": [r["graft"]["steps"] for r in reports], "steps_one_rank": r0["steps_one_rank"],
+                    "diff": r0["diff"]}})
+    if failures:
+        raise AssertionError(f"graft: {failures}")
+    rows = check_k7({"graft": graft_k7_case(dev)})
+    return {"launches": {"graft": {"fused_gp_linv": sum(st["k7"] for st in steps) + rank_k7}}, "rows": rows}
 
 
 # What ``--phases`` can name; "k7" is the bayes phase's kernel checks without
@@ -5751,7 +6026,8 @@ PARTIAL_PHASES = {"kernels": phase_kernels, "k5": phase_k5, "k7": phase_k7, "gat
                   "large_n_bayes_exact": _partial_large_n_bayes_exact, "utils": phase_utils,
                   "train": phase_train, "large": phase_large, "bayes": phase_bayes, "samplers": phase_samplers,
                   "evaluate": lambda dev: check_k7(phase_evaluate(dev)["k7_cases"]),
-                  "parallel": phase_parallel, "stamps": phase_stamps, "coldstart": phase_coldstart}
+                  "parallel": lambda dev: phase_parallel(dev, ("samplers",)), "graft": phase_graft,
+                  "stamps": phase_stamps, "coldstart": phase_coldstart}
 
 
 def main() -> int:
@@ -5766,7 +6042,10 @@ def main() -> int:
         parser.error(f"unknown phases {unknown}: expected some of {list(PARTIAL_PHASES)}")
     info = phase_device()
     dev = torch.device("cuda", 0)
+    warmup = threading.Thread(target=host_warmup)
+    warmup.start()
     phase_build()
+    warmup.join()
     if args.phases:
         for name in args.phases:
             t0 = time.perf_counter()
@@ -5834,6 +6113,10 @@ def main() -> int:
     # the multi-device layer, its four spawned ranks beside nothing else
     parallel_out = measured("parallel", phase_parallel, dev)
     kernels.update(parallel_out["rows"])
+    # the graft entry: entry and the world-1 dry run here, the 4-rank dry
+    # run's reports from the parallel phase's ranks
+    graft_out = measured("graft", phase_graft, dev, parallel_out["reports"])
+    kernels.update(graft_out["rows"])
     if args.profile:
         measured("profile", phase_profile, slice_args32, train["args32"], large["args32"], bayes_out["logps"],
                  evaluate_out["batch"])
@@ -5847,7 +6130,7 @@ def main() -> int:
                 "bayes": bayes_out["launches"], "large_n_bayes_exact": lnbx_out["launches"],
                 "evaluate": evaluate_out["launches"],
                 "evaluate_hyperpriors": evaluate_out["hyperpriors_launches"], **samplers_out["launches"],
-                **parallel_out["launches"], "kernels": kernels_launches}
+                **parallel_out["launches"], **graft_out["launches"], "kernels": kernels_launches}
     emit({"kernels": [
         {"name": f"{name} ({path}, {'x'.join(map(str, row['shape']))})", "route": "cuda",
          "source": source, "replaces": replaces, "launches": launches[path][key],

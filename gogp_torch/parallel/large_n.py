@@ -64,6 +64,24 @@ def _fixed_draws(draws):
     return lambda: GeneratorDraws(torch.Generator(device=device).manual_seed(seed))
 
 
+def _cov_rows(gp: GP, theta_simil: Tensor, theta_noise: Tensor, x_local: Tensor, x_full: Tensor,
+             mask_local: Tensor, axis) -> tuple[Tensor, Tensor, Tensor]:
+    """This rank's block rows of ``core.masked_cov`` (n_local, n), under
+    ``with mesh:``: the kernel rows from its X slab, noise on the diagonal,
+    identity rows and columns for masked-out points; with the rows' noise
+    and the mask in the rows' dtype."""
+    n_local, n = x_local.shape[0], x_full.shape[0]
+    row0 = pmesh.axis_index(axis) * n_local
+    rows = gp.simil.matrix(theta_simil, x_local, x_full)
+    eye = torch.arange(n, device=rows.device)[None, :] == (torch.arange(n_local, device=rows.device) + row0)[:, None]
+    noise = gp.noise.vector(theta_noise, x_local)
+    rows = torch.where(eye, rows + noise[:, None], rows)
+    m_local = mask_local.to(rows.dtype)
+    m_full = pmesh.all_gather(m_local, axis)
+    rows = rows * (m_local[:, None] * m_full[None, :])
+    return torch.where(eye, rows + (1.0 - m_local[:, None]), rows), noise, m_local
+
+
 def make_rowsharded_logp(gp: GP, x_local, x_full, y_local, mask_local, axis, block: int = cb.DEFAULT_BLOCK,
                          method: str = "exact", draws=None, num_probes: int = 16, cg_iters: int = 100,
                          lanczos_iters: int = 32, precond_rank: int = 0):
@@ -82,23 +100,12 @@ def make_rowsharded_logp(gp: GP, x_local, x_full, y_local, mask_local, axis, blo
     if method == "iterative" and draws is None:
         raise ValueError("method='iterative' needs probe `draws`")
     fixed = _fixed_draws(draws)
-    n_local = x_local.shape[0]
     n = x_full.shape[0]
 
     def logp_one(v: Tensor) -> Tensor:
         theta = torch.exp(v)
-        th_s, th_n = theta[: gp.n_theta_simil], theta[gp.n_theta_simil:]
-        row0 = pmesh.axis_index(axis) * n_local
-        rows = gp.simil.matrix(th_s, x_local, x_full)  # (n_local, n)
-        eye = torch.arange(n, device=rows.device)[None, :] == (torch.arange(n_local, device=rows.device)
-                                                              + row0)[:, None]
-        noise = gp.noise.vector(th_n, x_local)
-        rows = torch.where(eye, rows + noise[:, None], rows)
-        # padding: identity rows and columns for masked-out points
-        m_local = mask_local.to(rows.dtype)
-        m_full = pmesh.all_gather(m_local, axis)
-        rows = rows * (m_local[:, None] * m_full[None, :])
-        rows = torch.where(eye, rows + (1.0 - m_local[:, None]), rows)
+        rows, noise, m_local = _cov_rows(gp, theta[: gp.n_theta_simil], theta[gp.n_theta_simil:], x_local, x_full,
+                                        mask_local, axis)
         yv = y_local * m_local
         if method == "iterative":
             y_full = pmesh.all_gather(yv, axis)

@@ -428,3 +428,178 @@ def serving(shape, x, y, vs, theta, z):
             N(pserving.serve_predict_mixture_sharded(gp, whole, z, m)),
             N(pserving.serve_predict_sharded(gp, sp, z, m)), local.n_draws)
 
+
+
+# --- the graft entry (gogp_torch.graft_entry) --------------------------------------
+
+
+def _graft(shape):
+    """(mesh, graft_entry, study, gp, x, y): the dry run's flagship problem
+    at n = 16 on a mesh of ``shape``; (None, ...) off the mesh."""
+    from gogp_torch import graft_entry as ge
+
+    m = mesh_for(shape)
+    study, gp, _ = ge._flagship()
+    x, y = ge._series(16, 0, 0.1)
+    return (m if m.member else None), ge, study, gp, x, y
+
+
+def _graft_logp(study, x, y):
+    from gogp_torch.tutorial.bayes import build_logjoint
+
+    return build_logjoint(study, x, y, "cpu", torch.float64)[0]
+
+
+def graft_chain_adam(shape, v0):
+    m, ge, study, gp, x, y = _graft(shape)
+    if m is None:
+        return None
+    return N(ge._chain_adam_step(_graft_logp(study, x, y), T(v0), m))
+
+
+def graft_data_lml(shape):
+    m, ge, study, gp, x, y = _graft(shape)
+    if m is None:
+        return None
+    return N(ge._data_sharded_value_and_grad(gp, T(x), T(y), torch.ones(16, dtype=torch.float64),
+                                             torch.zeros(gp.n_theta, dtype=torch.float64), m, 8))
+
+
+def graft_svgp(shape, n_sv, state_dtype):
+    """The SVGP step from the twin's start: theta 1, Z = x[::2], the state
+    in ``state_dtype`` (the twin's dry run: float32)."""
+    from gogp_torch.gp import sparse
+    from gogp_torch.infer import mle
+
+    m, ge, study, gp, _, _ = _graft(shape)
+    if m is None:
+        return None
+    x, y = ge._series(n_sv, 4, 0.0)
+    params = sparse.SVGPParams(torch.zeros(gp.n_theta, dtype=torch.float64),
+                               sparse.svgp_init(gp, x[::2], dtype=getattr(torch, state_dtype)))
+    params, _, elbo = ge._svgp_step(gp, params, mle.adam_init([params.log_theta, *params.state]), T(x), T(y), n_sv,
+                                    m)
+    return N([params.log_theta, *params.state, elbo])
+
+
+def graft_laplace(shape, max_iters):
+    """The row-sharded Laplace fit and LML, and the port's replicated
+    laplace_fit and laplace_lml on the same problem."""
+    from gogp_torch.gp import laplace
+    from gogp_torch.gp.likelihoods import bernoulli_logit
+
+    m, ge, study, gp, x, y = _graft(shape)
+    if m is None:
+        return None
+    xs, yb = T(x), T((y > 0).astype(np.float64))
+    ts, tl, tn = torch.ones(gp.n_theta_simil, dtype=torch.float64), torch.zeros(0, dtype=torch.float64), \
+        torch.ones(gp.n_theta_noise, dtype=torch.float64)
+    got = ge._laplace_rowsharded(gp, bernoulli_logit, ts, tl, tn, xs, yb, m, max_iters=max_iters, block=8)
+    post = laplace.laplace_fit(gp, bernoulli_logit, ts, tl, xs, yb, theta_noise=tn, max_iters=max_iters)
+    lml = laplace.laplace_lml(gp, bernoulli_logit, ts, tl, xs, yb, theta_noise=tn, max_iters=max_iters)
+    return N(got), N((post.f_hat, lml))
+
+
+def _graft_bo(n_devices):
+    from gogp_torch.gp import core
+    from gogp_torch.kernels import matern52_ref, periodic, uniform_noise
+
+    from gogp_torch import graft_entry as ge
+
+    x, y = ge._series(16, 0, 0.1)
+    gp_bo = core.GP(ndim=1, simil=matern52_ref.scaled() + periodic, noise=uniform_noise)
+    post = core.absorb(gp_bo, torch.ones(gp_bo.n_theta_simil, dtype=torch.float64),
+                       torch.ones(gp_bo.n_theta_noise, dtype=torch.float64), T(x), T(y))
+    z = torch.linspace(0.0, 10.0, 8 * n_devices, dtype=torch.float64)[:, None]
+    return ge, gp_bo, post, z
+
+
+def graft_thompson(shape, key):
+    """The Thompson step on 2 n paths of 64 features drawn with the twin's
+    key tree (``JaxPathDraws``)."""
+    from gogp_torch.gp import pathwise
+
+    m = mesh_for(shape)
+    if not m.member:
+        return None
+    jax_cpu()
+    from test_torch_pathwise import JaxPathDraws
+
+    n_devices = shape[0] * shape[1]
+    ge, gp_bo, post, z = _graft_bo(n_devices)
+    ps = pathwise.sample_paths(gp_bo, post, JaxPathDraws(K(key)), 2 * n_devices, 64)
+    x_new, scores, post2 = ge._thompson_step(gp_bo, post, ps, z, m)
+    return N((x_new, scores, post2.chol, post2.alpha, post2.x))
+
+
+def graft_ski(shape, key, n_ski):
+    m, ge, study, gp, _, _ = _graft(shape)
+    if m is None:
+        return None
+    jax_cpu()
+    from test_torch_pathwise import JaxPathDraws
+
+    x, y = ge._series(n_ski, 5, 0.0)
+    ones = torch.ones(gp.n_theta_simil, dtype=torch.float64), torch.ones(gp.n_theta_noise, dtype=torch.float64)
+    return N(ge._ski_value_and_grad(gp, *ones, T(x), T(y), JaxPathDraws(K(key)), m, grid_size=16, num_probes=2,
+                                    cg_iters=8, lanczos_iters=4))
+
+
+def graft_advi(shape, v0, eps):
+    """The ADVI fits of ``v0`` with each fit's steps' eps ``eps[i]``."""
+    m, ge, study, gp, x, y = _graft(shape)
+    if m is None:
+        return None
+    return N(ge._advi_sharded(_graft_logp(study, x, y), T(v0), m, eps_draws=lambda i: (lambda step: T(eps[i][step])),
+                              num_steps=3, num_draws=2))
+
+
+def graft_dryrun(n_devices, reference=()):
+    """The whole dry run on the world's first ``n_devices`` ranks, float64 on
+    the CPU: (the steps' names in order, the outputs, and on rank 0 the
+    steps named in ``reference`` run alone on a 1x1 mesh of rank 0)."""
+    from gogp_torch import graft_entry as ge
+
+    one = mesh(1, 1, [0])
+    names = []
+    out = ge.dryrun_multichip(n_devices, device="cpu", dtype=torch.float64,
+                              after_step=lambda name, outs: names.append((name, len(outs))))
+    if out is None:
+        return None
+    ref = None
+    if reference and one.member:
+        ref = N(ge.dryrun_multichip(n_devices, device="cpu", dtype=torch.float64, mesh=one, only=reference))
+    return names, N(out), ref
+
+
+def graft_dryrun_error(n_devices):
+    from gogp_torch import graft_entry as ge
+
+    try:
+        ge.dryrun_multichip(n_devices, device="cpu", dtype=torch.float64)
+    except ValueError as e:
+        return str(e)
+
+
+def graft_dryrun_twin_draws(n_devices):
+    """The dry run in float64 with the twin's draws for its deterministic
+    steps: the chain and ADVI starts, the mixture's draws, the paths' and
+    SKI's keys, each ADVI fit's eps."""
+    from gogp_torch import graft_entry as ge
+
+    jax = jax_cpu()
+    from test_torch_advi_smc import jax_eps
+    from test_torch_pathwise import JaxPathDraws
+
+    n_data = 2 if n_devices % 2 == 0 else 1
+    c, normal = 2 * n_devices, jax.random.normal
+    keys = jax.random.split(jax.random.PRNGKey(15), c)
+    eps = [jax_eps(k, 3, 2, 6) for k in keys]
+    draws = {"chain_adam": {"v0": np.asarray(0.1 * normal(jax.random.PRNGKey(0), (c, 6)))},
+             "mixture": {"vs": np.asarray(0.05 * normal(jax.random.PRNGKey(10), (2 * (n_devices // n_data), 6)))},
+             "thompson": {"draws": JaxPathDraws(jax.random.PRNGKey(12))},
+             "ski": {"draws": JaxPathDraws(jax.random.PRNGKey(13))},
+             "advi": {"v0": np.asarray(0.05 * normal(jax.random.PRNGKey(14), (c, 6))),
+                      "eps_draws": lambda i: (lambda step: T(eps[i][step]))}}
+    out = ge.dryrun_multichip(n_devices, device="cpu", dtype=torch.float64, draws=draws)
+    return None if out is None else N(out)
