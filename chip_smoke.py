@@ -32,7 +32,19 @@ process per source) and then runs these phases, each printing JSON lines:
    k5       - K5 at each path's count of tiles (12, 32, 128) and at 200, one
               CTA a tile and split over 2 and 4 by block column, against its
               plain version, with a "gates" line of the fastest split at
-              each count; K5 on ill-conditioned GP tiles against f64.
+              each count.
+   ill      - ill-conditioned GP covariances against f64, column by column:
+              K5 on the factors of rbf tiles (jitter 1e-7); the tile body on
+              rbf covariances of equispaced points of [0, 1] (ILL_CASES):
+              K2 on 16 tiles (length scales 0.05 to 1, jitter 1e-5), K7's
+              classes 96 and 128 on 8 of them, K1 at n = 1536 and 4096 and
+              the stepwise driver at 8192 (length scale 0.05, jitter 1e-4):
+              the factor, the tile inverses and the inverses of the
+              kernel's own factor, beside the plain f32 version's, the
+              library pair's and the JAX twin's f32 errors (measured on the
+              CPU; the bounds are 10 times these), the f64 factor's
+              smallest pivot and, at each jitter of ILL_JITTERS, whether
+              cuSOLVER's f32 factor and the kernel's are finite.
 4. slice    - serving: the GP problem of ``bench.py``, n = 4096 sorted
               uniform inputs on [0, 100], y = sin(x/3) + 0.1 N(0, 1) from
               numpy seed 0, rbf.scaled() + uniform_noise at log-theta 0,
@@ -380,7 +392,7 @@ process per source) and then runs these phases, each printing JSON lines:
               it and never on the others; K7 against its plain version at
               the path's batch (2 x 16 x 16).
 
-With ``--phases a,b,...`` (of kernels, k5, k7, gate, stamps, coldstart,
+With ``--phases a,b,...`` (of kernels, k5, ill, k7, gate, stamps, coldstart,
 slice, train, large, serve, classify, sparse, surface, pathwise, bo,
 search, iterative, toeplitz, ski, large_n_bayes, large_n_bayes_exact, utils, bayes, samplers, evaluate,
 parallel, graft; k7 is the
@@ -1051,21 +1063,90 @@ def k5_split(tiles: torch.Tensor, split: int) -> torch.Tensor:
     return out
 
 
+def rbf_covariances(n: int, ells, jitter: float) -> np.ndarray:
+    """(len(ells), n, n) rbf covariances on n equispaced points of [0, 1],
+    one a length scale, plus ``jitter`` on the diagonal, in f64."""
+    x = np.linspace(0, 1, n)
+    return np.stack([np.exp(-0.5 * (x[:, None] - x[None]) ** 2 / ell**2) + jitter * np.eye(n) for ell in ells])
+
+
 def ill_conditioned_tiles(count: int, dev) -> torch.Tensor:
     """(count, b, b) Cholesky factors of rbf covariances on b points of [0,
     1] plus jitter 1e-7, the length scale from 0.05 to 1 (log-spaced): their
     diagonals run from 1 down to 4e-4-2e-3, and forward substitution loses
     about 3e-4 of a column's scale on them in f32."""
-    x = np.linspace(0, 1, BLOCK)
-    tiles = [np.linalg.cholesky(np.exp(-0.5 * (x[:, None] - x[None]) ** 2 / ell**2) + 1e-7 * np.eye(BLOCK))
-             for ell in np.logspace(np.log10(0.05), 0, count)]
-    return torch.as_tensor(np.stack(tiles), dtype=torch.float32, device=dev)
+    tiles = np.linalg.cholesky(rbf_covariances(BLOCK, np.logspace(np.log10(0.05), 0, count), 1e-7))
+    return torch.as_tensor(tiles, dtype=torch.float32, device=dev)
 
 
 def col_rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
     """Largest error in a column over the column's largest entry, in f64."""
     got, want = got.double(), want.double()
     return float(((got - want).abs().amax(dim=-2) / want.abs().amax(dim=-2).clamp_min(1e-300)).max())
+
+
+# The ill phase: the tile body (K2, K1's diagonal step, K7's blocked classes)
+# and the stepwise driver on rbf covariances with small jitter
+# (rbf_covariances), held column by column against f64.  Each case is (n,
+# length scales, jitter, block); K7's batches are the k2 tiles' leading n x n
+# blocks, every other length scale.  The jitter is the smallest of
+# ILL_JITTERS at which the f32 factor of every matrix of the case, LAPACK's
+# and the JAX twin's on the CPU, is finite: at 1e-7, the jitter of
+# ill_conditioned_tiles, no f32 factor of those tiles is; at n = 1536, 1e-5,
+# LAPACK's is and the twin's is not.
+ILL_JITTERS = (1e-7, 1e-6, 1e-5, 1e-4)
+ILL_TILE_ELLS = tuple(np.logspace(np.log10(0.05), 0, 16))
+ILL_CASES = {
+    "k2": (BLOCK, ILL_TILE_ELLS, 1e-5, BLOCK),
+    "k7_96": (96, ILL_TILE_ELLS[::2], 1e-5, 96),
+    "k7_128": (BLOCK, ILL_TILE_ELLS[::2], 1e-5, BLOCK),
+    "k1_1536": (1536, (0.05,), 1e-4, BLOCK),
+    "k1_4096": (4096, (0.05,), 1e-4, BLOCK),
+    "stepwise_8192": (8192, (0.05,), 1e-4, BLOCK),
+}
+# The JAX twin's f32 errors (ill_errors) on each case on the CPU, from
+# tests/ill_bounds.py (rounded up to two digits): K2's twin
+# pallas_cholesky_inv_tile, K7's linv_value (chol_value, then
+# lower_inv_value), K1's and the driver's blocked_cholesky_invs (the fused
+# kernel at n = 1536, the stepwise driver above the twin's _FUSED_MAX_N),
+# every Pallas kernel in interpret mode.  The phase's bounds are 10 times
+# these, written before its first run on the card.
+ILL_TWIN_F32 = {
+    "k2": {"L": 6.4e-2, "V": 4.5e-2, "V_own": 2.2e-5},
+    "k7_96": {"L": 2.7e-2, "V": 5.6e-2, "V_own": 2.2e-5},
+    "k7_128": {"L": 3.9e-2, "V": 6.0e-2, "V_own": 2.2e-5},
+    "k1_1536": {"L": 8.0e-2, "V": 2.5e-2, "V_own": 5.9e-6},
+    "k1_4096": {"L": 2.0e-1, "V": 2.3e-2, "V_own": 3.3e-6},
+    "stepwise_8192": {"L": 3.4e-1, "V": 2.2e-2, "V_own": 2.2e-6},
+}
+ILL_BOUNDS = {case: {metric: 10 * err for metric, err in errs.items()} for case, errs in ILL_TWIN_F32.items()}
+# A repaired kernel's inverse of its own factor ("V_own") is held within this
+# many times the plain f32 version's.
+ILL_PLAIN_FACTOR = 3
+
+
+def ill_covariances(case: str, jitter: float | None = None) -> np.ndarray:
+    """The case's (count, n, n) covariances in f64, before the cast to f32,
+    at its jitter or at ``jitter``."""
+    n, ells, case_jitter, _ = ILL_CASES[case]
+    jitter = case_jitter if jitter is None else jitter
+    if case.startswith("k7"):
+        return rbf_covariances(BLOCK, ells, jitter)[:, :n, :n]
+    return rbf_covariances(n, ells, jitter)
+
+
+def ill_errors(A: torch.Tensor, L: torch.Tensor, V: torch.Tensor, block: int) -> dict:
+    """Column-relative errors (col_rel_err) of a factor L of the f32
+    covariances A (count, n, n) and of V, the inverses of L's diagonal
+    tiles of width ``block`` ((count, n / block, block, block), or (count,
+    n, n) where block = n): "L" and "V" against the f64 factor of A and its
+    tiles' inverses, "V_own" against the f64 inverses of L's own tiles, the
+    inverse step alone."""
+    L64 = torch.linalg.cholesky(A.double())
+    tiles = lambda L: cb._diag_tiles(L, block).reshape(-1, block, block)
+    V = V.reshape(-1, block, block)
+    return {"L": col_rel_err(L, L64), "V": col_rel_err(V, cb.tril_inv_tile_plain(tiles(L64))),
+            "V_own": col_rel_err(V, cb.tril_inv_tile_plain(tiles(L.double())))}
 
 
 def phase_k5(dev) -> dict:
@@ -1099,6 +1180,92 @@ def phase_k5(dev) -> dict:
         bad = {split: err for split, err in errs.items() if not err <= KERNEL_RTOL}
         if bad:
             raise AssertionError(f"K5 at {label} disagrees with its plain version: {bad}")
+    emit({"phase": "gates", "gate": "K5 split (tril_inv_tile.cu)", "ms_by_split": times,
+          "fastest": {count: min(ms, key=ms.get) for count, ms in times.items()}})
+    return times
+
+
+def ill_kernel(case: str, A: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, dict]:
+    """The case's kernel on its f32 covariances A (count, n, n): (L, V,
+    extra).  K7 gives no factor: its L is K2's on A padded with the identity
+    to the tile, which runs the same body, and extra says whether K7's L^-1
+    has the same bits as that K2 inverse's leading block."""
+    n = A.shape[-1]
+    if case == "k2":
+        L, V = cb.cholesky_inv_tile(A)
+        return L, V, {}
+    if case.startswith("k7"):
+        V = fused_gp.fused_gp_linv(A)
+        padded = torch.eye(BLOCK, device=A.device).repeat(A.shape[0], 1, 1)
+        padded[:, :n, :n] = A
+        L2, V2 = cb.cholesky_inv_tile(padded)
+        return L2[:, :n, :n].contiguous(), V, {"same_bits_as_k2": bool(torch.equal(V, V2[:, :n, :n]))}
+    if case.startswith("k1"):
+        L, V = cb.fused_cholesky_invs(A[0])
+    else:
+        L, V = cb._stepwise_cholesky_invs(A[0], BLOCK)
+    return L[None], V[None], {}
+
+
+def ill_plain(case: str, A: torch.Tensor, library: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+    """(L, V) of the case's plain f32 version, or of the library pair
+    (``torch.linalg.cholesky``, which raises where cholesky_ex gives NaN,
+    and ``solve_triangular``)."""
+    block = ILL_CASES[case][3]
+    L = torch.linalg.cholesky(A) if library else cb.plain_cholesky(A)
+    if case.startswith("k7") and not library:
+        return L, fused_gp.linv_plain(A)
+    return L, cb.tril_inv_tile_plain(cb._diag_tiles(L, block).contiguous())
+
+
+def ill_case(case: str, dev) -> dict:
+    """One case of ILL_CASES on the card: the kernel's, its plain f32
+    version's and the library pair's ill_errors beside the twin's (from the
+    CPU) and the bounds, the f64 factor's smallest diagonal entry, and at
+    each jitter of ILL_JITTERS whether cuSOLVER's f32 factor and the
+    kernel's output are finite; "misses" lists every bound missed."""
+    n, _, jitter, block = ILL_CASES[case]
+    A = torch.as_tensor(ill_covariances(case), dtype=torch.float32, device=dev)
+    L, V, extra = ill_kernel(case, A)
+    errs = ill_errors(A, L, V, block)
+    finite_each = torch.isfinite(L).flatten(1).all(1) & torch.isfinite(V).flatten(1).all(1)
+    if not finite_each.all():  # which matrices, and the errors of the others
+        extra["nonfinite"] = finite_each.logical_not().nonzero().flatten().tolist()
+        if finite_each.any():
+            extra["col_rel_err_vs_f64_of_the_finite"] = ill_errors(A[finite_each], L[finite_each],
+                                                                   V[finite_each], block)
+    plain = ill_errors(A, *ill_plain(case, A), block)
+    finite = {}
+    for j in ILL_JITTERS:
+        Aj = A if j == jitter else torch.as_tensor(ill_covariances(case, j), dtype=torch.float32, device=dev)
+        Lj, Vj, _ = ill_kernel(case, Aj) if j <= jitter else (None, None, None)
+        finite[j] = {"cusolver": bool(torch.isfinite(cb.plain_cholesky(Aj)).all()),
+                     "kernel": None if Vj is None else bool(torch.isfinite(Lj).all() and torch.isfinite(Vj).all())}
+    out = {"phase": "ill", "case": case, "n": n, "count": A.shape[0], "jitter": jitter,
+           "cusolver_smallest_finite_jitter": min((j for j, f in finite.items() if f["cusolver"]), default=None),
+           "finite_f32_at": finite, "min_diag_L64": float(torch.linalg.cholesky(A.double()).diagonal(
+               dim1=-2, dim2=-1).min()),
+           "col_rel_err_vs_f64": errs, "plain_f32": plain,
+           "library_f32": ill_errors(A, *ill_plain(case, A, library=True), block) if finite[jitter]["cusolver"]
+           else None,
+           "twin_f32_cpu": ILL_TWIN_F32[case], "bound": ILL_BOUNDS[case], **extra}
+    misses = [f"{metric} {err:.3e} > {ILL_BOUNDS[case][metric]:.3e}" for metric, err in errs.items()
+              if not err <= ILL_BOUNDS[case][metric]]
+    if not errs["V_own"] <= ILL_PLAIN_FACTOR * plain["V_own"]:
+        misses.append(f"V_own {errs['V_own']:.3e} > {ILL_PLAIN_FACTOR} x plain {plain['V_own']:.3e}")
+    if not finite[jitter]["cusolver"]:
+        misses.append(f"cuSOLVER's f32 factor is not finite at jitter {jitter}")
+    if not extra.get("same_bits_as_k2", True):
+        misses.append("K7's L^-1 differs from K2's on the same tiles")
+    return {**out, "misses": misses}
+
+
+def phase_ill(dev) -> None:
+    """K5 on ill-conditioned tiles against f64 (its bound K5_ILL_RTOL);
+    then every case of ILL_CASES (ill_case): K2, K7's two blocked classes,
+    K1 and the stepwise driver, held to ILL_BOUNDS and, on the inverse of
+    their own factor, to ILL_PLAIN_FACTOR times the plain version.  Every
+    case runs and prints before a miss raises."""
     tiles = ill_conditioned_tiles(16, dev)
     want = cb.tril_inv_tile_plain(tiles.double())
     errs = {split: col_rel_err(k5_split(tiles, split), want) for split in K5_SPLITS}
@@ -1109,9 +1276,14 @@ def phase_k5(dev) -> dict:
     bad = {split: err for split, err in errs.items() if not err <= K5_ILL_RTOL}
     if bad:
         raise AssertionError(f"K5 on ill-conditioned tiles disagrees with f64: {bad}")
-    emit({"phase": "gates", "gate": "K5 split (tril_inv_tile.cu)", "ms_by_split": times,
-          "fastest": {count: min(ms, key=ms.get) for count, ms in times.items()}})
-    return times
+    misses = {}
+    for case in ILL_CASES:
+        out = ill_case(case, dev)
+        emit(out)
+        if out["misses"]:
+            misses[case] = out["misses"]
+    if misses:
+        raise AssertionError(f"the tile body on ill-conditioned covariances misses its bounds: {misses}")
 
 
 def phase_slice(dev) -> tuple[dict, tuple]:
@@ -2597,14 +2769,14 @@ def phase_profile(slice_args32, train_args32, large_args32, bayes_logps, evaluat
 
 
 # The tile body's stages as tile_common.cuh's TileStage numbers them.
-TILE_STAGES = ("start", "load", "diagonal factor (warp 0)", "diagonal step", "diagonal inverse (warp 0)",
-               "panel", "panel write", "update", "last inverse rows", "store")
+TILE_STAGES = ("start", "load", "diagonal factor (warp 0)", "diagonal step", "solves against the diagonal block",
+               "update", "-", "store")
 
 
 # K5's stages under the same stamps (tril_inv_tile.cu), each with its block
 # row as the panel.
-K5_STAGES = ("start", "load, block row 0 in place", "-", "solve (warp 0)", "-", "products", "-",
-             "right-hand sides", "rest of the solves, last block row stored, next block row in place", "store")
+K5_STAGES = ("start", "load, block row 0 in place", "-", "solve (warp 0)", "products", "right-hand sides",
+             "rest of the solves, last block row stored, next block row in place", "store")
 
 
 def stage_cycles(stamped, read_stamps, labels, launches: int) -> dict:
@@ -6018,7 +6190,7 @@ def phase_graft(dev, reports: list | None = None) -> dict:
 # (in no whole run) K3 against K4 beyond the large path's size, "stamps" (in
 # no whole run) the tile body's stage cycles and K4's chain step, "coldstart"
 # (in no whole run) the first laplace_fit of a process taken apart.
-PARTIAL_PHASES = {"kernels": phase_kernels, "k5": phase_k5, "k7": phase_k7, "gate": phase_gate,
+PARTIAL_PHASES = {"kernels": phase_kernels, "k5": phase_k5, "ill": phase_ill, "k7": phase_k7, "gate": phase_gate,
                   "slice": _partial_slice, "serve": phase_serve_cache, "classify": phase_classify,
                   "sparse": phase_sparse, "surface": phase_surface, "pathwise": phase_pathwise, "bo": phase_bo,
                   "search": phase_search, "iterative": phase_iterative, "toeplitz": phase_toeplitz,
@@ -6073,6 +6245,7 @@ def main() -> int:
     kernels = measured("kernels", phase_kernels, dev)
     kernels_launches = dict(cb.LAUNCHES)
     measured("k5", phase_k5, dev)
+    measured("ill", phase_ill, dev)
     serve_launches, slice_args32 = measured("slice", phase_slice, dev)
     measured("launches", phase_launches, serve_launches, slice_args32)
     train = measured("train", phase_train, dev)

@@ -9,14 +9,27 @@
 // rate, but a factorization is a chain of 128 dependent pivots, and every
 // step that feeds the next pivot ends in a barrier.  The whole problem stays
 // in one block's shared memory (the working tile, which becomes L, and V, in
-// rows of 132 floats, plus 36 KB of transposed copies and scratch), and the
-// body (chol_inv_tile_body in tile_common.cuh, which K1, K6 and K7 also run)
-// keeps only the four 32 x 32 diagonal blocks and one panel and 32-column
-// update between them on the critical path: one warp factors and inverts a
-// diagonal block in registers (8 columns at a time, every lane factoring the
-// 8 x 8 piece itself) while the other warps finish the previous panel's update
-// beyond it and start that block row of V (look-ahead); every product is a
-// register tile read as float4 rows; four barriers per 32 columns.
+// rows of 132 floats, plus 31 KB of the panel's transpose, T and scratch),
+// and the body (chol_inv_tile_body in tile_common.cuh, which K1, K6 and K7
+// also run) keeps only the four 32 x 32 diagonal blocks and, between them,
+// one 32-row forward substitution and one 32-column update on the critical
+// path: one warp factors a diagonal block in registers (8 columns at a
+// time, every lane factoring the 8 x 8 piece itself) while the other warps
+// finish the previous panel's update beyond it and form the products T of
+// that block row of V (look-ahead); then four warps side by side solve the
+// panel's rows, the block row of V below the diagonal and the block's own
+// inverse against the diagonal block, as the twin's kernel eliminates
+// within its slab; three barriers per 32 columns.
+//
+// Substitution, not products with the diagonal block's inverse, is what
+// keeps ill-conditioned GP tiles finite: on 16 rbf tiles with jitter 1e-5
+// (chip_smoke's ill phase) the factor with the panel multiplied by
+// inv(L_pp)^T was NaN where cuSOLVER's was not; solved, the factor is
+// within 5.2e-2 of each column's scale of f64 (cuSOLVER 9.1e-2) and the
+// inverse of its own factor within 2.7e-5 (cuSOLVER's triangular solve
+// 2.7e-5).  One tile takes 0.0228 ms (0.0270 with the products; cuSOLVER's
+// factor and triangular solve about 0.128), on an NVIDIA H100 80GB HBM3 at
+// 700 W (chip_smoke's kernels phase).
 //
 // The tile is read and written through leading dimensions, so the blocked
 // driver factors the diagonal tile in place inside the n x n matrix and

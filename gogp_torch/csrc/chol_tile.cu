@@ -7,11 +7,13 @@
 //
 // What bounds it here: latency, as in K2 (chol_inv_tile.cu), whose body it
 // runs with the inverse left out (chol_inv_tile_body<B, false> in
-// tile_common.cuh): the 32 x 32 diagonal blocks factored and inverted by one
-// warp in registers while the other warps apply the previous panel's update
-// (look-ahead), the panel solves as products with those inverses, and the
-// rank-32 updates as register tiles, without the blocks of inv(L) below the
-// diagonal.  A non-positive pivot gives NaN, as on the TPU.
+// tile_common.cuh): the 32 x 32 diagonal blocks factored by one warp in
+// registers while the other warps apply the previous panel's update
+// (look-ahead), the panel's rows by forward substitution against the
+// diagonal block, and the rank-32 updates as register tiles, without any
+// block of inv(L): 0.0159 ms a tile on an NVIDIA H100 80GB HBM3 at 700 W
+// (0.0197 when it formed the diagonal blocks' inverses for its panels).
+// A non-positive pivot gives NaN, as on the TPU.
 #include <cuda_runtime.h>
 
 #include "tile_common.cuh"

@@ -26,8 +26,7 @@ constexpr unsigned kFullMask = 0xffffffffu;
 // gogp_chol_inv_tile_stamps copies K2's out.  The normal build records
 // nothing.
 enum TileStage {
-  kStampStart, kStampLoad, kStampChol, kStampDiag, kStampInvCols,
-  kStampPanel, kStampPanelWrite, kStampUpdate, kStampInverse, kStampStore,
+  kStampStart, kStampLoad, kStampChol, kStampDiag, kStampPanel, kStampUpdate, kStampInverse, kStampStore,
 };
 constexpr int kMaxStamps = 64;
 #ifdef GOGP_TILE_STAMPS
@@ -68,27 +67,42 @@ __device__ __forceinline__ float warp_sum(float v) {
 // the barriers between the steps that feed them.  So:
 //
 //   - the critical path is the four 32 x 32 diagonal blocks and, between
-//     them, one panel solve and one rank-32 update of the next 32 columns
-//     (look-ahead): while warp 0 factors diagonal block p, the warps on the
-//     other three schedulers apply panel p - 1's update to the columns beyond block p and form
-//     the product T of block row p of inv(L) (tile_inv_partial);
+//     them, one 32-row forward substitution and one rank-32 update of the
+//     next 32 columns (look-ahead): while warp 0 factors diagonal block p,
+//     the warps on the other three schedulers apply panel p - 1's update to
+//     the columns beyond block p and form the product T of block row p of
+//     inv(L) (tile_inv_partial);
 //   - a diagonal block is one warp with its rows in registers (tile_diag),
 //     8 columns at a time: every lane factors the 8 x 8 diagonal piece
-//     itself, so lanes meet twice per 8 pivots, not once per pivot; then
-//     lane j forms column j of the block's inverse by forward substitution,
-//     rows of L read as float4 broadcasts;
-//   - every product (the panel times the diagonal inverse, the rank-32
-//     updates, the blocks of inv(L) below the diagonal) is a register tile
-//     of 2 x 4 or 4 x 4 outputs a thread, its operands read as float4 rows
-//     from shared memory: rows of the tile (padded to B + 4 floats, so rows
-//     start 16-byte aligned) or of the transposed copies PT (the panel) and
-//     DT (the diagonal block's inverse), which the steps write for that;
-//   - blocks of inv(L) below the diagonal follow block row by block row,
-//     V_pq = -V_pp T_q with T_q = sum_{k<p} L_pk V_kq: T with the look-ahead
-//     above, the product with V_pp beside the next panel;
-//   - four block barriers per 32 columns; the tile moves between global and
+//     itself, so lanes meet twice per 8 pivots, not once per pivot;
+//   - everything that divides by L_pp is forward substitution against it,
+//     as the JAX twin's tile kernel eliminates within its rank-32 slabs and
+//     as K5 forms inv(L): a lane solves L_pp x = b for the 32 rows of one
+//     right-hand side (diag_solve_column, rows of L read as float4
+//     broadcasts), b a row of the panel below the block (x is L's row), a
+//     column of -T (x is a column of V_pq = -inv(L_pp) T_q, T_q = sum_{k<p}
+//     L_pk V_kq) or of the identity (x is a column of V_pp); a warp takes
+//     32 of them, and the (at most B/32) warps of a block column run side
+//     by side, one to each scheduler.  An earlier body multiplied by the
+//     explicit inverse instead (the panel by V_pp^T, V_pq = -V_pp T_q): on
+//     rbf tiles with jitter 1e-5 it gave factors off by up to 5e10 of a
+//     column's scale, or NaN, where cuSOLVER's f32 factor and the twin's
+//     were finite;
+//   - the products (the rank-32 updates, T) are register tiles of 2 x 4 or
+//     4 x 4 outputs a thread, their operands read as float4 rows from shared
+//     memory: rows of the tile (padded to B + 4 floats, so rows start
+//     16-byte aligned) or of the panel's transpose PT, which the panel's
+//     solves write for that;
+//   - three block barriers per 32 columns; the tile moves between global and
 //     shared memory as float4 where the leading dimension allows, every load
-//     in flight at once.
+//     in flight at once;
+//   - one call site for every substitution (tile_solve): with a copy of it
+//     inlined for each kind of right-hand side, K2 alone was as fast, but K1
+//     and the stepwise driver, where the body runs between other work, lost
+//     3-8%, and K2 used 126 registers (110 now).
+// On an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke's kernels phase), K2
+// takes 0.0228 ms a tile, K1 0.565 ms at n = 1536 and 1.744 at 4096 (0.027,
+// 0.586 and 1.78 with the products by inverses).
 // ---------------------------------------------------------------------------
 
 // The block size the tile body is written for.
@@ -99,7 +113,6 @@ constexpr int kTileThreads = 512;
 // never a column, so the padding only aligns rows to 16 bytes.
 template <int B>
 constexpr int kTileLd = B + 4;  // M (becomes L), V = inv(L), PT (32 x B)
-constexpr int kDiagLd = 36;     // DT, the diagonal block's inverse transposed (32 x 32)
 template <int B>
 constexpr int kTLd = B - 32 + 4;  // T (32 x (B - 32)), the partial products of inv(L)'s block rows
 
@@ -109,9 +122,7 @@ constexpr int kTileV = B * kTileLd<B>;
 template <int B>
 constexpr int kTilePT = 2 * B * kTileLd<B>;
 template <int B>
-constexpr int kTileDT = kTilePT<B> + 32 * kTileLd<B>;
-template <int B>
-constexpr int kTileT = kTileDT<B> + 32 * kDiagLd;
+constexpr int kTileT = kTilePT<B> + 32 * kTileLd<B>;
 template <int B>
 constexpr int kTileDinv = kTileT<B> + 32 * kTLd<B>;  // 1 / diag(L), B floats
 template <int B>
@@ -247,10 +258,8 @@ __device__ __forceinline__ void diag_solve_column(const float* M, const float* d
 // after it.  Entries above the diagonal are never read, and the ones this
 // leaves in the registers and in M are not L's.
 //
-// Inverse: lane j forms column j of inv(L_cc) (diag_solve_column).  It
-// writes L's rows into M, the column into V (kInverse) and into DT as row j,
-// and 1 / L[i][i] into dinv.
-template <int B, bool kInverse>
+// It writes L's rows into M and 1 / L[i][i] into dinv.
+template <int B>
 __device__ __forceinline__ void tile_diag(float* smem, int p) {
   constexpr int ld = kTileLd<B>;
   const int lane = threadIdx.x & 31, c = 32 * p;
@@ -337,22 +346,9 @@ __device__ __forceinline__ void tile_diag(float* smem, int p) {
   for (int q = 0; q < 8; ++q) st4(row + 4 * q, make_float4(a[4 * q], a[4 * q + 1], a[4 * q + 2], a[4 * q + 3]));
   smem[kTileDinv<B> + c + lane] = rs_own;
   GOGP_STAMP(kStampChol, p);
-  __syncwarp();
-
-  float x[32];
-  diag_solve_column<ld>(smem, smem + kTileDinv<B>, c, x);
-  float* dt = smem + kTileDT<B> + lane * kDiagLd;
-#pragma unroll
-  for (int q = 0; q < 8; ++q) st4(dt + 4 * q, make_float4(x[4 * q], x[4 * q + 1], x[4 * q + 2], x[4 * q + 3]));
-  if (kInverse) {
-    float* v = smem + kTileV<B> + c * ld + c + lane;
-#pragma unroll
-    for (int i = 0; i < 32; ++i) v[i * ld] = x[i];
-  }
-  GOGP_STAMP(kStampInvCols, p);
 }
 
-// Unit u of T = L[c:c+32, :c] V[:c, :c] (block row p of inv(L) before V_pp),
+// Unit u of T = L[c:c+32, :c] V[:c, :c] (block row p of inv(L) is -inv(L_pp) T),
 // 2 x 4 outputs: rows r0 = 2 (u / (c/4)), columns j0 = 4 (u % (c/4)).  V is
 // zero above its diagonal, so the sum starts at k = j0.
 template <int B>
@@ -366,17 +362,52 @@ __device__ __forceinline__ void tile_inv_partial(float* smem, int c, int u) {
   st4(t + kTLd<B>, make_float4(acc[1][0], acc[1][1], acc[1][2], acc[1][3]));
 }
 
-// Unit u of V[c:c+32, :c] = -V_pp T, the same 2 x 4 units.  V_pp is zero
-// above its diagonal, so row r sums s <= r.
-template <int B>
-__device__ __forceinline__ void tile_inv_finish(float* smem, int c, int u) {
+// Solve `job` of block column p (c = 32 p), by one warp: lane l solves
+// L_pp x = b by forward substitution against L_pp (diag_solve_column), L_pp
+// and 1 / diag(L) from tile_diag.  The jobs, in this order:
+//   - the panel below block p, 32 rows a job: b is row r of the panel, and x,
+//     that row of L, goes into M and, transposed, into PT;
+//   - with kInverse, block row p of V below the diagonal, 32 columns a job:
+//     b is column j of -T (tile_inv_partial), x column j of V_pq = -inv(L_pp)
+//     T_q;
+//   - with kInverse, V_pp itself: b is column l of the identity.
+// One call site for every kind keeps one copy of the substitution's code.
+template <int B, bool kInverse>
+__device__ __forceinline__ void tile_solve(float* smem, int p, int job) {
   constexpr int ld = kTileLd<B>;
-  const int r0 = 2 * (u / (c / 4)), j0 = 4 * (u % (c / 4));
-  float acc[2][4] = {};
-  float* v = smem + kTileV<B> + (c + r0) * ld;
-  mma_rows<2>(acc, v + c, ld, smem + kTileT<B> + j0, kTLd<B>, 0, (r0 + 2 + 3) & ~3);
-  st4(v + j0, make_float4(-acc[0][0], -acc[0][1], -acc[0][2], -acc[0][3]));
-  st4(v + ld + j0, make_float4(-acc[1][0], -acc[1][1], -acc[1][2], -acc[1][3]));
+  const int lane = threadIdx.x & 31, c = 32 * p, panel_jobs = (B - c - 32) / 32;
+  float x[32];
+  float* row = smem + (c + 32 + 32 * job + lane) * ld + c;  // the panel's row, for a panel job
+  if (job < panel_jobs) {
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const float4 v = ld4(row + 4 * q);
+      x[4 * q] = v.x;
+      x[4 * q + 1] = v.y;
+      x[4 * q + 2] = v.z;
+      x[4 * q + 3] = v.w;
+    }
+  } else if (job < panel_jobs + p) {
+    const float* t = smem + kTileT<B> + 32 * (job - panel_jobs) + lane;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) x[i] = -t[i * kTLd<B>];
+  } else {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) x[i] = i == lane ? 1.0f : 0.0f;
+  }
+  diag_solve_column<ld, false>(smem, smem + kTileDinv<B>, c, x);
+  if (job < panel_jobs) {
+#pragma unroll
+    for (int q = 0; q < 8; ++q) st4(row + 4 * q, make_float4(x[4 * q], x[4 * q + 1], x[4 * q + 2], x[4 * q + 3]));
+    float* pt = smem + kTilePT<B> + c + 32 + 32 * job + lane;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) pt[i * ld] = x[i];
+  } else if (kInverse) {
+    const int col = job < panel_jobs + p ? 32 * (job - panel_jobs) : c;
+    float* v = smem + kTileV<B> + c * ld + col + lane;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) v[i * ld] = x[i];
+  }
 }
 
 // The factorization at the heart of K2, on a tile that already lies in shared
@@ -385,21 +416,21 @@ __device__ __forceinline__ void tile_inv_finish(float* smem, int c, int u) {
 // smem + kTileV<B>) gets inv(L), lower triangle, and dinv (at smem +
 // kTileDinv<B>) 1 / diag(L).  One block of kTileThreads threads with
 // kTileSmemFloats<B> floats at smem; the caller synchronises the block after
-// filling M, and this function ends with a barrier.  With kInverse false only
-// the diagonal blocks' inverses, which the panels need, are formed (in DT).
-// A non-positive or NaN pivot gives NaN; it never returns early.
+// filling M, and this function ends with a barrier.  With kInverse false
+// only L and dinv are formed.  A non-positive or NaN pivot gives NaN; it
+// never returns early.
 //
-// Per 32-wide block column p (c = 32 p), four barriers:
-//   A. warp 0 factors and inverts diagonal block p (tile_diag); the 12
-//      warps on the other three schedulers apply panel p - 1's update to the
-//      columns right of block p, then form T for block row p of V (warps 4,
-//      8 and 12 wait: on warp 0's scheduler they slowed it by half);
-//   B. the panel below block p becomes A_panel inv(L_pp)^T (2 x 4 a thread,
-//      in registers) and block row p of V is finished (-V_pp T);
-//   C. the panel is written to M and, transposed, to PT;
+// Per 32-wide block column p (c = 32 p), three barriers:
+//   A. warp 0 factors diagonal block p (tile_diag); the 12 warps on the
+//      other three schedulers apply panel p - 1's update to the columns
+//      right of block p, then form T for block row p of V (warps 4, 8 and
+//      12 wait: on warp 0's scheduler they slowed it by half);
+//   B. the solves against L_pp (tile_solve), one a warp, side by side on
+//      warps 0 .. B/32 - 1, one to each scheduler: the panel's rows, block
+//      row p of V below the diagonal and V_pp;
 //   D. the update of the next 32 columns (4 x 4 a thread), which diagonal
 //      block p + 1 and panel p + 1 need.
-// After the last block column, block row B/32 - 1 of V is finished.
+// The last block column has no panel and no step D.
 template <int B, bool kInverse = true>
 __device__ __forceinline__ void chol_inv_tile_factor(float* smem) {
   constexpr int ld = kTileLd<B>, NP = B / 32;
@@ -410,7 +441,7 @@ __device__ __forceinline__ void chol_inv_tile_factor(float* smem) {
   for (int p = 0; p < NP; ++p) {
     const int c = 32 * p;
     if (warp == 0) {
-      tile_diag<B, kInverse>(smem, p);
+      tile_diag<B>(smem, p);
     } else if (warp % 4 != 0) {
       // The warps that share no scheduler with warp 0 (warps go to an SM's
       // four schedulers by warp % 4): 12 warps, 384 threads.
@@ -426,39 +457,19 @@ __device__ __forceinline__ void chol_inv_tile_factor(float* smem) {
     }
     __syncthreads();
     GOGP_STAMP(kStampDiag, p);
+
+    const int jobs = (B - c - 32) / 32 + (kInverse ? p + 1 : 0);
+    if (jobs == 0) break;  // K6's last block column
+    if (warp < jobs) tile_solve<B, kInverse>(smem, p, warp);
+    __syncthreads();
+    GOGP_STAMP(kStampPanel, p);
     if (p == NP - 1) break;
 
-    const int panel_units = (B - c - 32) / 2 * 8;  // 2 x 4 outputs each
-    const int r0 = c + 32 + 2 * (tid >> 3), j0 = 4 * (tid & 7);
-    float acc[2][4] = {};
-    if (tid < panel_units) {
-      mma_rows<2>(acc, M + r0 * ld + c, ld, smem + kTileDT<B> + j0, kDiagLd, 0, 32);
-    } else if (kInverse && p > 0 && tid - panel_units < 4 * c) {
-      tile_inv_finish<B>(smem, c, tid - panel_units);
-    }
-    __syncthreads();  // the panel is read in full before it is overwritten
-    GOGP_STAMP(kStampPanel, p);
-    if (tid < panel_units) {
-#pragma unroll
-      for (int a = 0; a < 2; ++a) {
-        st4(M + (r0 + a) * ld + c + j0, make_float4(acc[a][0], acc[a][1], acc[a][2], acc[a][3]));
-#pragma unroll
-        for (int b = 0; b < 4; ++b) PT[(j0 + b) * ld + r0 + a] = acc[a][b];
-      }
-    }
-    __syncthreads();
-    GOGP_STAMP(kStampPanelWrite, p);
     if (tid < (B - c - 32) / 4 * 8 && (tid >> 3) >= (tid & 7))
       tile_update(M, PT, ld, c + 32 + 4 * (tid >> 3), c + 32 + 4 * (tid & 7));
     __syncthreads();
     GOGP_STAMP(kStampUpdate, p);
   }
-  if (kInverse && NP > 1) {
-    constexpr int c = B - 32;
-    if (tid < 4 * c) tile_inv_finish<B>(smem, c, tid);
-    __syncthreads();
-  }
-  GOGP_STAMP(kStampInverse, NP - 1);
 }
 
 // One B x B SPD tile's Cholesky factor L and its inverse V = inv(L), by one

@@ -107,6 +107,24 @@ def test_tile_body_across_conditioning(cuda, cond):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", ["k2", "k7_96", "k7_128", "k1_1536", "k1_4096"])
+def test_tile_body_on_ill_conditioned_gp_covariances(cuda, case):
+    """The ill phase's cases (chip_smoke.ill_case): K2, K7's blocked
+    classes and K1 on rbf covariances with small jitter, column by column
+    against f64, within chip_smoke.ILL_BOUNDS (10 times the JAX twin's f32
+    errors) and, on the inverse of the kernel's own factor, within 3 times
+    the plain f32 version's; K7's L^-1 has the bits of K2's."""
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    out = chip_smoke.ill_case(case, cuda)
+    assert out["misses"] == [], out
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("ld", [200, 131])
 def test_tile_body_in_place_inside_a_larger_matrix(cuda, ld):
     """K2 as the stepwise driver calls it: the tile a view into a larger
