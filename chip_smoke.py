@@ -395,13 +395,30 @@ process per source) and then runs these phases, each printing JSON lines:
 With ``--phases a,b,...`` (of kernels, k5, ill, k7, gate, stamps, coldstart,
 slice, train, large, serve, classify, sparse, surface, pathwise, bo,
 search, iterative, toeplitz, ski, large_n_bayes, large_n_bayes_exact, utils, bayes, samplers, evaluate,
-parallel, graft; k7 is the
+parallel, graft, multicard; k7 is the
 bayes phase's kernel checks without its sampler runs, gate times K3 against
 K4 at n = 24576 to 65536, stamps records the stages of K2, K5 and K4's chain
-step and coldstart takes apart a process's first laplace_fit, the last three
-in no whole run) only those phases
+step, coldstart takes apart a process's first laplace_fit and multicard
+runs the multi-device layer on four cards, the last four in no whole run)
+only those phases
 run, after device and build, and the script ends with ``{"ok": false,
 "partial": [...]}`` and exit code 2: for work on one kernel, never a pass.
+
+``--phases multicard`` needs four cards (it exits before any result with
+fewer): the nvidia-smi topology; four spawned ranks, rank r on cuda:r in an
+NCCL world made by init_multihost (which binds each rank's card), beside
+them first the graft entry under ``torchrun --standalone --nproc_per_node
+4`` (exit 0 and "dryrun_multichip ok on 4 devices"); then on the ranks the
+parallel phase's world-1 cases with the n = 16384 rows over the four cards
+(PAR_BOUNDS, K2 n / 128 launches a factorization on each rank), its
+four-rank cases and the graft entry's dryrun_multichip(4), each against
+rank 0 alone (the ranks_* bounds and GRAFT_RANK_BOUNDS, K2, K7, K1 and K5
+launches per rank), the parallel paths' kernels against their plain
+versions on each rank's own card, and the figures beside one card's: ms
+per row-sharded value and gradient, per ChEES transition, the LML at n =
+4096, the dry run, and one all_reduce of 256 MiB in bus GB/s.  Each rank
+prints its card's index, name and power limit, its backend and world
+size.
 
 With ``--profile``, one more phase follows:
 
@@ -425,10 +442,12 @@ import io
 import json
 import math
 import multiprocessing
+import os
 import pathlib
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import unittest.mock
@@ -5526,41 +5545,81 @@ def parallel_world1(dev, n: int = N_LARGE, smc: dict | None = None) -> dict:
     """(a): the row-sharded exact GP on a real process group of one rank
     (NCCL on the card), measured and held against the single-card path."""
     import torch.distributed as dist
-    from gogp_torch.ops import distributed as dops
-    from gogp_torch.parallel import large_n, mesh as pmesh
+    from gogp_torch.parallel import mesh as pmesh
 
     pmesh.init_multihost(f"127.0.0.1:{_free_port()}", 1, 0, backend="nccl" if dev.type == "cuda" else "gloo")
     try:
         mesh = pmesh.make_mesh(1, 1)
         emit({"phase": "parallel", "run": "world1", **pmesh.describe(mesh)})
-        return _parallel_world1(dev, mesh, n, smc or PAR_SMC, dops, large_n, pmesh)
+        rep = rows_case(dev, mesh, n, smc)
     finally:
         dist.destroy_process_group()
+    emit({"phase": "parallel", "run": "world1", **{k: rep[k] for k in ROWS_KEYS}})
+    if rep["failures"]:
+        raise AssertionError(f"parallel (world 1): {rep['failures']}")
+    return {"launches": rep["launches_total"], "ms": rep["ms"], "errors": rep["errors"]}
 
 
-def _parallel_world1(dev, mesh, n, smc, dops, large_n, pmesh) -> dict:
+# What a rows case's report prints.
+ROWS_KEYS = ("n", "block", "ms", "errors", "launches", "smc_large_n")
+
+
+def _rel_sharded(mesh, got: torch.Tensor, want: torch.Tensor) -> float:
+    """:func:`_rel` over the data axis of ``mesh``: each rank's rows of
+    ``got`` against its rows of ``want``, the largest difference over every
+    rank's rows relative to the largest entry of every rank's ``want``.
+    Every rank of the axis calls it; a non-finite ``got`` gives NaN, which
+    misses any bound, on every rank alike."""
+    from gogp_torch.parallel import mesh as pmesh
+
+    got, want = got.double(), want.double()
+    diff = torch.where(torch.isfinite(got).all(), (got - want).abs().max(), torch.nan)
+    both = mesh.all_gather(torch.stack([diff, want.abs().max()])[None], pmesh.DATA_AXIS)
+    return float(both[:, 0].max() / both[:, 1].max().clamp_min(1e-30))
+
+
+def rows_case(dev, mesh, n: int = N_LARGE, smc: dict | None = None, dtype: torch.dtype = torch.float32,
+              block: int = PAR_BLOCK, one=None, keep: bool = False) -> dict:
+    """(a): the large path's problem at n points with its rows over
+    ``mesh``, a (1, D) data mesh of the world (every rank of the world
+    calls this): the row-sharded Cholesky and both solves against
+    cuSOLVER's factor and cholesky_solve on each rank's card, PAR_VG_CALLS
+    row-sharded values and gradients, the row-sharded iterative form at
+    each of PAR_PRECOND_RANKS, and run_smc_large_n cut to ``smc``.  World
+    rank 0 also holds the value and gradient against the single-card
+    gp_observe and the f64 plain path, and the iterative form against the
+    dense one on the same probes; with ``one`` (a 1x1 mesh of rank 0) it
+    also times the same row-sharded value and gradient alone.  Returns the
+    rank's report, its misses under "failures" (the errors on rank 0, each
+    rank's K2 launches); with ``keep``, also its rows of the factor and of
+    alpha, and the value and gradient ("out")."""
+    import torch.distributed as dist
+    from gogp_torch.ops import distributed as dops
+    from gogp_torch.parallel import large_n, mesh as pmesh
+
     data = pmesh.DATA_AXIS
-    args32 = large_problem(n, torch.float32, dev)
-    args64 = large_problem(n, torch.float64, dev)
-    gp, x, y, v0, _ = args32
+    smc = smc or PAR_SMC
+    lead = dist.get_rank() == 0
+    gp, x, y, v0, _ = large_problem(n, dtype, dev)
     theta = torch.exp(v0)
-    ts, tn = theta[: gp.n_theta_simil], theta[gp.n_theta_simil:]
-    K = core.masked_cov(gp, ts, tn, x, None)
-    nb = n // PAR_BLOCK
+    K = core.masked_cov(gp, theta[: gp.n_theta_simil], theta[gp.n_theta_simil:], x, None)
+    sh = pmesh.data_sharding(mesh)
+    K_local, x_local, y_local = sh.slab(K), sh.slab(x), sh.slab(y)
+    nb = n // block
     out, errors, ms, launches = {}, {}, {}, {}
 
     # the main path: counts set to 0 just before, read just after
     cb.reset_launch_counts()
     with mesh:
-        L, ms["cholesky_first"] = _timed(dev, lambda: dops.cholesky_rowsharded(K, data, PAR_BLOCK))
+        L, ms["cholesky_first"] = _timed(dev, lambda: dops.cholesky_rowsharded(K_local, data, block))
         launches["cholesky"] = dict(cb.LAUNCHES)
-        z, ms["solve_lower_first"] = _timed(dev, lambda: dops.solve_lower_rowsharded(L, y, data, PAR_BLOCK))
-        alpha, ms["solve_upper_first"] = _timed(dev, lambda: dops.solve_upper_rowsharded(L, z, data, PAR_BLOCK))
+        z, ms["solve_lower_first"] = _timed(dev, lambda: dops.solve_lower_rowsharded(L, y_local, data, block))
+        alpha, ms["solve_upper_first"] = _timed(dev, lambda: dops.solve_upper_rowsharded(L, z, data, block))
         # warm: the first calls above include the group's and the kernels' set-up
-        L, ms["cholesky"] = _timed(dev, lambda: dops.cholesky_rowsharded(K, data, PAR_BLOCK))
-        z, ms["solve_lower"] = _timed(dev, lambda: dops.solve_lower_rowsharded(L, y, data, PAR_BLOCK))
-        alpha, ms["solve_upper"] = _timed(dev, lambda: dops.solve_upper_rowsharded(L, z, data, PAR_BLOCK))
-    logp = large_n.make_rowsharded_logp(gp, x, x, y, torch.ones_like(y), data, PAR_BLOCK)
+        L, ms["cholesky"] = _timed(dev, lambda: dops.cholesky_rowsharded(K_local, data, block))
+        z, ms["solve_lower"] = _timed(dev, lambda: dops.solve_lower_rowsharded(L, y_local, data, block))
+        alpha, ms["solve_upper"] = _timed(dev, lambda: dops.solve_upper_rowsharded(L, z, data, block))
+    logp = large_n.make_rowsharded_logp(gp, x_local, x, y_local, torch.ones_like(y_local), data, block)
     vg = large_n.make_rowsharded_value_and_grad(logp, data)
     cb.reset_launch_counts()
     vg_ms = []
@@ -5572,22 +5631,35 @@ def _parallel_world1(dev, mesh, n, smc, dops, large_n, pmesh) -> dict:
     ms["value_and_grad"] = vg_ms
 
     L_ref, ms["cusolver_cholesky"] = _timed(dev, lambda: torch.linalg.cholesky(K))
-    errors["chol_rel"] = _rel(L, L_ref)
-    errors["solve_rel"] = _rel(alpha, torch.cholesky_solve(y[:, None], L_ref)[:, 0])
+    errors["chol_rel"] = _rel_sharded(mesh, L, sh.slab(L_ref))
+    errors["solve_rel"] = _rel_sharded(mesh, alpha, sh.slab(torch.cholesky_solve(y[:, None], L_ref)[:, 0]))
+    if keep:
+        out = {"L": L, "alpha": alpha, "value": value, "grad": grad}
     del L, L_ref, z, alpha
-    (v32, g32), ms["single_card_value_and_grad"] = _timed(dev, lambda: value_and_grad_step(*args32))
-    with linalg.force_plain():
-        v64, g64 = value_and_grad_step(*args64)
-    errors["value_rel"] = abs(float(value) - float(v64)) / abs(float(v64))
-    errors["grad_rel"] = _rel(grad, g64)
-    errors["value_rel_single_card_f32"] = abs(float(v32) - float(v64)) / abs(float(v64))
-    errors["grad_rel_single_card_f32"] = _rel(g32, g64)
+    v64 = None
+    if lead:
+        if mesh.size > 1 and one is not None:
+            # the same row-sharded work on rank 0 alone
+            vg1 = large_n.make_rowsharded_value_and_grad(
+                large_n.make_rowsharded_logp(gp, x, x, y, torch.ones_like(y), data, block), data)
+            with one:
+                ms["value_and_grad_one_rank"] = [_timed(dev, lambda: vg1(v0))[1] for _ in range(PAR_VG_CALLS)]
+        (v32, g32), ms["single_card_value_and_grad"] = _timed(dev, lambda: value_and_grad_step(
+            *large_problem(n, dtype, dev)))
+        with linalg.force_plain():
+            v64, g64 = value_and_grad_step(*large_problem(n, torch.float64, dev))
+        errors["value_rel"] = abs(float(value) - float(v64)) / abs(float(v64))
+        errors["grad_rel"] = _rel(grad, g64)
+        errors["value_rel_single_card_f32"] = abs(float(v32) - float(v64)) / abs(float(v64))
+        errors["grad_rel_single_card_f32"] = _rel(g32, g64)
+    dist.barrier()
 
     # the row-sharded iterative form against the dense one, same probes
     for rank in PAR_PRECOND_RANKS:
         def rows_vg(rank=rank):
-            lp = large_n.make_rowsharded_logp(gp, x, x, y, torch.ones_like(y), data, PAR_BLOCK, method="iterative",
-                                              draws=seeded_draws(dev, PAR_ITER_SEED), precond_rank=rank)
+            lp = large_n.make_rowsharded_logp(gp, x_local, x, y_local, torch.ones_like(y_local), data, block,
+                                              method="iterative", draws=seeded_draws(dev, PAR_ITER_SEED),
+                                              precond_rank=rank)
             with mesh:
                 return large_n.make_rowsharded_value_and_grad(lp, data)(v0)
 
@@ -5601,11 +5673,13 @@ def _parallel_world1(dev, mesh, n, smc, dops, large_n, pmesh) -> dict:
 
         rows_vg()  # warm
         (vi, gi), ms[f"iterative_rank{rank}"] = _timed(dev, rows_vg)
-        (vd, gd), ms[f"dense_iterative_rank{rank}"] = _timed(dev, dense_vg)
-        errors[f"iter_value_rel_rank{rank}"] = abs(float(vi) - float(vd)) / abs(float(vd))
-        errors[f"iter_grad_rel_rank{rank}"] = _rel(gi, gd)
-        errors[f"iter_value_rel_exact_rank{rank}"] = abs(float(vi) - float(v64)) / abs(float(v64))
-    del K
+        if lead:
+            (vd, gd), ms[f"dense_iterative_rank{rank}"] = _timed(dev, dense_vg)
+            errors[f"iter_value_rel_rank{rank}"] = abs(float(vi) - float(vd)) / abs(float(vd))
+            errors[f"iter_grad_rel_rank{rank}"] = _rel(gi, gd)
+            errors[f"iter_value_rel_exact_rank{rank}"] = abs(float(vi) - float(v64)) / abs(float(v64))
+        dist.barrier()
+    del K, K_local
 
     # BASELINE.json's fifth configuration: SMC over the hyperparameters on
     # the row-sharded covariance, cut in depth
@@ -5615,24 +5689,20 @@ def _parallel_world1(dev, mesh, n, smc, dops, large_n, pmesh) -> dict:
     cb.reset_launch_counts()
     with patch:
         res, ms["smc_large_n"] = _timed(dev, lambda: large_n.run_smc_large_n(
-            gp, x, y, torch.Generator(device=dev).manual_seed(0), mesh, block=PAR_BLOCK, **smc))
+            gp, x, y, torch.Generator(device=dev).manual_seed(0), mesh, block=block, **smc))
     launches["smc_large_n"] = dict(cb.LAUNCHES)
     smc_out = {"particles": res.particles.tolist(), "log_evidence": float(res.log_evidence),
                "accept_rate": float(res.accept_rate), "num_stages": res.num_stages,
                "betas_hit_one": res.betas_hit_one, "factorizations": calls[0],
                "peak_gib": torch.cuda.max_memory_allocated() / 2**30 if dev.type == "cuda" else None,
                "cuts": smc}
-    emit({"phase": "parallel", "run": "world1", "n": n, "block": PAR_BLOCK, "ms": ms, "errors": errors,
-          "launches": launches, "smc_large_n": smc_out})
 
-    failures = []
-    for name in ("chol_rel", "solve_rel", "value_rel", "grad_rel"):
-        if PAR_BOUNDS[name] is not None and not errors[name] <= PAR_BOUNDS[name]:
-            failures.append(f"{name} {errors[name]:.3e} > {PAR_BOUNDS[name]}")
-    for rank in PAR_PRECOND_RANKS:
-        for name in ("iter_value_rel", "iter_grad_rel"):
-            if PAR_BOUNDS[name] is not None and not errors[f"{name}_rank{rank}"] <= PAR_BOUNDS[name]:
-                failures.append(f"{name}_rank{rank} {errors[f'{name}_rank{rank}']:.3e} > {PAR_BOUNDS[name]}")
+    held = [name for name in ("chol_rel", "solve_rel", "value_rel", "grad_rel") if name in errors]
+    held += [f"{name}_rank{rank}" for rank in PAR_PRECOND_RANKS for name in ("iter_value_rel", "iter_grad_rel")
+             if f"{name}_rank{rank}" in errors]
+    bounds = {name: PAR_BOUNDS[name.split("_rank")[0]] for name in held}
+    failures = [f"{name} {errors[name]:.3e} > {b}" for name, b in bounds.items()
+                if b is not None and not errors[name] <= b]
     k2 = "chol_inv_tile"
     if dev.type == "cuda":
         if launches["cholesky"][k2] != nb:
@@ -5645,19 +5715,20 @@ def _parallel_world1(dev, mesh, n, smc, dops, large_n, pmesh) -> dict:
     if not (torch.isfinite(res.particles).all() and math.isfinite(float(res.log_evidence))
             and 0.0 <= float(res.accept_rate) <= 1.0 and res.num_stages >= 1):
         failures.append("run_smc_large_n: non-finite particles or log evidence, or no stage")
-    if failures:
-        raise AssertionError(f"parallel (world 1): {failures}")
-    return {"launches": {k2: launches["value_and_grad"][k2] + launches["smc_large_n"][k2]
-                         + launches["cholesky"][k2]}, "ms": ms, "errors": errors}
+    return {"n": n, "block": block, "ms": ms, "errors": errors, "launches": launches, "smc_large_n": smc_out,
+            "failures": failures, "out": out,
+            "launches_total": {k2: launches["value_and_grad"][k2] + launches["smc_large_n"][k2]
+                               + launches["cholesky"][k2]}}
 
 
 def _rank_probe(dev) -> dict:
-    """Asserts that gloo takes CUDA tensors for all_reduce, broadcast and
+    """Asserts that the world's backend (gloo on one shared card, NCCL on a
+    card a rank) takes CUDA tensors for all_reduce, broadcast and
     all_gather, each tried once on a tiny tensor: the phase fails where it
     refuses one or gets it wrong (the mesh never stages through the host)."""
     import torch.distributed as dist
 
-    world, rank = dist.get_world_size(), dist.get_rank()
+    world, rank, backend = dist.get_world_size(), dist.get_rank(), dist.get_backend()
     t = torch.full((2,), float(rank + 1), device=dev)
     want = {"all_reduce": torch.full((2,), world * (world + 1) / 2.0), "broadcast": torch.ones(2),
             "all_gather": torch.arange(1, world + 1, dtype=torch.float32).repeat_interleave(2)}
@@ -5682,9 +5753,10 @@ def _rank_probe(dev) -> dict:
         try:
             got = fn()
         except RuntimeError as e:
-            raise AssertionError(f"gloo refused a CUDA {name}: {e}") from e
-        if not (got.is_cuda and torch.equal(got.cpu(), want[name])):
-            raise AssertionError(f"gloo's CUDA {name} gave {got.tolist()}, want {want[name].tolist()}")
+            raise AssertionError(f"{backend} refused a CUDA {name}: {e}") from e
+        if not (got.device == dev and torch.equal(got.cpu(), want[name])):
+            raise AssertionError(f"{backend}'s CUDA {name} gave {got.tolist()} on {got.device}, "
+                                 f"want {want[name].tolist()} on {dev}")
         ok[name] = True
     return ok
 
@@ -5729,13 +5801,14 @@ def _batch_witness(logp, logp64, V) -> dict:
     return out
 
 
-def parallel_rank(rank: int, world: int, port: int, queue, go, dev_type: str = "cuda",
+def parallel_rank(rank: int, world: int, port: int, queue, go, device: str, backend: str,
                   cases: tuple = PAR_CASES) -> None:
-    """(b), one spawned rank: once its group is up, waits for ``go``, then
-    runs each of ``cases`` on the 4-rank mesh and, on rank 0, on a 1x1 mesh
-    of the same world; puts its report on ``queue``."""
+    """(b), one spawned rank on ``device`` in a ``backend`` world: once its
+    group is up, waits for ``go``, then runs each of ``cases`` on the
+    4-rank mesh and, on rank 0, on a 1x1 mesh of the same world; puts its
+    report on ``queue``."""
     try:
-        queue.put(_parallel_rank(rank, world, port, go, dev_type, cases))
+        queue.put(_parallel_rank(rank, world, port, go, device, backend, cases))
     except BaseException as e:  # the parent reports it and fails the phase
         import traceback
 
@@ -5743,25 +5816,47 @@ def parallel_rank(rank: int, world: int, port: int, queue, go, dev_type: str = "
         raise
 
 
-def _parallel_rank(rank: int, world: int, port: int, go, dev_type: str, cases: tuple = PAR_CASES) -> dict:
+def _parallel_rank(rank: int, world: int, port: int, go, device: str, backend: str,
+                   cases: tuple = PAR_CASES) -> dict:
+    import torch.distributed as dist
+    from gogp_torch.parallel import mesh as pmesh
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        if backend != "nccl":  # gloo ranks share the card; an NCCL rank's init_multihost binds its own
+            torch.cuda.set_device(dev)
+    pmesh.init_multihost(f"127.0.0.1:{port}", world, rank, backend=backend)
+    if dev.type == "cuda" and torch.cuda.current_device() != dev.index:
+        raise AssertionError(f"rank {rank}: cuda:{torch.cuda.current_device()} is current after init_multihost, "
+                             f"not {dev}")
+    report = rank_cases(rank, world, dev, cases, go.wait)
+    dist.destroy_process_group()
+    return report
+
+
+def rank_cases(rank: int, world: int, dev, cases: tuple, ready=lambda: None, rows_kw: dict | None = None) -> dict:
+    """One rank's ``cases`` in an initialised world of ``world`` ranks on
+    ``dev``, started once ``ready()`` returns; ``rows_kw``: rows_case's
+    size, dtype and ``keep`` (default the large path's, f32)."""
     import torch.distributed as dist
     from gogp_torch.parallel import large_n, mesh as pmesh, sample, serving, smc_sharded
 
-    dev = torch.device(dev_type, 0) if dev_type == "cuda" else torch.device("cpu")
-    if dev.type == "cuda":
-        torch.cuda.set_device(0)
-        torch.backends.cuda.matmul.allow_tf32 = False
-    pmesh.init_multihost(f"127.0.0.1:{port}", world, rank, backend="gloo")
     cuda_ok = _rank_probe(dev) if dev.type == "cuda" else {}
     data4 = pmesh.make_mesh(1, world)
     chain4 = pmesh.make_mesh(world, 1)
     one = pmesh.make_mesh(1, 1, ranks=[0])
     report = {"rank": rank, "backend": {**pmesh.describe(chain4), "cuda_collectives": cuda_ok}, "ms": {},
-              "launches": {}, "diff": {}}
+              "launches": {}, "diff": {}, "card": card_info(dev) if dev.type == "cuda" else None}
     if "graft" in cases:
         host_warmup()
-    go.wait()
+    ready()
     f32 = torch.float32
+    if "rows" in cases:
+        # (a) with the rows over the world's ranks
+        rows = rows_case(dev, data4, one=one, **(rows_kw or {}))
+        report["rows"] = {k: v for k, v in rows.items() if k != "out" or v}
+        dist.barrier()
 
     def run(label, fn):
         """``fn(mesh, slabs)`` on the four ranks, then on rank 0 alone with
@@ -5826,6 +5921,10 @@ def _parallel_rank(rank: int, world: int, port: int, go, dev_type: str, cases: t
         if rank == 0:
             report["diff"]["ranks_chees_abs"] = float((pos4.double() - got1[0].double()).abs().max())
             report["chees_finite"] = bool(torch.isfinite(pos4).all())
+            if "figures" in cases:
+                # the same transitions with the 64 chains in one batch on one card
+                _, report["ms"]["chees_one_batch"] = _timed(dev, lambda: chees_run(one, 1))
+        dist.barrier()
 
         def smc_run(mesh, slabs):
             calls[0] = 0
@@ -5862,47 +5961,116 @@ def _parallel_rank(rank: int, world: int, port: int, go, dev_type: str, cases: t
     if "graft" in cases:
         # the graft entry's dry run on the four ranks, then on rank 0 alone
         report["graft"] = graft_rank(rank, world, dev, one)
-    dist.destroy_process_group()
+    if "kernels" in cases:
+        # the paths' kernels on this rank's card; their lines go back to the
+        # parent, which prints them
+        with contextlib.redirect_stdout(io.StringIO()) as lines:
+            report["kernel_rows"] = parallel_kernel_rows(dev)
+        report["kernel_lines"] = lines.getvalue().splitlines()
+        dist.barrier()
+    if "figures" in cases:
+        report["all_reduce"] = all_reduce_rate(dev)
     return report
 
 
-def start_parallel_ranks(dev, cases: tuple = PAR_CASES):
-    """(b)'s PAR_WORLD ranks, spawned: each imports, joins its gloo group on
-    one card and waits for the returned event."""
+def card_info(dev) -> dict:
+    """The rank's card: its CUDA index, torch's name for it, and
+    nvidia-smi's index, name and power limit of the same card (matched by
+    UUID)."""
+    uuid = str(torch.cuda.get_device_properties(dev).uuid)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=uuid,index,name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()
+    rows = [line.split(", ", 2) for line in smi]
+    mine = [r for r in rows if r[0] == f"GPU-{uuid}"]
+    if len(mine) != 1:
+        raise AssertionError(f"no nvidia-smi line for {dev} (uuid {uuid!r}): {smi}")
+    return {"cuda_index": dev.index, "smi_index": int(mine[0][1]), "name": torch.cuda.get_device_name(dev),
+            "nvidia_smi": mine[0][2]}
+
+
+ALL_REDUCE_MIB = 256
+ALL_REDUCE_REPS = 10
+
+
+def all_reduce_rate(dev) -> dict:
+    """One all_reduce of ALL_REDUCE_MIB of f32 over the world, its wall per
+    call over ALL_REDUCE_REPS calls after two warm ones; algorithm and bus
+    GB/s (bus = algorithm x 2 (R - 1) / R, the bytes each link carries in a
+    ring)."""
+    import torch.distributed as dist
+
+    world = dist.get_world_size()
+    t = torch.zeros(ALL_REDUCE_MIB * 2**20 // 4, dtype=torch.float32, device=dev)
+    for _ in range(2):
+        dist.all_reduce(t)
+    _sync(dev)
+    dist.barrier()
+    _, ms = _timed(dev, lambda: [dist.all_reduce(t) for _ in range(ALL_REDUCE_REPS)])
+    s = ms / ALL_REDUCE_REPS / 1e3
+    alg = t.numel() * 4 / s / 1e9
+    return {"mib": ALL_REDUCE_MIB, "world": world, "ms": ms / ALL_REDUCE_REPS, "algbw_gb_s": alg,
+            "busbw_gb_s": alg * 2 * (world - 1) / world}
+
+
+def start_parallel_ranks(dev, cases: tuple = PAR_CASES, backend: str = "gloo"):
+    """PAR_WORLD ranks, spawned: each imports, joins its group and waits
+    for the returned event.  Over gloo every rank takes ``dev`` (one shared
+    card, or the CPU); over NCCL rank r takes cuda:r."""
     ctx = multiprocessing.get_context("spawn")
     queue, go = ctx.Queue(), ctx.Event()
     port = _free_port()
-    procs = [ctx.Process(target=parallel_rank, args=(r, PAR_WORLD, port, queue, go, dev.type, cases))
+    devices = [f"cuda:{r}" if backend == "nccl" else str(dev) for r in range(PAR_WORLD)]
+    procs = [ctx.Process(target=parallel_rank, args=(r, PAR_WORLD, port, queue, go, devices[r], backend, cases))
              for r in range(PAR_WORLD)]
     for p in procs:
         p.start()
     return procs, queue, go
 
 
+# How long the parent waits for the ranks' reports, and for a rank that
+# exited without one to have its report read.
+RANKS_TIMEOUT_S = 600
+RANK_EXIT_GRACE_S = 5
+
+
 def collect_ranks(started) -> list:
     """The spawned ranks' reports, in rank order, once ``go`` is set; the
-    processes joined (killed where they hang)."""
+    processes joined (killed where they hang).  Fails at the first rank's
+    error, at a rank that exits without a report, or after RANKS_TIMEOUT_S
+    (a rank left waiting in a collective)."""
     procs, queue, go = started
     go.set()
-    reports = []
+    reports, deadline, dead_since = [], time.monotonic() + RANKS_TIMEOUT_S, None
     try:
-        for _ in procs:
-            reports.append(queue.get(timeout=600))
+        while len(reports) < len(procs):
+            try:
+                report = queue.get(timeout=1.0)
+            except Exception:  # queue.Empty
+                now = time.monotonic()
+                lost = [r for r, p in enumerate(procs) if p.exitcode not in (None, 0)]
+                dead_since = (dead_since or now) if lost else None
+                if lost and now - dead_since > RANK_EXIT_GRACE_S:
+                    raise AssertionError(f"parallel ranks {lost} exited with "
+                                         f"{[procs[r].exitcode for r in lost]} and no report")
+                if now > deadline:
+                    got = {r['rank'] for r in reports}
+                    raise AssertionError(f"parallel ranks {[r for r in range(len(procs)) if r not in got]} sent "
+                                         f"no report within {RANKS_TIMEOUT_S} s")
+                continue
+            if "error" in report:
+                raise AssertionError("parallel ranks failed:\n" + report["error"])
+            reports.append(report)
     finally:
         for p in procs:
-            p.join(timeout=60)
+            p.join(timeout=60 if len(reports) == len(procs) else 0)
             if p.is_alive():
                 p.kill()
-    errors = [r["error"] for r in reports if "error" in r]
-    if errors:
-        raise AssertionError("parallel ranks failed:\n" + "\n".join(errors))
     return sorted(reports, key=lambda r: r["rank"])
 
 
-def parallel_ranks(dev, started) -> dict:
-    """(b): the spawned ranks' cases, started now and beside nothing else on
-    the card; each case against the same call on rank 0 alone."""
-    reports = collect_ranks(started)
+def ranks_failures(dev, reports: list) -> tuple[list, dict]:
+    """(b)'s misses over the ranks' reports, with the launches of
+    PATH_KERNELS["parallel_ranks"] in all; prints the ranks' line."""
     r0 = reports[0]
     emit({"phase": "parallel", "run": "ranks", **{k: r0[k] for k in ("backend", "ms", "diff")},
           "launches": [r["launches"] for r in reports], "chees_vg_calls": [r["chees_vg_calls"] for r in reports],
@@ -5927,9 +6095,40 @@ def parallel_ranks(dev, started) -> dict:
                 failures.append(f"rank {r['rank']}: serving launched no K1 or no K5")
         for key in PATH_KERNELS["parallel_ranks"]:
             total[key] = sum(r["launches"][case][key] for r in reports for case in ("lml", "chees", "smc", "serve"))
+    return failures, total
+
+
+def parallel_ranks(dev, started) -> dict:
+    """(b): the spawned ranks' cases, started now and beside nothing else on
+    the card; each case against the same call on rank 0 alone."""
+    reports = collect_ranks(started)
+    failures, total = ranks_failures(dev, reports)
     if failures:
         raise AssertionError(f"parallel (ranks): {failures}")
     return {"launches": total, "reports": reports}
+
+
+def parallel_kernel_rows(dev) -> dict:
+    """The parallel paths' kernels at the shapes these paths give them, on
+    ``dev``: K2 on the first diagonal tile of each path's covariance, K1 on
+    the serving covariance and K5 on its factor's tiles, K7 on a rank's 16
+    chains."""
+    rows = {}
+    for path, n in (("parallel", N_LARGE), ("parallel_ranks", PAR_N_RANKS)):
+        kernel, plain, shape, reps, library = tile_cases(large_cov(n, dev)[:BLOCK, :BLOCK].contiguous())[
+            "chol_inv_tile"]
+        rows[path, "chol_inv_tile"] = check_kernel(path, "chol_inv_tile", kernel, plain, shape, reps, library)
+    gp, x, _, _, ts, tn, _ = problem(torch.float32, dev)
+    Ks = core.masked_cov(gp, ts, tn, x, None)
+    tiles = cb._diag_tiles(cb.fused_cholesky_invs_plain(Ks)[0], BLOCK).contiguous()
+    rows.update(kernel_rows("parallel_ranks", Ks, tiles))
+    study, hx, _, _, _, _, _ = bayes_problem(dev)
+    K7 = bayes_covs(study, hx, bayes_positions(PAR_CHEES["chains"] // PAR_WORLD, dev, seed=1))
+    eye = torch.eye(K7.shape[-1], dtype=K7.dtype, device=dev)
+    rows.update(check_k7({"parallel_ranks": (
+        lambda: fused_gp.fused_gp_linv(K7), lambda: fused_gp.linv_plain(K7), K7.shape, 50,
+        lambda: torch.linalg.solve_triangular(torch.linalg.cholesky(K7), eye, upper=False))}))
+    return rows
 
 
 def phase_parallel(dev, cases: tuple = PAR_CASES) -> dict:
@@ -5948,26 +6147,149 @@ def phase_parallel(dev, cases: tuple = PAR_CASES) -> dict:
             p.kill()
         raise
     ranks = parallel_ranks(dev, started)
-    # the kernels at the shapes these paths gave them: K2 on the first
-    # diagonal tile of each path's covariance, K1 on the serving
-    # covariance and K5 on its factor's tiles, K7 on a rank's 16 chains
-    rows = {}
-    for path, n in (("parallel", N_LARGE), ("parallel_ranks", PAR_N_RANKS)):
-        kernel, plain, shape, reps, library = tile_cases(large_cov(n, dev)[:BLOCK, :BLOCK].contiguous())[
-            "chol_inv_tile"]
-        rows[path, "chol_inv_tile"] = check_kernel(path, "chol_inv_tile", kernel, plain, shape, reps, library)
-    gp, x, _, _, ts, tn, _ = problem(torch.float32, dev)
-    Ks = core.masked_cov(gp, ts, tn, x, None)
-    tiles = cb._diag_tiles(cb.fused_cholesky_invs_plain(Ks)[0], BLOCK).contiguous()
-    rows.update(kernel_rows("parallel_ranks", Ks, tiles))
-    study, hx, _, _, _, _, _ = bayes_problem(dev)
-    K7 = bayes_covs(study, hx, bayes_positions(PAR_CHEES["chains"] // PAR_WORLD, dev, seed=1))
-    eye = torch.eye(K7.shape[-1], dtype=K7.dtype, device=dev)
-    rows.update(check_k7({"parallel_ranks": (
-        lambda: fused_gp.fused_gp_linv(K7), lambda: fused_gp.linv_plain(K7), K7.shape, 50,
-        lambda: torch.linalg.solve_triangular(torch.linalg.cholesky(K7), eye, upper=False))}))
-    return {"launches": {"parallel": world1["launches"], "parallel_ranks": ranks["launches"]}, "rows": rows,
-            "reports": ranks["reports"]}
+    return {"launches": {"parallel": world1["launches"], "parallel_ranks": ranks["launches"]},
+            "rows": parallel_kernel_rows(dev), "reports": ranks["reports"]}
+
+
+# --- multicard: the multi-device layer on PAR_WORLD cards, one NCCL rank a card ---
+# (in no whole run: it needs four cards).  The parent builds the kernels,
+# prints the cards' topology, spawns the ranks (rank r on cuda:r, its group
+# made by init_multihost, which binds the card) and, while they import and
+# join, runs the graft entry under torchrun on the four cards.  The ranks
+# then run: (a) the parallel phase's world-1 cases with the n = 16384 rows
+# over the four cards (a (1, 4) data mesh), held to PAR_BOUNDS and to K2's
+# n / 128 launches a factorization on each rank, rank 0 also timing the
+# same row-sharded work alone; (b) the parallel phase's four-rank cases ("samplers"),
+# each against rank 0 alone, held to the ranks_* bounds and launch counts;
+# the graft entry's dryrun_multichip(4) against rank 0 alone
+# (GRAFT_RANK_BOUNDS); the parallel paths' kernels on each rank's own card;
+# the figures: ChEES's 64 chains in one batch on one card, one all_reduce
+# of ALL_REDUCE_MIB.
+MULTICARD_CASES = ("rows", "samplers", "figures", "graft", "kernels")
+# The graft entry's child under torchrun, and its time limit.
+GRAFT_TORCHRUN = ("-m", "torch.distributed.run", "--standalone", "--nproc_per_node", str(PAR_WORLD),
+                  "-m", "gogp_torch.graft_entry")
+GRAFT_TORCHRUN_TIMEOUT_S = 300
+
+
+def require_cards(count: int) -> None:
+    """Exits, before any result, where fewer than ``count`` cards are
+    visible."""
+    have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if have < count:
+        raise SystemExit(f"chip_smoke: the multicard phase needs {count} CUDA cards, {have} visible")
+
+
+def torchrun_graft() -> dict:
+    """``python -m torch.distributed.run --standalone --nproc_per_node 4 -m
+    gogp_torch.graft_entry`` from the checkout's root, each rank's output
+    to its own file: the exit code, the wall, and how many ranks printed
+    the dry run's line."""
+    root = pathlib.Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(filter(None, (str(root), os.environ.get("PYTHONPATH")))))
+    line = f"dryrun_multichip ok on {PAR_WORLD} devices"
+    with tempfile.TemporaryDirectory(prefix="gogp_torchrun_") as logs:
+        cmd = [sys.executable, GRAFT_TORCHRUN[0], GRAFT_TORCHRUN[1], "--log-dir", logs, "--redirects", "1",
+               *GRAFT_TORCHRUN[2:]]
+        t0 = time.perf_counter()
+        try:
+            proc = subprocess.run(cmd, cwd=root, env=env, capture_output=True, text=True,
+                                  timeout=GRAFT_TORCHRUN_TIMEOUT_S)
+            rc, stderr = proc.returncode, proc.stderr
+        except subprocess.TimeoutExpired as e:
+            rc, stderr = None, e.stderr.decode() if isinstance(e.stderr, bytes) else e.stderr or ""
+        seconds = time.perf_counter() - t0
+        ranks = {p.parent.name: p.read_text().splitlines() for p in pathlib.Path(logs).rglob("stdout.log")}
+    return {"command": " ".join(["python", *GRAFT_TORCHRUN]), "rc": rc, "seconds": seconds, "line": line,
+            "ranks_with_line": sorted(r for r, out in ranks.items() if line in out),
+            "stdout": {r: out[-4:] for r, out in sorted(ranks.items())},
+            "stderr_tail": stderr.splitlines()[-20:] if rc != 0 else []}
+
+
+def multicard_figures(reports: list, graft: dict) -> dict:
+    """The four cards' figures beside the same work on one."""
+    r0 = reports[0]
+    rows, ms = r0["rows"]["ms"], r0["ms"]
+    transitions = PAR_CHEES["num_warmup"] + PAR_CHEES["num_samples"]
+    return {
+        "cards": [r["card"] for r in reports],
+        "rows_value_and_grad_ms": {"four_cards": [r["rows"]["ms"]["value_and_grad"] for r in reports],
+                                   "one_rank_rowsharded": rows.get("value_and_grad_one_rank"),
+                                   "single_card": rows["single_card_value_and_grad"]},
+        "chees_ms_per_transition": {"four_cards_16_a_card": ms["chees"] / transitions,
+                                    "one_card_4_slabs_of_16": ms["chees_one_rank"] / transitions,
+                                    "one_card_64": ms["chees_one_batch"] / transitions},
+        "lml_n4096_ms": {"four_cards": ms["lml"], "one_rank": ms["lml_one_rank"]},
+        "graft_dryrun_s": {"four_cards": sum(st["ms"] for st in r0["graft"]["steps"]) / 1e3,
+                           "one_rank_held_steps": sum(st["ms"] for st in r0["graft"]["steps_one_rank"]) / 1e3,
+                           "torchrun_wall": graft["seconds"]},
+        "all_reduce": [r["all_reduce"] for r in reports],
+    }
+
+
+def card_links() -> dict:
+    """How the cards are joined: ``nvidia-smi topo -m`` and ``nvidia-smi
+    nvlink --status`` as they print (or fail), and which pairs of cards
+    reach each other's memory directly (torch's peer access)."""
+    def smi(*args):
+        out = subprocess.run(["nvidia-smi", *args], capture_output=True, text=True, timeout=60)
+        return (out.stdout + out.stderr).strip().splitlines()
+
+    count = torch.cuda.device_count()
+    return {"nvidia_smi_topo": smi("topo", "-m"), "nvidia_smi_nvlink": smi("nvlink", "--status"),
+            "peer_access": [[i == j or torch.cuda.can_device_access_peer(i, j) for j in range(count)]
+                            for i in range(count)]}
+
+
+def phase_multicard(dev) -> dict:
+    """The multi-device layer on PAR_WORLD cards over NCCL (see
+    MULTICARD_CASES): every case, bound and launch count of the parallel
+    and graft phases' four-rank runs, now with a card a rank."""
+    require_cards(PAR_WORLD)
+    emit({"phase": "multicard", **card_links()})
+    started = start_parallel_ranks(dev, MULTICARD_CASES, backend="nccl")
+    try:
+        graft = torchrun_graft()
+    except BaseException:
+        for p in started[0]:
+            p.kill()
+        raise
+    emit({"phase": "multicard", "run": "torchrun", **graft})
+    reports = collect_ranks(started)
+    for r in reports:
+        emit({"phase": "multicard", "rank": r["rank"], "card": r["card"], "backend": r["backend"]})
+    failures = []
+    if graft["rc"] != 0 or graft["ranks_with_line"] != [str(r) for r in range(PAR_WORLD)]:
+        failures.append(f"torchrun graft entry: exit {graft['rc']}, {graft['line']!r} from local ranks "
+                        f"{graft['ranks_with_line']}")
+    if sorted(r["card"]["cuda_index"] for r in reports) != list(range(PAR_WORLD)):
+        failures.append(f"the ranks' cards {[r['card']['cuda_index'] for r in reports]} are not one a rank")
+    for r in reports:
+        if r["backend"]["backend"] != "nccl" or r["backend"]["world_size"] != PAR_WORLD:
+            failures.append(f"rank {r['rank']}: backend {r['backend']}")
+    # (a)
+    emit({"phase": "multicard", "run": "rows", **{k: reports[0]["rows"][k] for k in ROWS_KEYS},
+          "launches_per_rank": [r["rows"]["launches"] for r in reports]})
+    failures += [f"rank {r['rank']} rows: {f}" for r in reports for f in r["rows"]["failures"]]
+    # (b)
+    ranks_miss, total = ranks_failures(dev, reports)
+    failures += ranks_miss
+    # the graft entry's four ranks against rank 0 alone
+    graft_miss, graft_k7 = graft_ranks_failures(reports, dev)
+    emit({"phase": "multicard", "run": "graft", "steps": [r["graft"]["steps"] for r in reports],
+          "steps_one_rank": reports[0]["graft"]["steps_one_rank"], "diff": reports[0]["graft"]["diff"]})
+    failures += graft_miss
+    # the kernels on each card
+    for r in reports:
+        for line in r["kernel_lines"]:
+            emit({**json.loads(line), "card": r["card"]["cuda_index"]})
+    emit({"phase": "multicard", "figures": multicard_figures(reports, graft)})
+    if failures:
+        raise AssertionError(f"multicard: {failures}")
+    return {"launches": {"multicard_rows": reports[0]["rows"]["launches_total"], "multicard_ranks": total,
+                         "multicard_graft": {"fused_gp_linv": graft_k7}},
+            "rows": {(f"{path}_card{r['rank']}", key): row for r in reports
+                     for (path, key), row in r["kernel_rows"].items()}}
 
 
 # --- graft: the twin of __graft_entry__.py (gogp_torch.graft_entry) ---------------
@@ -6189,7 +6511,8 @@ def phase_graft(dev, reports: list | None = None) -> dict:
 # its sampler runs, "slice" the serving slice with its launch counts, "gate"
 # (in no whole run) K3 against K4 beyond the large path's size, "stamps" (in
 # no whole run) the tile body's stage cycles and K4's chain step, "coldstart"
-# (in no whole run) the first laplace_fit of a process taken apart.
+# (in no whole run) the first laplace_fit of a process taken apart,
+# "multicard" (in no whole run) the multi-device layer on four cards.
 PARTIAL_PHASES = {"kernels": phase_kernels, "k5": phase_k5, "ill": phase_ill, "k7": phase_k7, "gate": phase_gate,
                   "slice": _partial_slice, "serve": phase_serve_cache, "classify": phase_classify,
                   "sparse": phase_sparse, "surface": phase_surface, "pathwise": phase_pathwise, "bo": phase_bo,
@@ -6199,7 +6522,7 @@ PARTIAL_PHASES = {"kernels": phase_kernels, "k5": phase_k5, "ill": phase_ill, "k
                   "train": phase_train, "large": phase_large, "bayes": phase_bayes, "samplers": phase_samplers,
                   "evaluate": lambda dev: check_k7(phase_evaluate(dev)["k7_cases"]),
                   "parallel": lambda dev: phase_parallel(dev, ("samplers",)), "graft": phase_graft,
-                  "stamps": phase_stamps, "coldstart": phase_coldstart}
+                  "stamps": phase_stamps, "coldstart": phase_coldstart, "multicard": phase_multicard}
 
 
 def main() -> int:
@@ -6212,6 +6535,8 @@ def main() -> int:
     unknown = [name for name in args.phases or () if name not in PARTIAL_PHASES]
     if unknown:
         parser.error(f"unknown phases {unknown}: expected some of {list(PARTIAL_PHASES)}")
+    if "multicard" in (args.phases or ()):
+        require_cards(PAR_WORLD)
     info = phase_device()
     dev = torch.device("cuda", 0)
     warmup = threading.Thread(target=host_warmup)

@@ -27,10 +27,11 @@ same operations are methods of :class:`Mesh`.  The functions and the
 active-mesh stack live in ``ops.collectives``, below the ops layer that
 calls them, and are re-exported here.
 
-Backends.  A multi-rank group whose ranks share one card is gloo with CUDA
-tensors (gloo's own CUDA work for all_reduce, broadcast and all_gather);
-every collective takes its operands where they lie, and no rank's compute
-leaves its device.
+Backends.  A world with one card a rank is NCCL, each rank bound to its
+card by :func:`init_multihost`.  A multi-rank group whose ranks share one
+card is gloo with CUDA tensors (gloo's own CUDA work for all_reduce,
+broadcast and all_gather); every collective takes its operands where they
+lie, and no rank's compute leaves its device.
 
 The placement helpers of the twin (``chain_sharding``, ``data_sharding``,
 ``replicated``, ``shard_leading``) become :class:`Sharding`: "this rank's
@@ -191,6 +192,20 @@ def make_mesh(
     return Mesh(np.asarray(ranks[:n]).reshape(n_chain, n_data))
 
 
+def rank_card(backend: str, rank: int, n_cards: int, local_rank: str | None = None) -> int | None:
+    """The card a rank of a world on ``backend`` binds before its group is
+    made: for NCCL, torchrun's ``LOCAL_RANK`` where it is set, else the rank
+    modulo the ``n_cards`` visible cards (a world on one host); None for any
+    other backend (a gloo world, whose ranks may share one card)."""
+    if backend != "nccl":
+        return None
+    if local_rank is not None:
+        return int(local_rank)
+    if n_cards < 1:
+        raise RuntimeError("an NCCL rank needs a CUDA card, and none is visible")
+    return rank % n_cards
+
+
 def init_multihost(
     coordinator_address: str | None = None,
     num_processes: int | None = None,
@@ -206,17 +221,32 @@ def init_multihost(
     ``MASTER_ADDR`` is set, and otherwise makes a world of one process on
     an in-memory store, so that a 1x1 mesh still holds a real group.  An
     initialised world is left as it is.  ``backend`` defaults to NCCL where
-    CUDA is available, else gloo."""
+    CUDA is available, else gloo.
+
+    An NCCL rank first binds its card (:func:`rank_card`), as the twin's
+    ``jax.distributed.initialize`` gives each process its own devices: the
+    card becomes the current device, and the group is made for it
+    (``device_id``), so that every communicator of the world and of its
+    sub-groups is made on that card.  A gloo world binds none."""
     if not dist.is_initialized():
         if backend is None:
             backend = "nccl" if torch.cuda.is_available() else "gloo"
         if coordinator_address is not None:
-            dist.init_process_group(backend, init_method=f"tcp://{coordinator_address}",
-                                    world_size=num_processes, rank=process_id)
-        elif "MASTER_ADDR" in os.environ:
-            dist.init_process_group(backend, init_method="env://")
+            rank = process_id
         else:
-            dist.init_process_group(backend, store=dist.HashStore(), rank=0, world_size=1)
+            rank = int(os.environ.get("RANK", "0")) if "MASTER_ADDR" in os.environ else 0
+        card = rank_card(backend, rank, torch.cuda.device_count(), os.environ.get("LOCAL_RANK"))
+        device_id = None
+        if card is not None:
+            torch.cuda.set_device(card)
+            device_id = torch.device("cuda", card)
+        if coordinator_address is not None:
+            dist.init_process_group(backend, init_method=f"tcp://{coordinator_address}",
+                                    world_size=num_processes, rank=process_id, device_id=device_id)
+        elif "MASTER_ADDR" in os.environ:
+            dist.init_process_group(backend, init_method="env://", device_id=device_id)
+        else:
+            dist.init_process_group(backend, store=dist.HashStore(), rank=0, world_size=1, device_id=device_id)
     return dist.get_world_size()
 
 

@@ -889,3 +889,42 @@ def test_vmapped_lml_takes_the_batched_route(cuda):
         (g64,) = torch.autograd.grad(v64.sum(), V64)
     assert _rel(v.detach(), v64.detach()) < 1e-4
     assert _rel(g, g64) < 1e-2
+
+
+@pytest.fixture
+def second_card():
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda", 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("key", ["chol_inv_tile", "tril_inv_tile", "fused_gp_linv"])
+def test_kernels_on_the_second_card(second_card, key):
+    """K2, K5 and K7 on tensors of cuda:1 while cuda:0 is current: the
+    wrapper launches on the tensor's card (``cb._launch`` switches to it),
+    once, and its result lies there and matches the plain version computed
+    on the same card (K2 at TOL, K5 within 1e-5 and K7 within 5e-4 of the
+    largest entry, their own tests' bounds); cuda:0 stays current."""
+    dev = second_card
+    with torch.cuda.device(0):
+        before = cb.LAUNCHES[key]
+        if key == "chol_inv_tile":
+            A = _spd(B, dev)
+            got, want = cb.cholesky_inv_tile(A), cb.cholesky_inv_tile_plain(A)
+        elif key == "tril_inv_tile":
+            tiles = _tril_tiles(12, dev)
+            got, want = (cb.tril_inv_tile(tiles),), (cb.tril_inv_tile_plain(tiles),)
+        else:
+            K = _spd_batch(16, 44, dev)
+            got, want = (fused_gp.fused_gp_linv(K),), (fused_gp.linv_plain(K.double()),)
+        assert torch.cuda.current_device() == 0
+        assert cb.LAUNCHES[key] == before + 1
+    torch.cuda.synchronize(dev)
+    for g, w in zip(got, want):
+        assert g.device == dev and torch.isfinite(g).all()
+        if key == "chol_inv_tile":
+            torch.testing.assert_close(g, w, **TOL)
+        else:
+            assert _rel(g, w) <= (1e-5 if key == "tril_inv_tile" else 5e-4)

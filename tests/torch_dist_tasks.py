@@ -603,3 +603,21 @@ def graft_dryrun_twin_draws(n_devices):
                       "eps_draws": lambda i: (lambda step: T(eps[i][step]))}}
     out = ge.dryrun_multichip(n_devices, device="cpu", dtype=torch.float64, draws=draws)
     return None if out is None else N(out)
+
+
+# --- chip_smoke's multicard rank function -----------------------------------------
+
+
+def multicard_rows(n, block):
+    """``chip_smoke.rank_cases`` with its (a) cases ("rows") on this gloo
+    rank, the CPU, float64, at n points and ``block``: the report's errors,
+    misses, launches and SMC summary, with this rank's rows of the factor
+    and of alpha and the replicated value and gradient."""
+    import torch.distributed as dist
+
+    import chip_smoke
+
+    rep = chip_smoke.rank_cases(dist.get_rank(), dist.get_world_size(), torch.device("cpu"), ("rows",),
+                                rows_kw=dict(n=n, block=block, dtype=torch.float64, keep=True))["rows"]
+    return {**{k: rep[k] for k in ("errors", "failures", "launches", "smc_large_n")},
+            "out": {k: N(v) for k, v in rep["out"].items()}}
