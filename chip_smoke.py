@@ -38,13 +38,18 @@ process per source) and then runs these phases, each printing JSON lines:
               rbf covariances of equispaced points of [0, 1] (ILL_CASES):
               K2 on 16 tiles (length scales 0.05 to 1, jitter 1e-5), K7's
               classes 96 and 128 on 8 of them, K1 at n = 1536 and 4096 and
-              the stepwise driver at 8192 (length scale 0.05, jitter 1e-4):
-              the factor, the tile inverses and the inverses of the
-              kernel's own factor, beside the plain f32 version's, the
-              library pair's and the JAX twin's f32 errors (measured on the
-              CPU; the bounds are 10 times these), the f64 factor's
-              smallest pivot and, at each jitter of ILL_JITTERS, whether
-              cuSOLVER's f32 factor and the kernel's are finite.
+              the stepwise driver at 8192 (length scale 0.05, jitter 1e-4),
+              K1 and the stepwise driver at n = 1536 with jitter 1e-5 (where
+              the twin's f32 factor is NaN): the factor, the tile inverses
+              and the inverses of the kernel's own factor, beside the plain
+              f32 version's, the library pair's and the JAX twin's f32
+              errors (measured on the CPU; the bounds are 10 times the
+              twin's, or LAPACK's where the twin's is NaN), the f64
+              factor's smallest pivot and, at each jitter of ILL_JITTERS,
+              whether cuSOLVER's f32 factor and the kernel's are finite.
+              K1's and the stepwise driver's factors also within
+              ILL_PLAIN_FACTOR times the plain version's error.  (The parallel phase holds
+              the row-sharded Cholesky on the n = 1536, 1e-5 covariance.)
 4. slice    - serving: the GP problem of ``bench.py``, n = 4096 sorted
               uniform inputs on [0, 100], y = sin(x/3) + 0.1 N(0, 1) from
               numpy seed 0, rbf.scaled() + uniform_noise at log-theta 0,
@@ -361,7 +366,9 @@ process per source) and then runs these phases, each printing JSON lines:
               the dense lml_iterative on the same probes; BASELINE.json's
               fifth configuration, run_smc_large_n with HMC mutation at n =
               16384, cut to 4 particles, one stage, one mutation of 2
-              leapfrog steps; K2 held to n / 128 launches a factorization.
+              leapfrog steps; K2 held to n / 128 launches a factorization;
+              the row-sharded Cholesky on the ill phase's n = 1536, jitter
+              1e-5 covariance (ILL_ROWS_CASE) against f64.
               Then four spawned ranks over gloo on the same card (the
               phase fails unless gloo takes CUDA tensors for all_reduce,
               broadcast and all_gather), each case against the same call on
@@ -437,6 +444,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import importlib
 import io
 import json
@@ -1082,11 +1090,20 @@ def k5_split(tiles: torch.Tensor, split: int) -> torch.Tensor:
     return out
 
 
+@functools.lru_cache(maxsize=1)
+def _rbf_grams(n: int, ells: tuple) -> np.ndarray:
+    x = np.linspace(0, 1, n)
+    return np.stack([np.exp(-0.5 * (x[:, None] - x[None]) ** 2 / ell**2) for ell in ells])
+
+
 def rbf_covariances(n: int, ells, jitter: float) -> np.ndarray:
     """(len(ells), n, n) rbf covariances on n equispaced points of [0, 1],
-    one a length scale, plus ``jitter`` on the diagonal, in f64."""
-    x = np.linspace(0, 1, n)
-    return np.stack([np.exp(-0.5 * (x[:, None] - x[None]) ** 2 / ell**2) + jitter * np.eye(n) for ell in ells])
+    one a length scale, plus ``jitter`` on the diagonal, in f64.  The
+    jitter-free part is kept for the next call (the ill phase asks for one
+    case at each of ILL_JITTERS: at n = 8192 the host spent seconds on each)."""
+    out = _rbf_grams(n, tuple(ells)).copy()
+    out[:, np.arange(n), np.arange(n)] += jitter
+    return out
 
 
 def ill_conditioned_tiles(count: int, dev) -> torch.Tensor:
@@ -1112,7 +1129,8 @@ def col_rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
 # ILL_JITTERS at which the f32 factor of every matrix of the case, LAPACK's
 # and the JAX twin's on the CPU, is finite: at 1e-7, the jitter of
 # ill_conditioned_tiles, no f32 factor of those tiles is; at n = 1536, 1e-5,
-# LAPACK's is and the twin's is not.
+# LAPACK's is and the twin's is not.  The two cases at n = 1536, 1e-5 are
+# the exception, held where the twin's factor is NaN (ILL_LAPACK_F32).
 ILL_JITTERS = (1e-7, 1e-6, 1e-5, 1e-4)
 ILL_TILE_ELLS = tuple(np.logspace(np.log10(0.05), 0, 16))
 ILL_CASES = {
@@ -1122,6 +1140,8 @@ ILL_CASES = {
     "k1_1536": (1536, (0.05,), 1e-4, BLOCK),
     "k1_4096": (4096, (0.05,), 1e-4, BLOCK),
     "stepwise_8192": (8192, (0.05,), 1e-4, BLOCK),
+    "k1_1536_1e-5": (1536, (0.05,), 1e-5, BLOCK),
+    "stepwise_1536_1e-5": (1536, (0.05,), 1e-5, BLOCK),
 }
 # The JAX twin's f32 errors (ill_errors) on each case on the CPU, from
 # tests/ill_bounds.py (rounded up to two digits): K2's twin
@@ -1138,10 +1158,26 @@ ILL_TWIN_F32 = {
     "k1_4096": {"L": 2.0e-1, "V": 2.3e-2, "V_own": 3.3e-6},
     "stepwise_8192": {"L": 3.4e-1, "V": 2.2e-2, "V_own": 2.2e-6},
 }
-ILL_BOUNDS = {case: {metric: 10 * err for metric, err in errs.items()} for case, errs in ILL_TWIN_F32.items()}
-# A repaired kernel's inverse of its own factor ("V_own") is held within this
-# many times the plain f32 version's.
+# Where the twin's f32 factor is NaN (its fused kernel and its stepwise
+# driver at n = 1536, jitter 1e-5: the panel multiplied by inv(L_kk)), the
+# bounds are 10 times LAPACK's f32 errors on the CPU instead: the plain
+# version's (plain_cholesky, then tril_inv_tile_plain on its tiles), the
+# "plain_f32" of tests/ill_bounds.py, rounded up to two digits.  Written
+# before the first run on the card.
+ILL_LAPACK_F32 = {
+    "k1_1536_1e-5": {"L": 9.7e-2, "V": 7.7e-2, "V_own": 2.0e-5},
+    "stepwise_1536_1e-5": {"L": 9.7e-2, "V": 7.7e-2, "V_own": 2.0e-5},
+}
+ILL_BOUNDS = {case: {metric: 10 * err for metric, err in errs.items()}
+              for case, errs in {**ILL_TWIN_F32, **ILL_LAPACK_F32}.items()}
+# A repaired kernel's inverse of its own factor ("V_own"), and K1's and the
+# stepwise driver's factor ("L"), are held within this many times the plain
+# f32 version's.
 ILL_PLAIN_FACTOR = 3
+# The parallel phase's world-1 row-sharded Cholesky runs on this case's
+# covariance, held to its "L" bound and to ILL_PLAIN_FACTOR times cuSOLVER's
+# error (ill_rowsharded).
+ILL_ROWS_CASE = "stepwise_1536_1e-5"
 
 
 def ill_covariances(case: str, jitter: float | None = None) -> np.ndarray:
@@ -1267,11 +1303,13 @@ def ill_case(case: str, dev) -> dict:
            "col_rel_err_vs_f64": errs, "plain_f32": plain,
            "library_f32": ill_errors(A, *ill_plain(case, A, library=True), block) if finite[jitter]["cusolver"]
            else None,
-           "twin_f32_cpu": ILL_TWIN_F32[case], "bound": ILL_BOUNDS[case], **extra}
+           "twin_f32_cpu": ILL_TWIN_F32.get(case), "lapack_f32_cpu": ILL_LAPACK_F32.get(case),
+           "bound": ILL_BOUNDS[case], **extra}
     misses = [f"{metric} {err:.3e} > {ILL_BOUNDS[case][metric]:.3e}" for metric, err in errs.items()
               if not err <= ILL_BOUNDS[case][metric]]
-    if not errs["V_own"] <= ILL_PLAIN_FACTOR * plain["V_own"]:
-        misses.append(f"V_own {errs['V_own']:.3e} > {ILL_PLAIN_FACTOR} x plain {plain['V_own']:.3e}")
+    for metric in ("V_own", "L") if case.startswith(("k1", "stepwise")) else ("V_own",):
+        if not errs[metric] <= ILL_PLAIN_FACTOR * plain[metric]:
+            misses.append(f"{metric} {errs[metric]:.3e} > {ILL_PLAIN_FACTOR} x plain {plain[metric]:.3e}")
     if not finite[jitter]["cusolver"]:
         misses.append(f"cuSOLVER's f32 factor is not finite at jitter {jitter}")
     if not extra.get("same_bits_as_k2", True):
@@ -1279,12 +1317,40 @@ def ill_case(case: str, dev) -> dict:
     return {**out, "misses": misses}
 
 
+def ill_rowsharded(dev, mesh) -> dict:
+    """The row-sharded Cholesky on ILL_ROWS_CASE's f32 covariance on a 1x1
+    ``mesh`` (the parallel phase's group of one), column by column against
+    f64 beside cuSOLVER's f32 factor (plain_cholesky): finite, within the
+    case's "L" bound and within ILL_PLAIN_FACTOR times cuSOLVER's error;
+    "misses" lists every bound missed."""
+    from gogp_torch.ops import distributed as dops
+    from gogp_torch.parallel import mesh as pmesh
+
+    case = ILL_ROWS_CASE
+    n, _, jitter, block = ILL_CASES[case]
+    A = torch.as_tensor(ill_covariances(case)[0], dtype=torch.float32, device=dev)
+    with mesh:
+        L = dops.cholesky_rowsharded(A, pmesh.DATA_AXIS, block)
+    L64 = torch.linalg.cholesky(A.double())
+    err, plain = col_rel_err(L, L64), col_rel_err(cb.plain_cholesky(A), L64)
+    bound = ILL_BOUNDS[case]["L"]
+    misses = [] if bool(torch.isfinite(L).all()) else ["the row-sharded factor is not finite"]
+    if not err <= bound:
+        misses.append(f"L {err:.3e} > {bound:.3e}")
+    if not err <= ILL_PLAIN_FACTOR * plain:
+        misses.append(f"L {err:.3e} > {ILL_PLAIN_FACTOR} x cuSOLVER {plain:.3e}")
+    return {"phase": "parallel", "run": "ill", "case": case, "n": n, "jitter": jitter, "block": block,
+            "col_rel_err_vs_f64": {"L": err}, "plain_f32": {"L": plain}, "bound": {"L": bound},
+            "lapack_f32_cpu": {"L": ILL_LAPACK_F32[case]["L"]}, "misses": misses}
+
+
 def phase_ill(dev) -> None:
     """K5 on ill-conditioned tiles against f64 (its bound K5_ILL_RTOL);
     then every case of ILL_CASES (ill_case): K2, K7's two blocked classes,
     K1 and the stepwise driver, held to ILL_BOUNDS and, on the inverse of
-    their own factor, to ILL_PLAIN_FACTOR times the plain version.  Every
-    case runs and prints before a miss raises."""
+    their own factor (and K1's and the stepwise driver's on the factor), to
+    ILL_PLAIN_FACTOR times the plain version.  Every case runs and prints
+    before a miss raises."""
     tiles = ill_conditioned_tiles(16, dev)
     want = cb.tril_inv_tile_plain(tiles.double())
     errs = {split: col_rel_err(k5_split(tiles, split), want) for split in K5_SPLITS}
@@ -5543,7 +5609,8 @@ def _count_lml_calls():
 
 def parallel_world1(dev, n: int = N_LARGE, smc: dict | None = None) -> dict:
     """(a): the row-sharded exact GP on a real process group of one rank
-    (NCCL on the card), measured and held against the single-card path."""
+    (NCCL on the card), measured and held against the single-card path;
+    then the row-sharded Cholesky on ILL_ROWS_CASE (ill_rowsharded)."""
     import torch.distributed as dist
     from gogp_torch.parallel import mesh as pmesh
 
@@ -5552,11 +5619,13 @@ def parallel_world1(dev, n: int = N_LARGE, smc: dict | None = None) -> dict:
         mesh = pmesh.make_mesh(1, 1)
         emit({"phase": "parallel", "run": "world1", **pmesh.describe(mesh)})
         rep = rows_case(dev, mesh, n, smc)
+        ill = ill_rowsharded(dev, mesh)
     finally:
         dist.destroy_process_group()
     emit({"phase": "parallel", "run": "world1", **{k: rep[k] for k in ROWS_KEYS}})
-    if rep["failures"]:
-        raise AssertionError(f"parallel (world 1): {rep['failures']}")
+    emit(ill)
+    if rep["failures"] or ill["misses"]:
+        raise AssertionError(f"parallel (world 1): {rep['failures'] + ill['misses']}")
     return {"launches": rep["launches_total"], "ms": rep["ms"], "errors": rep["errors"]}
 
 

@@ -17,9 +17,10 @@
 //     chol_inv_tile_body, one CTA) factors the tile in place and writes
 //     inv(L_kk) into invs[k];
 //   slab (k, i, r), i > k, r < 4: 32 rows of tile (i, k),
-//     C = A_ik - sum_{m<k} L_im L_km^T, then, once diag k is done,
-//     L_ik = C inv(L_kk)^T; it also writes the zeros of the same rows of
-//     the upper tile (k, i).
+//     C = A_ik - sum_{m<k} L_im L_km^T, then, once diag k is done, L_ik
+//     solves L_ik L_kk^T = C by substitution against L's diagonal tile
+//     (run_slab); it also writes the zeros of the same rows of the upper
+//     tile (k, i).
 //
 // Each CTA (one per SM, 512 threads, the tile body's shape) takes items by
 // ticket from an atomic counter, in the order column by column: pieces,
@@ -29,12 +30,19 @@
 // its 10 pieces.  The sums over m take one block column of depth at a time
 // as soon as it is in, so the products of the early columns are done long
 // before the newest panel lands (look-ahead), and no grid-wide barrier is
-// left: the critical path is nb x (tile body + one slab's product with
-// inv(L_kk) + one piece's last block column + three hand-offs).
+// left: the critical path is nb x (tile body + one slab's substitution
+// against L_kk + one piece's last block column + three hand-offs).
 //
 // What bounds it here: that chain.  At n = 1536 the factorization is 1.2
 // GFLOP, about 18 us of the card's f32 FMA rate over all SMs, but the
-// diagonal tiles are factored one after another, each on one SM.
+// diagonal tiles are factored one after another, each on one SM, and each
+// slab's substitution is a chain of 128 pivots in one warp.
+//
+// The slab solves against L_kk and never multiplies by inv(L_kk): invs[k]
+// is written for the callers (K4, K5, the LML core) and read by no item.
+// The product with the explicit inverse, as the JAX twin forms the panel,
+// gave NaN on an rbf covariance at n = 1536 with jitter 1e-5, where
+// cuSOLVER's f32 factor is finite.
 //
 // Forward progress: an item waits only for items with smaller tickets (every
 // dependency above points to an earlier column, or to the diag or pieces
@@ -46,7 +54,7 @@
 // Coherence, as in K3 (trsv.cu): a writer's threads store, meet at a
 // barrier, and one thread fences and publishes with a release at device
 // scope; a reader's thread spins on acquire loads, its CTA meets at a
-// barrier and reads L and invs through L2 (__ldcg), never through L1 or the
+// barrier and reads L through L2 (__ldcg), never through L1 or the
 // read-only path.  K is only read.  The counters (the ticket, per column the
 // pieces in and the diag done, per tile the slabs in; 1 + 2 nb + nb^2 ints)
 // are zeroed on the stream before each launch.  Every sum runs in a fixed
@@ -66,7 +74,7 @@ constexpr int kThreads = gogp::kTileThreads;  // the tile body's block size
 constexpr int kPieces = 10;                   // 32 x 32 pieces of a tile's lower triangle
 constexpr int kLdS = B + 4;                   // rows of the staged operands: float4-aligned, conflict-free
 constexpr int kSmemFloats = gogp::kTileSmemFloats<B>;
-static_assert((32 + B) * kLdS <= kSmemFloats, "a slab's operands fit the tile body's memory");
+static_assert((32 + B) * kLdS + B <= kSmemFloats, "a slab's operands and 1 / diag(L_kk) fit the tile body's memory");
 static_assert(kThreads == 512 && B == 128, "the thread layouts below");
 
 using AtomicInt = cuda::atomic_ref<int, cuda::thread_scope_device>;
@@ -131,12 +139,13 @@ __device__ __forceinline__ void slab_mma(float (&acc)[2][4], const float* X, con
   }
 }
 
-// acc[b] += sum_t X[r][t] Y[c + 16 b][t] for the 32 x 32 piece: row r =
-// tid / 16, columns c = tid % 16 and c + 16.
+// acc[b] += sum_{t<Depth} X[r][t] Y[c + 16 b][t] for a 32 x 32 piece: row
+// r = tid / 16, columns c = tid % 16 and c + 16.
+template <int Depth = B>
 __device__ __forceinline__ void piece_mma(float (&acc)[2], const float* X, const float* Y) {
   const int r = threadIdx.x >> 4, c = threadIdx.x & 15;
 #pragma unroll 4
-  for (int t = 0; t < B; t += 4) {
+  for (int t = 0; t < Depth; t += 4) {
     const float4 x = gogp::ld4(X + r * kLdS + t);
     acc[0] = dot4(x, gogp::ld4(Y + c * kLdS + t), acc[0]);
     acc[1] = dot4(x, gogp::ld4(Y + (c + 16) * kLdS + t), acc[1]);
@@ -181,11 +190,17 @@ __device__ void run_diag(float* L, float* invs, int n, int k, Flags f, float* sm
 }
 
 // Slab r of tile (i, k): rows i b + 32 r ..., columns k b ...
-__device__ void run_slab(const float* K, float* L, const float* invs, int n, int nb, int k, int i, int r,
-                         Flags f, float* smem) {
+//
+// Once diag k is done, the slab's 32 rows of C solve X L_kk^T = C, 32
+// columns (group p) at a time: C's group p less the rank-32 products with
+// the groups already solved (X_q L_pq^T, q < p, all threads, a 32 x 32
+// piece), then forward substitution against L_pp by warp 0, lane l on row
+// l (gogp::diag_solve_column, the tile body's own substitution).
+__device__ void run_slab(const float* K, float* L, int n, int nb, int k, int i, int r, Flags f, float* smem) {
   const int r0 = i * B + 32 * r, lane = threadIdx.x & 31, row = 2 * (threadIdx.x >> 5);
   float* X = smem;
   float* Y = smem + 32 * kLdS;
+  float* dinv = Y + B * kLdS;  // 1 / diag(L_kk), 16-byte aligned
   float acc[2][4] = {};
   for (int m = 0; m < k; ++m) {
     if (threadIdx.x == 0) {
@@ -199,7 +214,7 @@ __device__ void run_slab(const float* K, float* L, const float* invs, int n, int
     slab_mma(acc, X, Y);
     __syncthreads();  // X and Y are read in full before the next stage
   }
-  // C = A - acc into X, then L_ik = C inv(L_kk)^T
+  // C = A - acc into X, then L_kk (zero above its diagonal) into Y
 #pragma unroll
   for (int a = 0; a < 2; ++a)
 #pragma unroll
@@ -208,18 +223,48 @@ __device__ void run_slab(const float* K, float* L, const float* invs, int n, int
           K[static_cast<size_t>(r0 + row + a) * n + k * B + lane + 32 * b] - acc[a][b];
   if (threadIdx.x == 0) wait_until(f.diag + k, 1);
   __syncthreads();
-  stage<B>(Y, invs + static_cast<size_t>(k) * B * B, B, 0, 0);
+  stage<B>(Y, L, n, k * B, k * B);
   __syncthreads();
-  float out[2][4] = {};
-  slab_mma(out, X, Y);
+  for (int p = 0; p < B / 32; ++p) {
+    const int c = 32 * p;
+    if (p > 0) {
+      float u[2] = {0.0f, 0.0f};
+      for (int q = 0; q < p; ++q) piece_mma<32>(u, X + 32 * q, Y + c * kLdS + 32 * q);
+      float* xc = X + (threadIdx.x >> 4) * kLdS + c + (threadIdx.x & 15);
+      xc[0] -= u[0];
+      xc[16] -= u[1];
+      __syncthreads();
+    }
+    if (threadIdx.x < 32) {
+      dinv[c + lane] = 1.0f / Y[(c + lane) * kLdS + c + lane];  // NaN flows on, as in the tile body
+      __syncwarp();
+      float* xr = X + lane * kLdS + c;
+      float x[32];
 #pragma unroll
-  for (int a = 0; a < 2; ++a)
+      for (int q = 0; q < 8; ++q) {
+        const float4 v = gogp::ld4(xr + 4 * q);
+        x[4 * q] = v.x;
+        x[4 * q + 1] = v.y;
+        x[4 * q + 2] = v.z;
+        x[4 * q + 3] = v.w;
+      }
+      gogp::diag_solve_column<kLdS, false>(Y, dinv, c, x);
 #pragma unroll
-    for (int b = 0; b < 4; ++b) L[static_cast<size_t>(r0 + row + a) * n + k * B + lane + 32 * b] = out[a][b];
+      for (int q = 0; q < 8; ++q) gogp::st4(xr + 4 * q, make_float4(x[4 * q], x[4 * q + 1], x[4 * q + 2], x[4 * q + 3]));
+    }
+    __syncthreads();
+  }
+  constexpr int kIt = 32 * B / 4 / kThreads;
+#pragma unroll
+  for (int it = 0; it < kIt; ++it) {
+    const int q = threadIdx.x + it * kThreads;
+    gogp::st4(L + static_cast<size_t>(r0 + q / (B / 4)) * n + k * B + 4 * (q % (B / 4)),
+              gogp::ld4(X + (q / (B / 4)) * kLdS + 4 * (q % (B / 4))));
+  }
   // the same rows of the upper tile (k, i) are zero
   const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
 #pragma unroll
-  for (int it = 0; it < 32 * B / 4 / kThreads; ++it) {
+  for (int it = 0; it < kIt; ++it) {
     const int q = threadIdx.x + it * kThreads;
     gogp::st4(L + static_cast<size_t>(k * B + 32 * r + q / (B / 4)) * n + i * B + 4 * (q % (B / 4)), zero);
   }
@@ -252,7 +297,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       run_diag(L, invs, n, k, f, smem);
     } else {
       t -= kPieces + 1;
-      run_slab(K, L, invs, n, nb, k, k + 1 + t / 4, t % 4, f, smem);
+      run_slab(K, L, n, nb, k, k + 1 + t / 4, t % 4, f, smem);
     }
   }
 }

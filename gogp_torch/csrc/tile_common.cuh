@@ -96,13 +96,16 @@ __device__ __forceinline__ float warp_sum(float v) {
 //   - three block barriers per 32 columns; the tile moves between global and
 //     shared memory as float4 where the leading dimension allows, every load
 //     in flight at once;
-//   - one call site for every substitution (tile_solve): with a copy of it
-//     inlined for each kind of right-hand side, K2 alone was as fast, but K1
-//     and the stepwise driver, where the body runs between other work, lost
-//     3-8%, and K2 used 126 registers (110 now).
-// On an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke's kernels phase), K2
-// takes 0.0228 ms a tile, K1 0.565 ms at n = 1536 and 1.744 at 4096 (0.027,
-// 0.586 and 1.78 with the products by inverses).
+//   - one call site in the body for every substitution (tile_solve): with
+//     a copy of it inlined for each kind of right-hand side, K2 alone was
+//     as fast, but K1 and the stepwise driver, where the body runs between
+//     other work, lost 3-8%, and K2 used 126 registers (110 now).  K1's
+//     slabs (fused_chol.cu, run_slab) call diag_solve_column once more,
+//     outside the body.
+// On an NVIDIA H100 80GB HBM3 at 700 W, K2 takes 0.0228 ms a tile
+// (chip_smoke's kernels phase), K1 0.6235 ms at n = 1536 and 1.858 at 4096
+// (tests/panel_times.py; 0.565 and 1.744 when its slabs multiplied by
+// inv(L_kk)).
 // ---------------------------------------------------------------------------
 
 // The block size the tile body is written for.

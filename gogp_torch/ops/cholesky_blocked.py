@@ -628,10 +628,14 @@ def blocked_cholesky_invs(K: Tensor, block: int = DEFAULT_BLOCK) -> tuple[Tensor
 def _stepwise_cholesky_invs(K: Tensor, block: int = DEFAULT_BLOCK) -> tuple[Tensor, Tensor]:
     """Right-looking blocked Cholesky, twin of ``_stepwise_cholesky_invs``:
     per block column, K2 factors the diagonal tile (of every matrix of a
-    stack, one launch), the panel is ``A[c1:, c0:c1] @ inv^T`` and the
-    trailing update is one (batched) matmul.  Everything runs in place on
-    one copy of K, whose lower triangle becomes L; K2 reads and writes its
-    diagonal tile there."""
+    stack, one launch) and writes its inverse into ``invs``, the panel
+    solves ``X L_kk^T = A[c1:, c0:c1]`` by substitution (a triangular
+    solve, as the twin's row-sharded Cholesky forms it: the product with
+    inv(L_kk) that the twin's driver takes gave NaN on rbf covariances
+    with jitter 1e-5 where LAPACK's f32 factor is finite) and the trailing
+    update is one (batched) matmul.  Everything runs in place on one copy
+    of K, whose lower triangle becomes L; K2 reads and writes its diagonal
+    tile there."""
     n = K.shape[-1]
     _check_block(n, block)
     nb = n // block
@@ -643,7 +647,7 @@ def _stepwise_cholesky_invs(K: Tensor, block: int = DEFAULT_BLOCK) -> tuple[Tens
         _cholesky_inv_tile_into(diag, diag, invs[..., k, :, :])
         if c1 == n:
             break
-        panel = A[..., c1:, c0:c1] @ invs[..., k, :, :].mT
+        panel = torch.linalg.solve_triangular(diag.mT, A[..., c1:, c0:c1], upper=True, left=False)
         A[..., c1:, c0:c1] = panel
         trailing = A[..., c1:, c1:]
         (trailing.addmm_ if A.dim() == 2 else trailing.baddbmm_)(panel, panel.mT, alpha=-1.0)

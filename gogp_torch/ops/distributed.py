@@ -11,12 +11,12 @@ Right-looking blocked Cholesky, one host-loop step per block column k:
 
 1. the b x b diagonal block is broadcast from its owner (the twin
    psum-broadcasts it: the owner contributes, the others send zeros) and
-   factored redundantly on every rank, with its
-   inverse: K2 (``cholesky_blocked.cholesky_inv_tile``) at b = 128 on the
-   card, its plain version at any other block or on the CPU.  The JAX twin
-   factors the block with XLA's Cholesky and solves the panel; here the
-   panel is the product A_col V_kk^T with V_kk = L_kk^-1, as the port's
-   stepwise driver forms it;
+   factored redundantly on every rank: K2
+   (``cholesky_blocked.cholesky_inv_tile``) at b = 128 on the card, its
+   plain version at any other block or on the CPU.  The JAX twin factors
+   the block with XLA's Cholesky; both solve the local panel against
+   L_kk by substitution (X L_kk^T = A_col), as the port's stepwise driver
+   does;
 2. the panel (n x b) is all-gathered, the only O(n b) collective;
 3. the trailing update A -= L[:, k] L[:, k]^T is one local matmul, sliced to
    the rows and columns still to factor.  The block loop is a host loop, so
@@ -93,20 +93,18 @@ def cholesky_rowsharded(A_local: Tensor, axis=coll.DATA_AXIS, block: int = DEFAU
         c0, c1 = k * block, (k + 1) * block
         # 1. the diagonal block from its owner, factored everywhere
         (diag,) = _owner_block([A[:, c0:c1]], c0, block, row0, axis)
-        Lkk, Vkk = _diag_factor(diag, block)
-        # 2. the local panel: L[i, k] = A[i, k] L_kk^-T below the block,
-        # L_kk's rows inside it, zero above
-        r_lo = min(max(c0 - row0, 0), n_local)  # first local row at or below c0
+        Lkk, _ = _diag_factor(diag, block)
+        # 2. the local panel: below the block, L[i, k] solves X L_kk^T =
+        # A[i, k] by substitution; L_kk's rows inside it, zero above
+        r1 = min(max(c1 - row0, 0), n_local)  # first local row below the block
         panel_local = A.new_zeros((n_local, block))
-        panel_local[r_lo:] = A[r_lo:, c0:c1] @ Vkk.mT
+        panel_local[r1:] = torch.linalg.solve_triangular(Lkk.mT, A[r1:, c0:c1], upper=True, left=False)
         if row0 <= c0 < row0 + n_local:
             panel_local[c0 - row0:c1 - row0] = Lkk
         # 3. gather the panel; the trailing update, sliced
         panel = coll.all_gather(panel_local, axis)  # (n, block)
-        if c1 < n:
-            r1 = min(max(c1 - row0, 0), n_local)
-            if r1 < n_local:
-                A[r1:, c1:] -= panel_local[r1:] @ panel[c1:].mT
+        if r1 < n_local:
+            A[r1:, c1:] -= panel_local[r1:] @ panel[c1:].mT
         A[:, c0:c1] = panel_local
     return torch.where(torch.arange(n, device=A.device)[None, :] <= rows[:, None], A, 0.0)
 

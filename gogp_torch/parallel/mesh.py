@@ -227,7 +227,12 @@ def init_multihost(
     ``jax.distributed.initialize`` gives each process its own devices: the
     card becomes the current device, and the group is made for it
     (``device_id``), so that every communicator of the world and of its
-    sub-groups is made on that card.  A gloo world binds none."""
+    sub-groups is made on that card.  A gloo world binds none.
+
+    Destroy the group (``dist.destroy_process_group``) before the process
+    exits: a gloo rank that exits with its group alive can abort in its
+    teardown ("terminate called without an active exception") after its
+    work is done."""
     if not dist.is_initialized():
         if backend is None:
             backend = "nccl" if torch.cuda.is_available() else "gloo"

@@ -10,10 +10,14 @@ whether each f32 factor is finite at each jitter of ``chip_smoke.ILL_JITTERS``.
 - k1_1536, k1_4096, stepwise_8192: ``blocked_cholesky_invs`` at block 128
   (the twin's fused kernel at n = 1536, its stepwise driver above its
   ``_FUSED_MAX_N``);
+- k1_1536_1e-5, stepwise_1536_1e-5: the same at n = 1536, jitter 1e-5, the
+  stepwise case under ``no_fused_whole``; both twins are NaN there;
 
 every Pallas kernel in interpret mode.  Prints one JSON line a case; the
-phase's bounds are 10x the twin's errors.  About 5 min, most of it the twin
-at n = 8192 (several GB); ``--cases k2,k7_96`` runs some.
+phase's bounds are 10x the twin's errors ("twin_f32"), or where the twin is
+NaN 10x LAPACK's ("plain_f32": the plain version, LAPACK's factor and the
+inverses of its tiles), as "bound_source" says.  About 5 min, most of it
+the twin at n = 8192 (several GB); ``--cases k2,k7_96`` runs some.
 
     python tests/ill_bounds.py
 """
@@ -21,6 +25,7 @@ at n = 8192 (several GB); ``--cases k2,k7_96`` runs some.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import sys
@@ -57,7 +62,8 @@ def twin(case: str, A: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
         if case.startswith("k7"):
             L = jax.jit(jfused_gp.chol_value)(jnp.asarray(A))
             return np.asarray(L), np.asarray(jax.jit(jfused_gp.lower_inv_value)(L))
-        L, invs = jax.jit(lambda a: cp.blocked_cholesky_invs(a, chip_smoke.BLOCK))(jnp.asarray(A[0]))
+        with cp.no_fused_whole() if case.startswith("stepwise") else contextlib.nullcontext():
+            L, invs = jax.jit(lambda a: cp.blocked_cholesky_invs(a, chip_smoke.BLOCK))(jnp.asarray(A[0]))
         return np.asarray(L)[None], np.asarray(invs)[None]
 
 
@@ -81,6 +87,7 @@ def main() -> None:
         twin_errs = chip_smoke.ill_errors(A, torch.tensor(Lt), torch.tensor(Vt), block)
         plain_errs = chip_smoke.ill_errors(A, Lp, Vp, block)
         print(json.dumps({"case": case, "twin_f32": twin_errs, "plain_f32": plain_errs,
+                          "bound_source": "plain_f32" if case in chip_smoke.ILL_LAPACK_F32 else "twin_f32",
                           "twin_finite": bool(np.isfinite(Lt).all() and np.isfinite(Vt).all()),
                           "lapack_f32_finite_at": finite_f32(case),
                           "min_diag_L64": float(torch.linalg.cholesky(A.double()).diagonal(dim1=-2, dim2=-1).min()),

@@ -5,8 +5,8 @@ Four gloo ranks (one pool for the file, ``torch_dist_pool``) run the port
 on a (1, 4) mesh; the JAX twin runs on a (1, 4) mesh of the test process's
 virtual CPU devices.  Each rank returns its rows and the test stacks them.
 Tolerance 1e-9 (relative, absolute 1e-9) for the factor, the solves, the
-LML value and its backward: the same blocked algorithm, the panel formed
-as A V_kk^T where the twin solves it, the sums in other orders.
+LML value and its backward: the same blocked algorithm, each panel solved
+against L_kk as the twin solves it, the sums in other orders.
 """
 
 import functools

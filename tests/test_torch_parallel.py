@@ -129,6 +129,7 @@ WORKER = textwrap.dedent(
     pid, port = int(sys.argv[1]), sys.argv[2]
     sys.path.insert(0, sys.argv[3])
     import torch
+    import torch.distributed as dist
     from gogp_torch.parallel import mesh as pmesh
 
     n = pmesh.init_multihost(f"localhost:{port}", num_processes=2, process_id=pid, backend="gloo")
@@ -138,6 +139,7 @@ WORKER = textwrap.dedent(
         out = pmesh.psum(torch.tensor([1.0, 2.0])[pid:pid + 1], pmesh.CHAIN_AXIS)
     assert float(out) == 3.0, out
     print(f"proc {pid}: psum over 2 processes = {float(out)} OK", flush=True)
+    dist.destroy_process_group()
     """
 )
 
@@ -145,7 +147,11 @@ WORKER = textwrap.dedent(
 def test_init_multihost_two_processes():
     """Two OS processes join a localhost coordinator through
     ``init_multihost`` and psum over a 2x1 mesh (the twin of
-    tests/test_multihost.py)."""
+    tests/test_multihost.py).  Each destroys its group before it exits: a
+    process that exits with its gloo group alive can abort in its teardown
+    ("terminate called without an active exception", exit code -6) after
+    its psum is done.  Both processes' output goes into every failure's
+    message."""
     with socket.socket() as s:
         s.bind(("localhost", 0))
         port = s.getsockname()[1]
@@ -160,9 +166,11 @@ def test_init_multihost_two_processes():
             p.kill()
             out = p.communicate()[0]
         outs.append(out)
+    report = "\n".join(f"--- proc {pid}, exit code {p.returncode}:\n{out}"
+                       for pid, (p, out) in enumerate(zip(procs, outs)))
     for pid, (p, out) in enumerate(zip(procs, outs)):
-        assert p.returncode == 0, out
-        assert f"proc {pid}: psum over 2 processes = 3.0 OK" in out
+        assert p.returncode == 0, report
+        assert f"proc {pid}: psum over 2 processes = 3.0 OK" in out, report
 
 
 # --- the samplers -------------------------------------------------------------------
