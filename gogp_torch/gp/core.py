@@ -37,6 +37,7 @@ from gogp_torch.kernels.base import Kernel, NoiseKernel
 from gogp_torch.kernels.noise import constant_noise
 from gogp_torch.ops import iterative, linalg
 from gogp_torch.ops import toeplitz as tz
+from gogp_torch.utils.profiling import span
 
 Tensor = torch.Tensor
 
@@ -115,12 +116,13 @@ def masked_cov(gp: GP, theta_simil, theta_noise, x: Tensor, mask: Tensor | None)
     """Covariance with noise on the diagonal,
     K[i, j] = simil(x_i, x_j) + delta_ij noise(x_j); padded rows and columns
     are replaced by identity rows."""
-    k = gp.simil.matrix(theta_simil, x, x)
-    k = k + torch.diag_embed(gp.noise.vector(theta_noise, x))
-    if mask is not None:
-        m = mask.to(k.dtype)
-        k = k * (m[:, None] * m[None, :]) + torch.diag_embed(1.0 - m)
-    return k
+    with span("gp.cov", device=True):
+        k = gp.simil.matrix(theta_simil, x, x)
+        k = k + torch.diag_embed(gp.noise.vector(theta_noise, x))
+        if mask is not None:
+            m = mask.to(k.dtype)
+            k = k * (m[:, None] * m[None, :]) + torch.diag_embed(1.0 - m)
+        return k
 
 
 def absorb(gp: GP, theta_simil, theta_noise, x, y, mask=None, robust: bool = False) -> Posterior:

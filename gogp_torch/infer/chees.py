@@ -60,6 +60,7 @@ import torch
 from gogp_torch.infer import adapt, diagnostics
 from gogp_torch.infer.hmc import IntegratorState, Samples, as_free, kinetic, leapfrog_step, value_and_grad
 from gogp_torch.ops import collectives as coll
+from gogp_torch.utils.profiling import host_read, span
 
 Tensor = torch.Tensor
 LogDensity = Callable[[Tensor], Tensor]
@@ -248,9 +249,12 @@ def n_leapfrog_steps(state: ChEESState, max_num_steps: int = 256) -> tuple[int |
     """The transition's step count (an int; with groups, a list of G, read
     to the host in one copy) and its jittered integration time t = max(u T,
     step), u = halton(step)."""
-    u = _halton2(state.step).to(device=state.step_size.device, dtype=state.step_size.dtype)
-    t_real = torch.maximum(u * torch.exp(state.log_traj), state.step_size)
-    counts = [min(max(int(n), 1), max_num_steps) for n in torch.ceil(t_real / state.step_size).reshape(-1).tolist()]
+    # the jitter's copy to the card waits for the stream, as the read does
+    with host_read("chees_steps"):
+        u = _halton2(state.step).to(device=state.step_size.device, dtype=state.step_size.dtype)
+        t_real = torch.maximum(u * torch.exp(state.log_traj), state.step_size)
+        n = torch.ceil(t_real / state.step_size).reshape(-1).tolist()
+    counts = [min(max(int(k), 1), max_num_steps) for k in n]
     return (counts if state.step_size.dim() else counts[0]), t_real
 
 
@@ -293,63 +297,64 @@ def chees_transition(
     ``adapt_traj`` one ChEES gradient step on log T.  ``axis_name``: mesh
     axes holding more chains of the population (this slab's first at
     global index ``chain_offset``)."""
-    freea = as_free(free, state.positions)
-    vg = value_and_grad(logp, freea)
-    r0_raw, u_acc = population_draws(draws, state, axis_name, chain_offset)
+    with span("chees.transition"):
+        freea = as_free(free, state.positions)
+        vg = value_and_grad(logp, freea)
+        r0_raw, u_acc = population_draws(draws, state, axis_name, chain_offset)
 
-    n_steps, t_real = n_leapfrog_steps(state, max_num_steps)
-    inv_mass = state.inv_mass.unsqueeze(-2)
-    r0 = r0_raw / torch.sqrt(inv_mass)
-    if freea is not None:
-        r0 = r0 * freea
-    energy0 = -state.logps + kinetic(r0, inv_mass)
-    integ = _integrate(vg, state, r0, n_steps, freea)
+        n_steps, t_real = n_leapfrog_steps(state, max_num_steps)
+        inv_mass = state.inv_mass.unsqueeze(-2)
+        r0 = r0_raw / torch.sqrt(inv_mass)
+        if freea is not None:
+            r0 = r0 * freea
+        energy0 = -state.logps + kinetic(r0, inv_mass)
+        integ = _integrate(vg, state, r0, n_steps, freea)
 
-    energy1 = -integ.logp + kinetic(integ.momentum, inv_mass)
-    delta = energy1 - energy0
-    delta = torch.where(torch.isnan(delta), torch.inf, delta)
-    accept_probs = torch.where(delta > divergence_threshold, 0.0, torch.clamp(torch.exp(-delta), max=1.0))
-    accept = u_acc < accept_probs
-    acc = accept[..., None]
-    positions = torch.where(acc, integ.position, state.positions)
-    logps = torch.where(accept, integ.logp, state.logps)
-    grads = torch.where(acc, integ.grad, state.grads)
+        energy1 = -integ.logp + kinetic(integ.momentum, inv_mass)
+        delta = energy1 - energy0
+        delta = torch.where(torch.isnan(delta), torch.inf, delta)
+        accept_probs = torch.where(delta > divergence_threshold, 0.0, torch.clamp(torch.exp(-delta), max=1.0))
+        accept = u_acc < accept_probs
+        acc = accept[..., None]
+        positions = torch.where(acc, integ.position, state.positions)
+        logps = torch.where(accept, integ.logp, state.logps)
+        grads = torch.where(acc, integ.grad, state.grads)
 
-    # ChEES gradient on log T (Hoffman et al. 2021, eq. 8-9): the centred
-    # squared-radius change, differentiated through the endpoint velocity.
-    # Divergent chains (non-finite endpoints) enter with their start point at
-    # weight 0, so an inf cannot poison the cross-chain means.
-    fin = (torch.isfinite(integ.position).all(-1) & torch.isfinite(integ.momentum).all(-1)
-           & torch.isfinite(delta))
-    q1 = torch.where(fin[..., None], integ.position, state.positions)
-    vel1 = torch.where(fin[..., None], inv_mass * integ.momentum, 0.0)
-    c0 = state.positions - _cross_mean(state.positions, axis_name, -2).unsqueeze(-2)
-    c1 = q1 - _cross_mean(q1, axis_name, -2).unsqueeze(-2)
-    delta_sq = (c1 * c1).sum(-1) - (c0 * c0).sum(-1)
-    ddelta_dt = 2.0 * (c1 * vel1).sum(-1)
-    w = accept_probs * fin
-    wsum = _cross_mean(w, axis_name, -1) + 1e-12
-    g_t = _cross_mean(w * delta_sq * ddelta_dt, axis_name, -1) / wsum
-    g_logt = g_t * t_real
-    g_logt = torch.where(torch.isfinite(g_logt), g_logt, 0.0)
-    log_traj, adam = state.log_traj, state.adam
-    if adapt_traj:
-        upd, adam = _adam_update(state.adam, g_logt, traj_lr)
-        log_traj = state.log_traj + upd
-    # keep T in [step, max_num_steps * step]: outside it the jittered step
-    # count saturates and the gradient decouples from T
-    log_traj = torch.minimum(torch.maximum(log_traj, torch.log(state.step_size)),
-                             torch.log(state.step_size * max_num_steps))
+        # ChEES gradient on log T (Hoffman et al. 2021, eq. 8-9): the centred
+        # squared-radius change, differentiated through the endpoint velocity.
+        # Divergent chains (non-finite endpoints) enter with their start point at
+        # weight 0, so an inf cannot poison the cross-chain means.
+        fin = (torch.isfinite(integ.position).all(-1) & torch.isfinite(integ.momentum).all(-1)
+               & torch.isfinite(delta))
+        q1 = torch.where(fin[..., None], integ.position, state.positions)
+        vel1 = torch.where(fin[..., None], inv_mass * integ.momentum, 0.0)
+        c0 = state.positions - _cross_mean(state.positions, axis_name, -2).unsqueeze(-2)
+        c1 = q1 - _cross_mean(q1, axis_name, -2).unsqueeze(-2)
+        delta_sq = (c1 * c1).sum(-1) - (c0 * c0).sum(-1)
+        ddelta_dt = 2.0 * (c1 * vel1).sum(-1)
+        w = accept_probs * fin
+        wsum = _cross_mean(w, axis_name, -1) + 1e-12
+        g_t = _cross_mean(w * delta_sq * ddelta_dt, axis_name, -1) / wsum
+        g_logt = g_t * t_real
+        g_logt = torch.where(torch.isfinite(g_logt), g_logt, 0.0)
+        log_traj, adam = state.log_traj, state.adam
+        if adapt_traj:
+            upd, adam = _adam_update(state.adam, g_logt, traj_lr)
+            log_traj = state.log_traj + upd
+        # keep T in [step, max_num_steps * step]: outside it the jittered step
+        # count saturates and the gradient decouples from T
+        log_traj = torch.minimum(torch.maximum(log_traj, torch.log(state.step_size)),
+                                 torch.log(state.step_size * max_num_steps))
 
-    return state._replace(
-        positions=positions,
-        logps=logps,
-        grads=grads,
-        accept_probs=accept_probs,
-        log_traj=log_traj,
-        adam=adam,
-        step=state.step + 1,
-    )
+        return state._replace(
+            positions=positions,
+            logps=logps,
+            grads=grads,
+            accept_probs=accept_probs,
+            log_traj=log_traj,
+            adam=adam,
+            step=state.step + 1,
+        )
 
 
 def _welford_update_population(w: adapt.WelfordState, X: Tensor, axis_name=None) -> adapt.WelfordState:

@@ -36,6 +36,7 @@ from typing import Any, Callable, NamedTuple
 import torch
 
 from gogp_torch.infer import adapt
+from gogp_torch.utils.profiling import count, span
 
 Tensor = torch.Tensor
 LogDensity = Callable[[Tensor], Tensor]
@@ -89,13 +90,16 @@ def value_and_grad(logp: LogDensity, free: Tensor | None) -> ValueAndGrad:
     runs through the same code."""
 
     def vg(q: Tensor) -> tuple[Tensor, Tensor]:
-        q = q.detach().requires_grad_(True)
-        with torch.enable_grad():
-            lp = logp(q)
-            (g,) = torch.autograd.grad(lp.sum(), q)
-        if free is not None:
-            g = g * free
-        return lp.detach(), g
+        with span("vg", device=True):
+            count("vg_calls")
+            q = q.detach().requires_grad_(True)
+            with torch.enable_grad():
+                lp = logp(q)
+                with span("vg.backward", device=True):
+                    (g,) = torch.autograd.grad(lp.sum(), q)
+            if free is not None:
+                g = g * free
+            return lp.detach(), g
 
     return vg
 

@@ -25,6 +25,8 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from gogp_torch.utils.profiling import host_read, span
+
 Tensor = torch.Tensor
 
 DEFAULT_ITERS = 1000
@@ -127,22 +129,26 @@ def adam_batched(
     steps = torch.zeros(rows, dtype=torch.int64, device=x.device)
     gmax = torch.full((rows,), math.inf, dtype=x.dtype, device=x.device)
     active = torch.full((rows,), iters > 0, dtype=torch.bool, device=x.device)
-    while bool(active.any()):
-        v, g = value_and_grad_logp(x)
-        v, g = -v, -g  # minimize -logp
-        finite = torch.isfinite(v) & torch.isfinite(g).all(-1)
-        g = torch.where(finite[:, None], g, 0.0)
-        value = torch.where(active & finite, v, value)
-        steps = steps + active
-        (update,), new = adam_update((g,), moments, rate)
-        x_new = x + torch.where(finite[:, None], update, 0.0)
-        on = active[:, None]
-        x = torch.where(on, x_new, x)
-        moments = AdamState((torch.where(on, new.mu[0], moments.mu[0]),), (torch.where(on, new.nu[0], moments.nu[0]),),
-                            new.count)
-        bad = bad | (active & ~finite)
-        gmax = torch.where(active, torch.where(finite, _row_gmax(g), 0.0), gmax)
-        active = active & (steps < iters) & (gmax >= threshold)
+    running = iters > 0 and rows > 0  # active.any(), known without a read
+    while running:
+        with span("mle.step"):
+            v, g = value_and_grad_logp(x)
+            v, g = -v, -g  # minimize -logp
+            finite = torch.isfinite(v) & torch.isfinite(g).all(-1)
+            g = torch.where(finite[:, None], g, 0.0)
+            value = torch.where(active & finite, v, value)
+            steps = steps + active
+            (update,), new = adam_update((g,), moments, rate)
+            x_new = x + torch.where(finite[:, None], update, 0.0)
+            on = active[:, None]
+            x = torch.where(on, x_new, x)
+            moments = AdamState((torch.where(on, new.mu[0], moments.mu[0]),),
+                                (torch.where(on, new.nu[0], moments.nu[0]),), new.count)
+            bad = bad | (active & ~finite)
+            gmax = torch.where(active, torch.where(finite, _row_gmax(g), 0.0), gmax)
+            active = active & (steps < iters) & (gmax >= threshold)
+            with host_read("adam_stop"):
+                running = bool(active.any())
     return OptResult(x, -value, steps, (gmax < threshold) & ~bad, bad)
 
 

@@ -12,6 +12,8 @@ from typing import Callable
 
 import torch
 
+from gogp_torch.utils.profiling import count, span
+
 Tensor = torch.Tensor
 LogDensity = Callable[[Tensor], Tensor]
 
@@ -34,16 +36,19 @@ def masked_value_and_grad(logp: LogDensity, free: Tensor | None = None):
     back detached; a ``logp`` that does not depend on ``v`` has gradient 0."""
 
     def value_and_grad(v):
-        v = torch.as_tensor(v).detach().requires_grad_(True)
-        with torch.enable_grad():
-            value = logp(v)
-            if value.requires_grad:
-                (grad,) = torch.autograd.grad(value, v)
-            else:
-                grad = torch.zeros_like(v)
-        if free is not None:
-            grad = grad * torch.as_tensor(free, dtype=grad.dtype, device=grad.device)
-        return value.detach(), grad
+        with span("vg", device=True):
+            count("vg_calls")
+            v = torch.as_tensor(v).detach().requires_grad_(True)
+            with torch.enable_grad():
+                value = logp(v)
+                if value.requires_grad:
+                    with span("vg.backward", device=True):
+                        (grad,) = torch.autograd.grad(value, v)
+                else:
+                    grad = torch.zeros_like(v)
+            if free is not None:
+                grad = grad * torch.as_tensor(free, dtype=grad.dtype, device=grad.device)
+            return value.detach(), grad
 
     return value_and_grad
 

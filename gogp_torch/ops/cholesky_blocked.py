@@ -88,6 +88,7 @@ import contextlib
 import torch
 
 from gogp_torch.ops import _build
+from gogp_torch.utils.profiling import count, host_read, span
 
 Tensor = torch.Tensor
 
@@ -800,7 +801,10 @@ class _Cholesky(torch.autograd.Function):
         L = _chol_forward(K, block, tf32)
         if rescue and tf32:
             bad = ~torch.isfinite(torch.diagonal(L, dim1=-2, dim2=-1)).all(-1)
-            if bool(bad.any()):
+            with host_read("rescue"):
+                any_bad = bool(bad.any())
+            if any_bad:
+                count("rescues")
                 return _select(bad, L, _chol_forward(K, block, False)), bad
         return L, None
 
@@ -909,19 +913,20 @@ def trsm_lower_t_ad(L: Tensor, B: Tensor, block: int = DEFAULT_BLOCK, precision:
 def _lml_forward(K: Tensor, y: Tensor, block: int, needs_grad: bool, tf32: bool):
     """(value, L, alpha or None, invs) of one matrix or a stack (y (n,)
     shared by the stack, or (B, n))."""
-    with _matmul_tf32(tf32):
+    with span("lml.factor", device=True), _matmul_tf32(tf32):
         L, invs = _chol_invs_for_lml(K, block)
-    y = y.expand(L.shape[:-1]).contiguous()
-    solve, solve_t = trsv_solvers(K.shape[-1], block)
-    z = solve(L, y, invs, block)
-    alpha = solve_t(L, z, invs, block) if needs_grad else None
+    with span("lml.solve", device=True):
+        y = y.expand(L.shape[:-1]).contiguous()
+        solve, solve_t = trsv_solvers(K.shape[-1], block)
+        z = solve(L, y, invs, block)
+        alpha = solve_t(L, z, invs, block) if needs_grad else None
     logdet = 2.0 * torch.log(torch.diagonal(L, dim1=-2, dim2=-1)).sum(-1)
     return -0.5 * (logdet + (z * z).sum(-1)), L, alpha, invs
 
 
 def _lml_kinv(L: Tensor, invs: Tensor, block: int, tf32: bool) -> Tensor:
     """K^-1 = W^T W, W = inv(L) from the factorization's tile inverses."""
-    with _matmul_tf32(tf32):
+    with span("lml.kinv", device=True), _matmul_tf32(tf32):
         return syrk_lower_t(blocked_tril_inv(L, block, invs))
 
 
@@ -942,7 +947,10 @@ class _LmlCore(torch.autograd.Function):
         out = _lml_forward(K, y, block, needs_grad, tf32)
         if rescue and tf32:
             bad = ~torch.isfinite(out[0])
-            if bool(bad.any()):
+            with host_read("rescue"):
+                any_bad = bool(bad.any())
+            if any_bad:
+                count("rescues")
                 out32 = _lml_forward(K, y, block, needs_grad, False)
                 return (*(_select(bad, a, b) for a, b in zip(out, out32)), bad)
         return (*out, None)
@@ -958,11 +966,12 @@ class _LmlCore(torch.autograd.Function):
     def backward(ctx, g, *_):
         L, alpha, invs, rescued = ctx.saved_tensors
         Kbar = ybar = None
-        if ctx.needs_input_grad[0]:
-            Kinv = _per_precision(lambda tf32: _lml_kinv(L, invs, ctx.block, tf32), ctx.tf32, rescued)
-            Kbar = (0.5 * g[..., None, None]) * (alpha[..., :, None] * alpha[..., None, :] - Kinv)
-        if ctx.needs_input_grad[1]:
-            ybar = -g[..., None] * alpha
+        with span("lml.backward", device=True):
+            if ctx.needs_input_grad[0]:
+                Kinv = _per_precision(lambda tf32: _lml_kinv(L, invs, ctx.block, tf32), ctx.tf32, rescued)
+                Kbar = (0.5 * g[..., None, None]) * (alpha[..., :, None] * alpha[..., None, :] - Kinv)
+            if ctx.needs_input_grad[1]:
+                ybar = -g[..., None] * alpha
         return Kbar, ybar, None, None, None, None
 
     @staticmethod

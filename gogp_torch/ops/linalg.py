@@ -57,6 +57,7 @@ import contextlib
 import torch
 
 from gogp_torch.ops import cholesky_blocked as cb
+from gogp_torch.utils.profiling import host_read
 
 Tensor = torch.Tensor
 
@@ -148,7 +149,9 @@ def cholesky_with_jitter(
     L = cholesky(K, precision)
     jitter = torch.zeros((), dtype=K.dtype, device=K.device)
     for t in range(max_tries):
-        if bool(torch.isfinite(torch.diagonal(L)).all()):
+        with host_read("jitter"):
+            factored = bool(torch.isfinite(torch.diagonal(L)).all())
+        if factored:
             break
         jitter = scale * 10.0**t
         L = cholesky(K + jitter * eye, precision)

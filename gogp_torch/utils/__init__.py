@@ -3,6 +3,6 @@ timing, and the native (C++) host helpers.  PyTorch twin of
 ``gogp_tpu/utils``."""
 
 from gogp_torch.utils.checkpoint import restore, save
-from gogp_torch.utils.profiling import PhaseTimer, device_trace, timed
+from gogp_torch.utils.profiling import PhaseTimer, count, device_trace, recording, span, timed
 
-__all__ = ["PhaseTimer", "device_trace", "restore", "save", "timed"]
+__all__ = ["PhaseTimer", "count", "device_trace", "recording", "restore", "save", "span", "timed"]
